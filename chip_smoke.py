@@ -13,9 +13,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               16384-problem N=40 queue (60 iterations + 2 restarts).  Every
               kernel launch count is reset just before and read just after.
   6. cross:   256 problems, f32 "cuda" backend vs f64 "torch" backend.
-Then one JSON line of kernel results, the nvidia-smi name/power-limit line,
-and last the JSON status line.  Imports torch, numpy and
-mpc_verde_tpu_torch only.
+  7. K3:      fused derivs+backward kernel vs its twin, float32 on the card:
+              the bench OCP at B=1024, N=40 along pre-rolled trajectories
+              (DDP on and off), the same with a terminal cost (Qf = 2Q), and
+              random trajectories.
+  8. main-fused: phase 5's queue and options on backend="cuda_fused"; its
+              results are held against phase 5's.
+  9. fleet:   the closed-loop fleet (scenarios/fleet.py SPEC: B=1024, N=10,
+              Nsim=150, RK4 controller, Euler plant) on "cuda_fused", with
+              the JAX package's own gates.
+Phases 5, 8 and 9 each set every kernel launch count to 0 just before and
+read it just after.  Then one JSON line of kernel results, the nvidia-smi
+name/power-limit line, and last the JSON status line.  Imports torch, numpy
+and mpc_verde_tpu_torch only.
 """
 from __future__ import annotations
 
@@ -32,8 +42,14 @@ SOURCES = {
                          "mpc_verde_tpu/ops/pallas/riccati.py:336"),
     "linesearch_forward": ("mpc_verde_tpu_torch/csrc/rollout.cu",
                            "mpc_verde_tpu/ops/pallas/rollout.py:351"),
+    "fused_backward": ("mpc_verde_tpu_torch/csrc/fused.cu",
+                       "mpc_verde_tpu/ops/pallas/fused.py:135"),
 }
 BENCH_N, WIDTH, QUEUE, CROSS = 40, 1024, 16384, 256
+# kernel vs twin, float32, relative to max(1, |ref|): the Pallas Riccati
+# kernel's own test tolerances (tests/test_pallas_riccati.py)
+K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "gmax": 1e-4}
+BACKWARD_OUT = ("kff", "K", "dV1", "dV2", "gmax")
 # JAX full-mode quality band on the same workload (TPU run, BENCH_r05.json)
 JAX_BAND = {"converged_frac": 1.0, "mean_iterations": 15.14}
 
@@ -105,10 +121,10 @@ def _random_riccati(rng, B, N, nx, nu, dev):
             t(np.full((B,), 1e-6)), t(np.ones((B,))))
 
 
-def _bench_backward_inputs(ocp, B, dev):
-    """Bench-OCP derivatives along pre-rolled trajectories (twin pre-roll)."""
+def _bench_trajectories(ocp, B, dev):
+    """Bench-OCP trajectories (xs, us, ps), pre-rolled by the twin from zero
+    controls: what the main path's first iteration sees."""
     from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
-    from mpc_verde_tpu_torch.ops.linearize import linearize_trajectory
 
     N = ocp.N
     x0, ps, us = (torch.as_tensor(a, device=dev) for a in _queue(B, N, 1))
@@ -117,6 +133,16 @@ def _bench_backward_inputs(ocp, B, dev):
         x0, torch.zeros((B, N + 1, 3), **f), us, ps,
         torch.zeros((B, N, 2), **f), torch.zeros((B, N, 2, 3), **f), (1.0,),
         ocp=ocp)
+    return xs, us, ps
+
+
+def _bench_backward_inputs(ocp, B, dev):
+    """Bench-OCP derivatives along pre-rolled trajectories (twin pre-roll)."""
+    from mpc_verde_tpu_torch.ops.linearize import linearize_trajectory
+
+    N = ocp.N
+    f = dict(dtype=torch.float32, device=dev)
+    xs, us, ps = _bench_trajectories(ocp, B, dev)
     d = linearize_trajectory(ocp.dynamics, ocp.stage_cost, xs[:, :N], us,
                              ps[:, :N], second_order=True)
     d = {k: v.contiguous() for k, v in d.items()}
@@ -131,21 +157,12 @@ def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N):
     from mpc_verde_tpu_torch.ops.cuda.riccati import (
         SUPPORTED, riccati_backward, riccati_backward_torch)
 
-    tol = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "gmax": 1e-4}
-    names = ("kff", "K", "dV1", "dV2", "gmax")
     rng = np.random.default_rng(7)
 
     def compare(args, nx, nu, label):
         out = riccati_backward(*args, nx=nx, nu=nu)
         ref = riccati_backward_torch(*args, nx=nx, nu=nu)
-        errs = {n: _rel_err(o, r) for n, o, r in zip(names, out, ref)}
-        bad = {n: e for n, e in errs.items() if n in tol and e > tol[n]}
-        print(f"[k1] {label} (nx,nu)=({nx},{nu}) rel err (vs max(1,|ref|)) "
-              + " ".join(f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
-        if bad:
-            raise AssertionError(f"K1 {label} ({nx},{nu}) out of tolerance "
-                                 f"{tol}: {bad}")
-        return max(_abs_err(o, r) for o, r in zip(out, ref))
+        return _hold(out, ref, "k1", f"{label} (nx,nu)=({nx},{nu})")
 
     for nx, nu in sorted(SUPPORTED):
         compare(_random_riccati(rng, B_rand, N_rand, nx, nu, dev), nx, nu,
@@ -201,6 +218,18 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+def _hold(out, ref, tag, label):
+    """Hold backward-pass outputs against the twin's at K1_TOL; max abs err."""
+    errs = {n: _rel_err(o, r) for n, o, r in zip(BACKWARD_OUT, out, ref)}
+    bad = {n: e for n, e in errs.items() if n in K1_TOL and e > K1_TOL[n]}
+    print(f"[{tag}] {label} rel err (vs max(1,|ref|)) "
+          + " ".join(f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
+    if bad:
+        raise AssertionError(f"{tag.upper()} {label} out of tolerance "
+                             f"{K1_TOL}: {bad}")
+    return max(_abs_err(o, r) for o, r in zip(out, ref))
+
+
 def _check_result(res, M, N):
     shapes = {"xs": (M, N + 1, 3), "us": (M, N, 2), "cost": (M,)}
     for name, shape in shapes.items():
@@ -210,48 +239,89 @@ def _check_result(res, M, N):
                                  f"(expected {shape}) or non-finite values")
 
 
-def phase_main(dev, gpu, M=QUEUE, W=WIDTH, N=BENCH_N):
-    from mpc_verde_tpu_torch import make_streaming_solver
-    from mpc_verde_tpu_torch.interop import bench_ocp
-    from mpc_verde_tpu_torch.ops.cuda.riccati import (
-        riccati_backward, riccati_backward_torch)
-    from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        linesearch_forward, linesearch_forward_torch)
+def _path_counters():
+    """Every kernel wrapper (launch counts) and every twin (CUDA calls)."""
+    from mpc_verde_tpu_torch.ops.cuda import (
+        fused_backward, fused_backward_torch, linesearch_forward,
+        linesearch_forward_torch, riccati_backward, riccati_backward_torch)
 
-    ocp = bench_ocp(N, dev, torch.float32)
-    solve = make_streaming_solver(ocp, _opts(), backend="cuda",
-                                  batch_width=W, restarts=2)
-    x0q, psq, us0q = _queue(M, N)
-    solve(x0q[:W], psq[:W], us0q[:W], max_iters=60, restarts_n=2)  # warm-up
-    torch.cuda.synchronize()
+    return ((riccati_backward, linesearch_forward, fused_backward),
+            (riccati_backward_torch, linesearch_forward_torch,
+             fused_backward_torch))
 
-    kernels = (riccati_backward, linesearch_forward)
-    twins = (riccati_backward_torch, linesearch_forward_torch)
+
+def _drive(run):
+    """Run one path with every count set to 0 just before and read just
+    after; returns (result, wall s, launches, twin calls on CUDA)."""
+    kernels, twins = _path_counters()
     for f in kernels:
         f.launches = 0
     for f in twins:
         f.cuda_calls = 0
     t0 = time.perf_counter()
-    res = solve(x0q, psq, us0q, max_iters=60, restarts_n=2)
+    res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {f.__name__: f.launches for f in kernels}
-    twin_calls = {f.__name__: f.cuda_calls for f in twins}
+    return (res, wall, {f.__name__: f.launches for f in kernels},
+            {f.__name__: f.cuda_calls for f in twins})
+
+
+def _check_path(launches, twin_calls, path_kernels):
+    if min(launches[k] for k in path_kernels) < 1:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if max(twin_calls.values()) > 0:
+        raise AssertionError(f"a twin ran on CUDA tensors: {twin_calls}")
+
+
+def _streaming(dev, gpu, backend, path_kernels, tag, M, W, N):
+    """Phase 5's streaming solve of the bench queue on ``backend``."""
+    from mpc_verde_tpu_torch import make_streaming_solver
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    ocp = bench_ocp(N, dev, torch.float32)
+    solve = make_streaming_solver(ocp, _opts(), backend=backend,
+                                  batch_width=W, restarts=2)
+    x0q, psq, us0q = _queue(M, N)
+    solve(x0q[:W], psq[:W], us0q[:W], max_iters=60, restarts_n=2)  # warm-up
+    torch.cuda.synchronize()
+    res, wall, launches, twin_calls = _drive(
+        lambda: solve(x0q, psq, us0q, max_iters=60, restarts_n=2))
 
     _check_result(res, M, N)
     conv = float(res.converged.float().mean())
     mean_it = float(res.iterations.double().mean())
-    print(f"[main] streaming backend=cuda W={W} M={M} N={N}: "
+    print(f"[{tag}] streaming backend={backend} W={W} M={M} N={N}: "
           f"{M / wall:.1f} solves/s ({wall:.3f} s), converged_frac {conv:.4f}, "
           f"mean_iterations {mean_it:.3f}, launches {launches}, twin calls "
           f"on CUDA {twin_calls} | JAX band (TPU run) {JAX_BAND} | GPU {gpu}",
           flush=True)
     if conv < 0.99:
         raise AssertionError(f"converged_frac {conv} < 0.99")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never ran: {launches}")
-    if max(twin_calls.values()) > 0:
-        raise AssertionError(f"a twin ran on CUDA tensors: {twin_calls}")
+    _check_path(launches, twin_calls, path_kernels)
+    return launches, res
+
+
+def phase_main(dev, gpu, M=QUEUE, W=WIDTH, N=BENCH_N):
+    return _streaming(dev, gpu, "cuda",
+                      ("riccati_backward", "linesearch_forward"), "main",
+                      M, W, N)
+
+
+def phase_main_fused(dev, gpu, ref, M=QUEUE, W=WIDTH, N=BENCH_N):
+    """Phase 5's queue on "cuda_fused", held against phase 5's result
+    ``ref``: the two float32 paths differ only in how the stage derivatives
+    are computed (dual numbers in the kernel, torch.func in phase 5)."""
+    launches, res = _streaming(dev, gpu, "cuda_fused",
+                               ("fused_backward", "linesearch_forward"),
+                               "main-fused", M, W, N)
+    agree = float((res.converged == ref.converged).float().mean())
+    both = res.converged & ref.converged
+    rel = float(((res.cost.double() - ref.cost.double()).abs()
+                 / ref.cost.double().abs())[both].max())
+    print(f"[main-fused] vs phase 5: converged agree {agree:.4f}, cost rel "
+          f"err where both converged {rel:.2e}", flush=True)
+    if agree < 0.99 or rel > 1e-3:
+        raise AssertionError(f"cuda_fused vs cuda: agree {agree}, rel {rel}")
     return launches
 
 
@@ -280,6 +350,88 @@ def phase_cross(dev, M=CROSS, N=BENCH_N):
         raise AssertionError(f"cross-check failed: agree {agree}, rel {rel}")
 
 
+def phase_k3(dev, B=WIDTH, N=BENCH_N, B_rand=1000, N_rand=6):
+    from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
+    from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
+                                                    fused_backward_torch)
+
+    def compare(ocp, args, use_ddp, label):
+        out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp)
+        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+        return _hold(out, ref, "k3", label)
+
+    def terminal_ocp(n):   # tests/test_pallas_fused.py's terminal cost 2 e'Qe
+        Q = np.diag([1.0, 5.0, 0.1])
+        return unicycle_ocp(n, dev, dt=BENCH_DT, Q=Q, R=np.diag([0.5, 0.05]),
+                            lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4],
+                            Qf=2.0 * Q)
+
+    f = dict(dtype=torch.float32, device=dev)
+    ocp = bench_ocp(N, dev, torch.float32)
+    args = (*_bench_trajectories(ocp, B, dev), torch.full((B,), 1e-6, **f),
+            torch.ones((B,), **f))
+    err = max(compare(ocp, args, True, f"bench B={B} N={N} DDP"),
+              compare(ocp, args, False, f"bench B={B} N={N} Gauss-Newton"),
+              compare(terminal_ocp(N), args, True,
+                      f"terminal Qf=2Q B={B} N={N} DDP"))
+    rng = np.random.default_rng(9)
+    t = lambda a: torch.as_tensor(a, **f).contiguous()
+    ps = np.zeros((B_rand, N_rand + 1, 3))
+    ps[..., :2] = rng.uniform(-5, 5, (B_rand, 1, 2))
+    ddp = np.ones(B_rand)
+    ddp[::2] = 0.0
+    rand = (t(rng.uniform(-2, 2, (B_rand, N_rand + 1, 3))),
+            t(rng.uniform(-0.7, 0.7, (B_rand, N_rand, 2))), t(ps),
+            t(np.full(B_rand, 1e-4)), t(ddp))
+    err = max(err, compare(terminal_ocp(N_rand), rand, True,
+                           f"random B={B_rand} N={N_rand} DDP/GN mixed"))
+
+    run = lambda fn: fn(*args, ocp=ocp, use_ddp=True)
+    ms = _time_ms(lambda: run(fused_backward), reps=50)
+    plain_ms = _time_ms(lambda: run(fused_backward_torch), reps=5, warmup=1)
+    print(f"[k3] bench B={B} N={N} DDP: kernel {ms:.4f} ms, twin "
+          f"{plain_ms:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_fleet(dev, gpu, B=None, n_steps=None):
+    """The closed-loop fleet on "cuda_fused" at scenarios/fleet.py's SPEC,
+    with the gates of the JAX package's tests/test_closed_loop.py."""
+    from mpc_verde_tpu_torch.scenarios import build_fleet, run_fleet
+
+    kw = dict(device=dev, dtype=torch.float32, backend="cuda_fused")
+    run_fleet(build_fleet(B=B, n_steps=2, **kw))   # warm-up
+    built = build_fleet(B=B, n_steps=n_steps, **kw)
+    s = built["spec"]
+    m, wall, launches, twin_calls = _drive(lambda: run_fleet(built))
+    xs = m["result"].xs
+    shape = (s["Nsim"] + 1, s["B"], 3)
+    if tuple(xs.shape) != shape or not bool(torch.isfinite(xs).all()):
+        raise AssertionError(f"fleet xs: shape {tuple(xs.shape)} (expected "
+                             f"{shape}) or non-finite values")
+    fe = m["final_err"]
+    iters = m["result"].iterations.double()
+    print(f"[fleet] backend=cuda_fused B={s['B']} N={s['N']} "
+          f"Nsim={s['Nsim']}: {s['B'] * s['Nsim'] / wall:.1f} MPC steps/s "
+          f"({wall:.3f} s), final_err p50 {np.percentile(fe, 50):.2e} "
+          f"p99 {m['final_err_p99']:.2e} max {m['final_err_max']:.2e} mean "
+          f"{m['final_err_mean']:.2e}, frac_reached {m['frac_reached']:.4f}, "
+          f"steps_to_ball mean {m['steps_to_ball_mean']:.2f} max "
+          f"{m['steps_to_ball_max']}, converged_frac {m['converged_frac']:.4f}, "
+          f"solver iterations per step mean {float(iters.mean()):.3f}, "
+          f"launches {launches}, twin calls on CUDA {twin_calls} | GPU {gpu}",
+          flush=True)
+    gates = {"frac_reached": m["frac_reached"] == 1.0,
+             "final_err_max": m["final_err_max"] < 0.1,
+             "final_err_p99": m["final_err_p99"] < 0.1,
+             "final_err_mean": m["final_err_mean"] < 0.05,
+             "converged_frac": m["converged_frac"] > 0.8}
+    if not all(gates.values()):
+        raise AssertionError(f"fleet gates failed: {gates}")
+    _check_path(launches, twin_calls, ("fused_backward", "linesearch_forward"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -288,12 +440,14 @@ def main() -> int:
     from mpc_verde_tpu_torch.ops.cuda.build import build, load_library
     from mpc_verde_tpu_torch.utils import gpu_info
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     info = gpu_info()
+    gpu = info["nvidia_smi"]
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: "
-          f"{info['nvidia_smi']} | torch {torch.__version__} CUDA "
+          f"{gpu} | torch {torch.__version__} CUDA "
           f"{info['torch_cuda']} | {info['nvcc']}", flush=True)
 
     t0 = time.perf_counter()
@@ -302,17 +456,29 @@ def main() -> int:
     print(f"[build] {built.path.name}: nvcc {built.seconds:.1f} s, load "
           f"{time.perf_counter() - t0:.1f} s total", flush=True)
 
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    launches = phase_main(dev, info["nvidia_smi"])
+    meas = {"riccati_backward": phase_k1(dev),
+            "linesearch_forward": phase_k2(dev)}
+    by_path = {}
+    by_path["main"], res_main = phase_main(dev, gpu)
     phase_cross(dev)
+    meas["fused_backward"] = phase_k3(dev)
+    by_path["main_fused"] = phase_main_fused(dev, gpu, res_main)
+    by_path["fleet"] = phase_fleet(dev, gpu)
 
+    # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
+    # entry point, the fleet; every path's counts are in launches_by_path
+    count_in = {"riccati_backward": "main", "linesearch_forward": "main",
+                "fused_backward": "fleet"}
     kernels = []
-    for name, meas in (("riccati_backward", k1), ("linesearch_forward", k2)):
+    for name, m in meas.items():
         source, replaces = SOURCES[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        **meas})
+                        "replaces": replaces,
+                        "launches": by_path[count_in[name]][name], **m,
+                        "launches_by_path": {p: c[name]
+                                             for p, c in by_path.items()}})
+    print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

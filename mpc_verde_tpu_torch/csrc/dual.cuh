@@ -1,0 +1,158 @@
+// Forward-mode dual numbers of first or second order over NZ seed
+// directions, for the fused derivs+backward kernel (K3, fused.cu).
+//
+// Dual<NZ, true> carries a value, its gradient and its Hessian (the upper
+// triangle, NZ (NZ + 1) / 2 entries) with respect to NZ independent
+// variables; Dual<NZ, false> carries value and gradient only.  Evaluating a
+// model on variables seeded by Dual::var gives every first and second
+// derivative in one pass: forward over forward, the order of the JAX fused
+// kernel's nested jacfwd (mpc_verde_tpu/ops/pallas/fused.py, dfun).  Only
+// what the unicycle device model (unicycle.cuh) needs is defined: + - *
+// between duals and with float constants, and sin / cos.
+//
+// Size: Dual<5, true> is 21 floats, and an RK4 step on three of them keeps
+// about 18 live; see fused.cu for what ptxas makes of that.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+__host__ __device__ constexpr int tri_index(int n, int i, int j) {
+  // (i, j) of the upper triangle, row-major; symmetric in (i, j)
+  return i <= j ? i * n - i * (i - 1) / 2 + (j - i) : tri_index(n, j, i);
+}
+
+template <int NZ, bool H>
+struct Dual {
+  static constexpr int kNH = H ? NZ * (NZ + 1) / 2 : 1;
+  float v;
+  float g[NZ];
+  float h[kNH];
+
+  __device__ __forceinline__ Dual() {}
+  // a constant: zero derivatives
+  __device__ __forceinline__ Dual(float c) : v(c) {
+#pragma unroll
+    for (int i = 0; i < NZ; ++i) g[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < kNH; ++e) h[e] = 0.0f;
+  }
+  // the i-th independent variable at value c
+  __device__ __forceinline__ static Dual var(float c, int i) {
+    Dual d(c);
+    d.g[i] = 1.0f;
+    return d;
+  }
+  __device__ __forceinline__ float hess(int i, int j) const {
+    static_assert(H, "a first-order dual carries no Hessian");
+    return h[tri_index(NZ, i, j)];
+  }
+};
+
+// The linear operations act component by component.
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator+(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  Dual<NZ, H> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = a.g[i] + b.g[i];
+  if constexpr (H) {
+#pragma unroll
+    for (int e = 0; e < Dual<NZ, H>::kNH; ++e) r.h[e] = a.h[e] + b.h[e];
+  }
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator-(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  Dual<NZ, H> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = a.g[i] - b.g[i];
+  if constexpr (H) {
+#pragma unroll
+    for (int e = 0; e < Dual<NZ, H>::kNH; ++e) r.h[e] = a.h[e] - b.h[e];
+  }
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator-(const Dual<NZ, H>& a, float c) {
+  Dual<NZ, H> r = a;
+  r.v = a.v - c;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator*(float c, const Dual<NZ, H>& a) {
+  Dual<NZ, H> r;
+  r.v = c * a.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = c * a.g[i];
+  if constexpr (H) {
+#pragma unroll
+    for (int e = 0; e < Dual<NZ, H>::kNH; ++e) r.h[e] = c * a.h[e];
+  }
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator*(const Dual<NZ, H>& a, float c) {
+  return c * a;
+}
+
+// (ab)'' = a'' b + a b'' + a' b'^T + b' a'^T
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator*(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  Dual<NZ, H> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = a.v * b.g[i] + b.v * a.g[i];
+  if constexpr (H) {
+#pragma unroll
+    for (int i = 0; i < NZ; ++i)
+#pragma unroll
+      for (int j = i; j < NZ; ++j) {
+        const int e = tri_index(NZ, i, j);
+        r.h[e] = a.v * b.h[e] + b.v * a.h[e] + a.g[i] * b.g[j] + a.g[j] * b.g[i];
+      }
+  }
+  return r;
+}
+
+// f(a) for a scalar f with f(a.v) = f0, f'(a.v) = f1, f''(a.v) = f2:
+// g = f1 a',  H = f1 a'' + f2 a' a'^T
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> chain(const Dual<NZ, H>& a, float f0, float f1, float f2) {
+  Dual<NZ, H> r;
+  r.v = f0;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = f1 * a.g[i];
+  if constexpr (H) {
+#pragma unroll
+    for (int i = 0; i < NZ; ++i)
+#pragma unroll
+      for (int j = i; j < NZ; ++j) {
+        const int e = tri_index(NZ, i, j);
+        r.h[e] = f1 * a.h[e] + f2 * (a.g[i] * a.g[j]);
+      }
+  }
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_sin(const Dual<NZ, H>& a) {
+  const float s = sinf(a.v), c = cosf(a.v);
+  return chain(a, s, c, -s);
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_cos(const Dual<NZ, H>& a) {
+  const float s = sinf(a.v), c = cosf(a.v);
+  return chain(a, c, -s, -c);
+}
+
+}  // namespace

@@ -10,6 +10,9 @@
 // sequential grid axis and carries (Vx, Vxx) in VMEM scratch; here the
 // thread walks the stages N-1..0 in a loop and keeps (Vx, Vxx) and the
 // dV1/dV2/gmax accumulators in registers, so nothing carries across blocks.
+// One stage is backward_stage, which reads the stage derivatives through an
+// accessor: K1 reads them from device memory, the fused kernel K3
+// (fused.cu) computes them in registers.
 // The 3^NU active-set patterns of the stage box QP (itertools.product order,
 // strict-< first minimum) are unrolled at compile time per (NX, NU): each
 // candidate step solves its free system (up to two free coordinates in
@@ -213,9 +216,209 @@ __device__ __forceinline__ void free_gain(const float (&Quu)[NU][NU], const floa
     for (int i = 0; i < NX; ++i) K[a][i] = X[i][a];
 }
 
+// The stage derivatives as K1 reads them: the (B, N, ...) arrays at
+// problem-stage index s.  Stage accessors give fx(m, i) = dF_m/dx_i, fu(m, a),
+// lx(i), lu(a), lxx(i, j), luu(a, c), lux(a, i), fxx(m, i, j), fux(m, a, i),
+// fuu(m, a, c) (DDP only) and the step bounds lo(a) = lb - u, hi(a) = ub - u.
+template <int NX, int NU, bool DDP>
+struct GlobalStage {
+  const float *fx_, *fu_, *lx_, *lu_, *lxx_, *luu_, *lux_, *fxx_, *fux_, *fuu_, *lo_, *hi_;
+
+  __device__ __forceinline__ GlobalStage(const RiccatiArgs& g, size_t s)
+      : fx_(g.fx + s * NX * NX), fu_(g.fu + s * NX * NU), lx_(g.lx + s * NX),
+        lu_(g.lu + s * NU), lxx_(g.lxx + s * NX * NX), luu_(g.luu + s * NU * NU),
+        lux_(g.lux + s * NU * NX),
+        fxx_(DDP ? g.fxx + s * NX * NX * NX : nullptr),
+        fux_(DDP ? g.fux + s * NX * NU * NX : nullptr),
+        fuu_(DDP ? g.fuu + s * NX * NU * NU : nullptr),
+        lo_(g.dlb + s * NU), hi_(g.dub + s * NU) {}
+
+  __device__ __forceinline__ float fx(int m, int i) const { return fx_[m * NX + i]; }
+  __device__ __forceinline__ float fu(int m, int a) const { return fu_[m * NU + a]; }
+  __device__ __forceinline__ float lx(int i) const { return lx_[i]; }
+  __device__ __forceinline__ float lu(int a) const { return lu_[a]; }
+  __device__ __forceinline__ float lxx(int i, int j) const { return lxx_[i * NX + j]; }
+  __device__ __forceinline__ float luu(int a, int c) const { return luu_[a * NU + c]; }
+  __device__ __forceinline__ float lux(int a, int i) const { return lux_[a * NX + i]; }
+  __device__ __forceinline__ float fxx(int m, int i, int j) const { return fxx_[(m * NX + i) * NX + j]; }
+  __device__ __forceinline__ float fux(int m, int a, int i) const { return fux_[(m * NU + a) * NX + i]; }
+  __device__ __forceinline__ float fuu(int m, int a, int c) const { return fuu_[(m * NU + a) * NU + c]; }
+  __device__ __forceinline__ float lo(int a) const { return lo_[a]; }
+  __device__ __forceinline__ float hi(int a) const { return hi_[a]; }
+};
+
+// One stage of the box-constrained Riccati recursion (the port of
+// riccati._backward_stage, which K1 and K3 share in JAX as well): reads the
+// stage's derivatives through the accessor `d` (GlobalStage for K1, the dual
+// numbers of fused.cu for K3), updates the value function (Vx, Vxx) and the
+// accumulators dV1, dV2, gmax in place, and returns the stage's kff and K.
+template <int NX, int NU, bool DDP, class Stage>
+__device__ __forceinline__ void backward_stage(const Stage& d, float rg, float ds, float tol,
+                                               float (&Vx)[NX], float (&Vxx)[NX][NX],
+                                               float& dV1, float& dV2, float& gmax,
+                                               float (&kff)[NU], float (&Kg)[NU][NX]) {
+  constexpr int P = pow3(NU);
+  // ---- Q expansion ----------------------------------------------------
+  float Qx[NX], Qu[NU], Qxx[NX][NX], Quu[NU][NU], Qux[NU][NX];
+  float VF[NX][NX], VFu[NX][NU];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * d.fx(m, i);
+      VF[j][i] = acc;
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * d.fu(m, a);
+      VFu[j][a] = acc;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) acc = acc + d.fx(j, i) * Vx[j];
+    Qx[i] = d.lx(i) + acc;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float a2 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) a2 = a2 + d.fx(m, i) * VF[m][j];
+      Qxx[i][j] = d.lxx(i, j) + a2;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) acc = acc + d.fu(j, a) * Vx[j];
+    Qu[a] = d.lu(a) + acc;
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      float a2 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) a2 = a2 + d.fu(m, a) * VFu[m][c];
+      Quu[a][c] = d.luu(a, c) + a2;
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float a2 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) a2 = a2 + d.fu(m, a) * VF[m][i];
+      Qux[a][i] = d.lux(a, i) + a2;
+    }
+  }
+
+  if constexpr (DDP) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fxx(m, i, j);
+        Qxx[i][j] = Qxx[i][j] + ds * acc;
+      }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fux(m, a, i);
+        Qux[a][i] = Qux[a][i] + ds * acc;
+      }
+#pragma unroll
+      for (int c = 0; c < NU; ++c) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fuu(m, a, c);
+        Quu[a][c] = Quu[a][c] + ds * acc;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NU; ++a) Quu[a][a] = Quu[a][a] + rg;
+
+  float lo[NU], hi[NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    lo[a] = d.lo(a);
+    hi[a] = d.hi(a);
+  }
+
+  // ---- exact box QP: compile-time active-set enumeration ----------------
+  float best_obj = kBig;
+  int best_pat = 0;
+  static_for<P>([&](auto pc) {
+    constexpr int PAT = decltype(pc)::value;
+    float v[NU], obj;
+    candidate<NU, PAT>(Quu, Qu, lo, hi, tol, v, obj);
+    if (PAT == 0 || obj < best_obj) {
+      best_obj = obj;
+      best_pat = PAT;
+#pragma unroll
+      for (int a = 0; a < NU; ++a) kff[a] = v[a];
+    }
+  });
+  free_gain<NX, NU>(Quu, Qux, best_pat, Kg);
+
+  // ---- step-quality / stationarity increments ---------------------------
+  float Quk[NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    dV1 = dV1 + kff[a] * Qu[a];
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NU; ++c) {
+      dV2 = dV2 + 0.5f * kff[a] * Quu[a][c] * kff[c];
+      acc = acc + Quu[a][c] * kff[c];
+    }
+    Quk[a] = acc;
+    // projected gradient |-clip(-Qu, lo, hi)|, NaN-propagating like jnp
+    const float nq = -Qu[a];
+    const float cl = nq < lo[a] ? lo[a] : (nq > hi[a] ? hi[a] : nq);
+    const float pg = fabsf(cl);
+    gmax = (pg > gmax || isnan(pg)) ? pg : gmax;
+  }
+
+  // ---- value function update ---------------------------------------------
+  float Vx_n[NX], Vxx_n[NX][NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    float acc = Qx[i];
+#pragma unroll
+    for (int a = 0; a < NU; ++a) acc = acc + Kg[a][i] * (Quk[a] + Qu[a]);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) acc = acc + Qux[a][i] * kff[a];
+    Vx_n[i] = acc;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float t = Qxx[i][j];
+#pragma unroll
+      for (int a = 0; a < NU; ++a)
+#pragma unroll
+        for (int c = 0; c < NU; ++c) t = t + Kg[a][i] * Quu[a][c] * Kg[c][j];
+#pragma unroll
+      for (int a = 0; a < NU; ++a) t = t + Kg[a][i] * Qux[a][j] + Qux[a][i] * Kg[a][j];
+      Vxx_n[i][j] = t;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    Vx[i] = Vx_n[i];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Vxx[i][j] = 0.5f * (Vxx_n[i][j] + Vxx_n[j][i]);
+  }
+}
+
 template <int NX, int NU, bool DDP>
 __global__ void riccati_backward_kernel(RiccatiArgs g) {
-  constexpr int P = pow3(NU);
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.B) return;
 
@@ -233,171 +436,9 @@ __global__ void riccati_backward_kernel(RiccatiArgs g) {
 #pragma unroll 1
   for (int k = g.N - 1; k >= 0; --k) {
     const size_t s = (size_t)b * g.N + k;
-    const float* fx = g.fx + s * NX * NX;
-    const float* fu = g.fu + s * NX * NU;
-
-    // ---- Q expansion ----------------------------------------------------
-    float Qx[NX], Qu[NU], Qxx[NX][NX], Quu[NU][NU], Qux[NU][NX];
-    float VF[NX][NX], VFu[NX][NU];
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * fx[m * NX + i];
-        VF[j][i] = acc;
-      }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * fu[m * NU + a];
-        VFu[j][a] = acc;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc = acc + fx[j * NX + i] * Vx[j];
-      Qx[i] = g.lx[s * NX + i] + acc;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float a2 = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) a2 = a2 + fx[m * NX + i] * VF[m][j];
-        Qxx[i][j] = g.lxx[(s * NX + i) * NX + j] + a2;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) acc = acc + fu[j * NU + a] * Vx[j];
-      Qu[a] = g.lu[s * NU + a] + acc;
-#pragma unroll
-      for (int c = 0; c < NU; ++c) {
-        float a2 = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) a2 = a2 + fu[m * NU + a] * VFu[m][c];
-        Quu[a][c] = g.luu[(s * NU + a) * NU + c] + a2;
-      }
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float a2 = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) a2 = a2 + fu[m * NU + a] * VF[m][i];
-        Qux[a][i] = g.lux[(s * NU + a) * NX + i] + a2;
-      }
-    }
-
-    if constexpr (DDP) {
-      const float* fxx = g.fxx + s * NX * NX * NX;
-      const float* fux = g.fux + s * NX * NU * NX;
-      const float* fuu = g.fuu + s * NX * NU * NU;
-#pragma unroll
-      for (int i = 0; i < NX; ++i)
-#pragma unroll
-        for (int j = 0; j < NX; ++j) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * fxx[(m * NX + i) * NX + j];
-          Qxx[i][j] = Qxx[i][j] + ds * acc;
-        }
-#pragma unroll
-      for (int a = 0; a < NU; ++a) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * fux[(m * NU + a) * NX + i];
-          Qux[a][i] = Qux[a][i] + ds * acc;
-        }
-#pragma unroll
-        for (int c = 0; c < NU; ++c) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * fuu[(m * NU + a) * NU + c];
-          Quu[a][c] = Quu[a][c] + ds * acc;
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < NU; ++a) Quu[a][a] = Quu[a][a] + rg;
-
-    float lo[NU], hi[NU];
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      lo[a] = g.dlb[s * NU + a];
-      hi[a] = g.dub[s * NU + a];
-    }
-
-    // ---- exact box QP: compile-time active-set enumeration ----------------
-    float kff[NU], best_obj = kBig;
-    int best_pat = 0;
-    static_for<P>([&](auto pc) {
-      constexpr int PAT = decltype(pc)::value;
-      float v[NU], obj;
-      candidate<NU, PAT>(Quu, Qu, lo, hi, g.tol, v, obj);
-      if (PAT == 0 || obj < best_obj) {
-        best_obj = obj;
-        best_pat = PAT;
-#pragma unroll
-        for (int a = 0; a < NU; ++a) kff[a] = v[a];
-      }
-    });
-    float Kg[NU][NX];
-    free_gain<NX, NU>(Quu, Qux, best_pat, Kg);
-
-    // ---- step-quality / stationarity increments ---------------------------
-    float Quk[NU];
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-      dV1 = dV1 + kff[a] * Qu[a];
-      float acc = 0.0f;
-#pragma unroll
-      for (int c = 0; c < NU; ++c) {
-        dV2 = dV2 + 0.5f * kff[a] * Quu[a][c] * kff[c];
-        acc = acc + Quu[a][c] * kff[c];
-      }
-      Quk[a] = acc;
-      // projected gradient |-clip(-Qu, lo, hi)|, NaN-propagating like jnp
-      const float nq = -Qu[a];
-      const float cl = nq < lo[a] ? lo[a] : (nq > hi[a] ? hi[a] : nq);
-      const float pg = fabsf(cl);
-      gmax = (pg > gmax || isnan(pg)) ? pg : gmax;
-    }
-
-    // ---- value function update ---------------------------------------------
-    float Vx_n[NX], Vxx_n[NX][NX];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float acc = Qx[i];
-#pragma unroll
-      for (int a = 0; a < NU; ++a) acc = acc + Kg[a][i] * (Quk[a] + Qu[a]);
-#pragma unroll
-      for (int a = 0; a < NU; ++a) acc = acc + Qux[a][i] * kff[a];
-      Vx_n[i] = acc;
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float t = Qxx[i][j];
-#pragma unroll
-        for (int a = 0; a < NU; ++a)
-#pragma unroll
-          for (int c = 0; c < NU; ++c) t = t + Kg[a][i] * Quu[a][c] * Kg[c][j];
-#pragma unroll
-        for (int a = 0; a < NU; ++a) t = t + Kg[a][i] * Qux[a][j] + Qux[a][i] * Kg[a][j];
-        Vxx_n[i][j] = t;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      Vx[i] = Vx_n[i];
-#pragma unroll
-      for (int j = 0; j < NX; ++j) Vxx[i][j] = 0.5f * (Vxx_n[i][j] + Vxx_n[j][i]);
-    }
-
+    float kff[NU], Kg[NU][NX];
+    backward_stage<NX, NU, DDP>(GlobalStage<NX, NU, DDP>(g, s), rg, ds, g.tol, Vx, Vxx, dV1,
+                                dV2, gmax, kff, Kg);
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       g.kff[s * NU + a] = kff[a];

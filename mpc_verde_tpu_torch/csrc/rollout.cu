@@ -10,13 +10,8 @@
 // (A+1) * N sequential steps, nothing carried across blocks.  With zero
 // gains and A = 1 it is the queue pre-roll, and the cost pass is skipped.
 //
-// The Pallas kernel inlines the user's jaxprs; CUDA cannot inline a Python
-// callable, so the model is a fixed device model passed by value: unicycle
-// kinematics with an RK4 or Euler step of M substeps, the stage cost
-// (x - p[:3])' Q (x - p[:3]) + u' R u, an optional terminal weight Qf, and a
-// constant control box.  The step constants (h, h/2, h/6) arrive already
-// rounded to float from the host, as the PyTorch version computes them.
-// Built without fast math: sinf/cosf keep full precision.
+// The model is the unicycle device model of unicycle.cuh, evaluated on
+// float (K3 evaluates the same definition on dual numbers).
 //
 // What bounds it on the H100: at B = 1024 the card runs 1024 threads, each a
 // chain of (A+1) * N dependent RK4 steps (8 sinf/cosf each), so it is bound
@@ -26,22 +21,12 @@
 
 #include <cuda_runtime.h>
 #include <float.h>
-#include <math.h>
+
+#include "unicycle.cuh"
 
 namespace {
 
-constexpr int kNX = 3;
-constexpr int kNU = 2;
 constexpr int kMaxAlphas = 32;
-
-struct UnicycleModel {
-  float h, h_half, h_sixth;  // RK4 substep constants (Euler uses h)
-  int substeps;
-  int euler;                 // 0: RK4, 1: explicit Euler
-  int has_terminal;
-  float Q[kNX * kNX], R[kNU * kNU], Qf[kNX * kNX];
-  float lb[kNU], ub[kNU];
-};
 
 struct Alphas {
   float a[kMaxAlphas];
@@ -54,68 +39,6 @@ struct RolloutArgs {
   int *best_out;
   int B, N, npar;
 };
-
-__device__ __forceinline__ void rhs(const float (&x)[kNX], const float (&u)[kNU],
-                                    float (&f)[kNX]) {
-  f[0] = u[0] * cosf(x[2]);
-  f[1] = u[0] * sinf(x[2]);
-  f[2] = u[1];
-}
-
-__device__ __forceinline__ void step(const UnicycleModel& m, float (&x)[kNX],
-                                     const float (&u)[kNU]) {
-  for (int s = 0; s < m.substeps; ++s) {
-    float k1[kNX], k2[kNX], k3[kNX], k4[kNX], t[kNX];
-    rhs(x, u, k1);
-    if (m.euler) {
-#pragma unroll
-      for (int i = 0; i < kNX; ++i) x[i] = x[i] + m.h * k1[i];
-      continue;
-    }
-#pragma unroll
-    for (int i = 0; i < kNX; ++i) t[i] = x[i] + m.h_half * k1[i];
-    rhs(t, u, k2);
-#pragma unroll
-    for (int i = 0; i < kNX; ++i) t[i] = x[i] + m.h_half * k2[i];
-    rhs(t, u, k3);
-#pragma unroll
-    for (int i = 0; i < kNX; ++i) t[i] = x[i] + m.h * k3[i];
-    rhs(t, u, k4);
-#pragma unroll
-    for (int i = 0; i < kNX; ++i)
-      x[i] = x[i] + m.h_sixth * (((k1[i] + 2.0f * k2[i]) + 2.0f * k3[i]) + k4[i]);
-  }
-}
-
-// e' W e with e = x - p[:3]
-__device__ __forceinline__ float state_quad(const float* W, const float (&x)[kNX],
-                                            const float* p) {
-  float e[kNX];
-#pragma unroll
-  for (int i = 0; i < kNX; ++i) e[i] = x[i] - p[i];
-  float c = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kNX; ++j) {
-    float eW = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNX; ++i) eW = eW + e[i] * W[i * kNX + j];
-    c = c + eW * e[j];
-  }
-  return c;
-}
-
-__device__ __forceinline__ float stage_cost(const UnicycleModel& m, const float (&x)[kNX],
-                                            const float (&u)[kNU], const float* p) {
-  float cu = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kNU; ++j) {
-    float uR = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNU; ++i) uR = uR + u[i] * m.R[i * kNU + j];
-    cu = cu + uR * u[j];
-  }
-  return state_quad(m.Q, x, p) + cu;
-}
 
 // Roll problem b at step length alpha; write xs/us when `write`.
 __device__ float roll(const RolloutArgs& g, const UnicycleModel& m, int b, float alpha,
@@ -198,18 +121,7 @@ extern "C" int mv_linesearch_forward(int B, int N, int npar, const float* x0, co
                                      float* cost_out, int* best_out, void* stream) {
   if (n_alphas < 1 || n_alphas > kMaxAlphas || npar < kNX) return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  UnicycleModel m;
-  m.h = model[0];
-  m.h_half = model[1];
-  m.h_sixth = model[2];
-  for (int i = 0; i < kNX * kNX; ++i) m.Q[i] = model[3 + i];
-  for (int i = 0; i < kNU * kNU; ++i) m.R[i] = model[12 + i];
-  for (int i = 0; i < kNX * kNX; ++i) m.Qf[i] = model[16 + i];
-  for (int i = 0; i < kNU; ++i) m.lb[i] = model[25 + i];
-  for (int i = 0; i < kNU; ++i) m.ub[i] = model[27 + i];
-  m.substeps = substeps;
-  m.euler = euler;
-  m.has_terminal = has_terminal;
+  const UnicycleModel m = unpack_model(model, substeps, euler, has_terminal);
   Alphas al;
   al.n = n_alphas;
   for (int i = 0; i < kMaxAlphas; ++i) al.a[i] = i < n_alphas ? alphas[i] : 0.0f;

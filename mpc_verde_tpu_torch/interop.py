@@ -3,8 +3,9 @@
 The JAX package (``mpc_verde_tpu``) is the reference; the port never imports
 it.  Data crosses as numpy arrays: ``from_numpy`` turns what the JAX side
 feeds or returns into tensors, ``result_to_numpy`` turns a port result back.
-``bench_ocp`` builds the diff-drive point-stabilization OCP that the JAX
-package's ``bench.py`` headlines (``build_ocp``), constants included.
+``unicycle_ocp`` builds a unicycle OCP with its matching device model, and
+``bench_ocp`` the diff-drive point-stabilization OCP that the JAX package's
+``bench.py`` headlines (``build_ocp``), constants included.
 """
 from __future__ import annotations
 
@@ -17,64 +18,100 @@ from .models import unicycle
 from .ocp import OCP, box_bounds
 from .ops import rk4_step
 from .ops.cuda.rollout import UnicycleDeviceModel
+from .runtime import ClosedLoopResult
 from .solver.ilqr import ILQRResult
 
 BENCH_DT = 0.2
+
+
+_RESULTS = (ILQRResult, ClosedLoopResult)
 
 
 def from_numpy(tree, device, dtype=torch.float32):
     """Turn the numpy arrays of a nested structure into tensors.
 
     Floating arrays become ``dtype``; integer and bool arrays keep their
-    kind.  Dicts, lists and tuples are walked; a dataclass whose fields are
-    ``ILQRResult``'s (the JAX result type, once converted with
-    ``np.asarray``) becomes an ``ILQRResult``.  Anything array-like (a JAX
+    kind; ``None`` stays ``None``.  Dicts, lists and tuples are walked; a
+    dataclass with the fields of ``ILQRResult`` or ``ClosedLoopResult`` (the
+    JAX result types) becomes that port type.  Anything array-like (a JAX
     array) goes through ``np.asarray`` first.
     """
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy(v, device, dtype) for v in tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        names = [f.name for f in dataclasses.fields(ILQRResult)]
-        if {f.name for f in dataclasses.fields(tree)} >= set(names):
-            return ILQRResult(**{n: from_numpy(getattr(tree, n), device, dtype)
-                                 for n in names})
+        have = {f.name for f in dataclasses.fields(tree)}
+        for cls in _RESULTS:
+            names = [f.name for f in dataclasses.fields(cls)]
+            if have == set(names):
+                return cls(**{n: from_numpy(getattr(tree, n), device, dtype)
+                              for n in names})
         raise TypeError(f"from_numpy: no counterpart for {type(tree).__name__}")
     a = np.array(tree)  # a copy: the source may be a read-only view
     t = torch.from_numpy(a).to(device)
     return t.to(dtype) if a.dtype.kind == "f" else t
 
 
-def result_to_numpy(res: ILQRResult) -> ILQRResult:
-    """An ``ILQRResult`` whose fields are numpy arrays on the host."""
-    return ILQRResult(**{f.name: getattr(res, f.name).detach().cpu().numpy()
-                         for f in dataclasses.fields(res)})
+def result_to_numpy(res):
+    """The same result type (``ILQRResult`` or ``ClosedLoopResult``) with
+    numpy arrays on the host in place of tensors."""
+    return type(res)(**{
+        f.name: None if getattr(res, f.name) is None
+        else getattr(res, f.name).detach().cpu().numpy()
+        for f in dataclasses.fields(res)})
+
+
+def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
+                 lb=None, ub=None, Qf=None) -> OCP:
+    """A unicycle OCP with RK4 at ``dt``: stage cost (x - p[:3])' Q (x - p[:3])
+    + u' R u, target in p[:3], npar = 3, terminal cost (x - p[:3])' Qf
+    (x - p[:3]) when ``Qf`` is given, and the control box [lb, ub] (none when
+    both are None).
+
+    The weights and bounds are taken as float32 numbers, as the JAX package's
+    unicycle problems write them, so a float64 build of the OCP equals the
+    JAX one under x64.  The OCP carries the matching ``UnicycleDeviceModel``
+    (an unbounded OCP's has infinite bounds) for the CUDA kernels.
+    """
+    device = torch.device(device)
+    f32 = lambda a: np.asarray(a, dtype=np.float32)
+    Qn, Rn = f32(Q), f32(R)
+    Qt = torch.as_tensor(Qn, dtype=dtype, device=device)
+    Rt = torch.as_tensor(Rn, dtype=dtype, device=device)
+    F = rk4_step(unicycle.f, dt)
+
+    def l(x, u, p):
+        e = x - p[:3]
+        return e @ Qt @ e + u @ Rt @ u
+
+    lf = None
+    if Qf is not None:
+        Qf = f32(Qf)
+        Qft = torch.as_tensor(Qf, dtype=dtype, device=device)
+
+        def lf(x, p):
+            e = x - p[:3]
+            return e @ Qft @ e
+
+    cb = None
+    if lb is None and ub is None:
+        lb, ub = np.full(2, -np.inf, np.float32), np.full(2, np.inf, np.float32)
+    else:
+        lb, ub = f32(lb), f32(ub)
+        cb = box_bounds(lb, ub, device=device, dtype=dtype)
+    model = UnicycleDeviceModel(dt=dt, Q=Qn, R=Rn, lb=lb, ub=ub, Qf=Qf)
+    return OCP(dynamics=F, stage_cost=l, terminal_cost=lf, N=N, nx=3, nu=2,
+               npar=3, control_bounds=cb, device=device, dtype=dtype,
+               device_model=model)
 
 
 def bench_ocp(N: int, device, dtype=torch.float32) -> OCP:
     """The bench OCP: unicycle, RK4 at T = 0.2, Q = diag(1, 5, 0.1),
     R = diag(0.5, 0.05), target in p[:3], box v in [-1, 1] and
-    omega in [-pi/4, pi/4].
-
-    The weights and bounds are float32 numbers, as ``bench.py`` writes them,
-    so a float64 build of this OCP equals the JAX one under x64.  The OCP
-    carries the matching ``UnicycleDeviceModel`` for the CUDA line search.
-    """
-    device = torch.device(device)
-    Qn = np.diag(np.array([1.0, 5.0, 0.1], dtype=np.float32))
-    Rn = np.diag(np.array([0.5, 0.05], dtype=np.float32))
-    lbn = np.array([-1.0, -np.pi / 4], dtype=np.float32)
-    ubn = np.array([1.0, np.pi / 4], dtype=np.float32)
-    Q = torch.as_tensor(Qn, dtype=dtype, device=device)
-    R = torch.as_tensor(Rn, dtype=dtype, device=device)
-    F = rk4_step(unicycle.f, BENCH_DT)
-
-    def l(x, u, p):
-        e = x - p[:3]
-        return e @ Q @ e + u @ R @ u
-
-    model = UnicycleDeviceModel(dt=BENCH_DT, Q=Qn, R=Rn, lb=lbn, ub=ubn)
-    return OCP(dynamics=F, stage_cost=l, N=N, nx=3, nu=2, npar=3,
-               control_bounds=box_bounds(lbn, ubn, device=device, dtype=dtype),
-               device=device, dtype=dtype, device_model=model)
+    omega in [-pi/4, pi/4], no terminal cost (``unicycle_ocp``)."""
+    return unicycle_ocp(N, device, dtype, dt=BENCH_DT,
+                        Q=np.diag([1.0, 5.0, 0.1]), R=np.diag([0.5, 0.05]),
+                        lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4])

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_P],
     "mv_linesearch_forward": [_I, _I, _I] + [_P] * 6 + [_FP, _I, _I, _I, _FP,
                                                         _I] + [_P] * 4 + [_P],
+    "mv_fused_backward": [_I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _I, _I, _I]
+                         + [_P] * 5 + [_P],
 }
 
 

@@ -17,9 +17,10 @@ layout and alpha passes spread over threads are left for a later change.
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
 Python callable, so the kernel evaluates a ``UnicycleDeviceModel`` carried on
 the OCP: plain numbers describing the same dynamics, cost and box as the
-OCP's torch callables.  Its ``step`` / ``stage_cost`` / ``terminal_cost``
-methods are those formulas in PyTorch, in the kernel's order, so a test can
-tie the two definitions together.
+OCP's torch callables.  Its ``step`` / ``stage_cost`` / ``terminal_cost`` /
+``terminal_grad_hess`` methods are those formulas in PyTorch, in the
+kernels' order, so a test can tie the two definitions together.  The model's
+device code is ``csrc/unicycle.cuh``, shared with the fused kernel K3.
 
 ``linesearch_forward_torch`` is the plain PyTorch version: the JAX
 materialising line search (``mpc_verde_tpu/solver/batched.py``) on the
@@ -85,6 +86,15 @@ class UnicycleDeviceModel:
             np.ravel(Qf), np.ravel(self.lb), np.ravel(self.ub),
         ]).astype(np.float32)
 
+    def kernel_args(self):
+        """The model as the kernels' C entry points take it: (packed floats,
+        substeps, euler flag, terminal flag).  The pointer keeps the packed
+        array alive."""
+        packed = self.packed()
+        return (packed.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self.substeps, int(self.integrator == "euler"),
+                int(self.Qf is not None))
+
     # --- the kernel's formulas in PyTorch (batched over leading dims) -------
     def _t(self, a, like):
         return torch.as_tensor(np.asarray(a), dtype=like.dtype,
@@ -118,6 +128,15 @@ class UnicycleDeviceModel:
         if self.Qf is None:
             return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         return self._quad(self.Qf, x - p[..., :3])
+
+    def terminal_grad_hess(self, x, p):
+        """Gradient and Hessian of ``terminal_cost`` in x, in the fused
+        kernel's closed form: ``(Qf + Qf')(x - p[:3])`` and ``Qf + Qf'``
+        (zeros without ``Qf``)."""
+        Qf = np.zeros((3, 3)) if self.Qf is None else np.asarray(self.Qf)
+        W = self._t(Qf + Qf.T, x)
+        H = W.expand(x.shape[:-1] + (3, 3))
+        return (H * (x - p[..., :3])[..., None, :]).sum(-1), H
 
 
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
@@ -209,16 +228,14 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     us_o = torch.empty((B, N, nu), **opts)
     cost = torch.empty((B,), **opts)
     best = torch.empty((B,), dtype=torch.int32, device=x0.device)
-    packed = model.packed()
-    c_model = packed.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+    c_model, substeps, euler, has_terminal = model.kernel_args()
     c_alphas = (ctypes.c_float * A)(*map(float, alphas))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mv_linesearch_forward(
             B, N, npar, x0.data_ptr(), xs.data_ptr(), us.data_ptr(),
             ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(), c_model,
-            model.substeps, int(model.integrator == "euler"),
-            int(model.Qf is not None), c_alphas, A, xs_o.data_ptr(),
+            substeps, euler, has_terminal, c_alphas, A, xs_o.data_ptr(),
             us_o.data_ptr(), cost.data_ptr(), best.data_ptr(), stream)
     check_launch(rc, "mv_linesearch_forward")
     linesearch_forward.launches += 1

@@ -83,3 +83,38 @@ def linearize_trajectory(F: Callable, l: Callable, xs, us, ps,
         fxx, fux, fuu = vmap(dynamics_hessians(F))(x, u, p)
         out.update({"fxx": fxx, "fux": fux, "fuu": fuu})
     return {k: v.reshape(lead + v.shape[1:]).contiguous() for k, v in out.items()}
+
+
+def trajectory_derivatives(ocp, xs, us, ps, second_order: bool):
+    """Everything the Riccati backward pass reads, along (B, ...) trajectories.
+
+    Args:
+      ocp: the OCP whose callables are differentiated.
+      xs: (B, N+1, nx); us: (B, N, nu); ps: (B, N+1, npar).
+      second_order: also the dynamics Hessians (DDP).
+
+    Returns ``(d, gN, HN, dlb, dub)``: the stage derivatives of
+    ``linearize_trajectory``, the terminal cost's gradient (B, nx) and Hessian
+    (B, nx, nx) at x_N (zeros without a terminal cost), and the control box
+    minus us, (B, N, nu) each (+-inf without bounds).
+    """
+    B, N = us.shape[:2]
+    nx, nu = ocp.nx, ocp.nu
+    lf, cb = ocp.terminal_cost, ocp.control_bounds
+    d = linearize_trajectory(ocp.dynamics, ocp.stage_cost, xs[:, :N], us,
+                             ps[:, :N], second_order=second_order)
+    if lf is None:
+        gN = torch.zeros((B, nx), dtype=xs.dtype, device=xs.device)
+        HN = torch.zeros((B, nx, nx), dtype=xs.dtype, device=xs.device)
+    else:
+        gN = vmap(grad(lf))(xs[:, N], ps[:, N])
+        HN = vmap(jacfwd(grad(lf)))(xs[:, N], ps[:, N])
+    if cb is None:
+        lbs = torch.full_like(us, -torch.inf)
+        ubs = torch.full_like(us, torch.inf)
+    else:
+        ks = torch.arange(N, device=xs.device).expand(B, N).reshape(-1)
+        lbs, ubs = vmap(cb)(xs[:, :N].reshape(B * N, nx),
+                            ps[:, :N].reshape(B * N, -1), ks)
+        lbs, ubs = lbs.reshape(B, N, nu), ubs.reshape(B, N, nu)
+    return d, gN, HN, lbs - us, ubs - us

@@ -1,4 +1,4 @@
 from .boxqp import solve_boxqp
-from .ilqr import ILQROptions, ILQRResult
+from .ilqr import ILQROptions, ILQRResult, make_ilqr_solver
 from .batched import make_batched_ilqr_solver
 from .streaming import make_streaming_solver

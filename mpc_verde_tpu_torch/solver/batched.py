@@ -14,27 +14,37 @@ Backends:
     (``ops/cuda/riccati.py``) and fused line search / pre-roll
     (``ops/cuda/rollout.py``).  Needs a float32 OCP on a CUDA device with a
     ``device_model``.
+  * ``"cuda_fused"`` — the fused derivs+backward kernel
+    (``ops/cuda/fused.py``) in place of derivs -> backward, and the same
+    line search / pre-roll kernel as ``"cuda"``.  Same requirements.  The
+    JAX ``"pallas_fused"`` backend keeps the XLA scan line search (its
+    forward kernel runs only under ``"pallas"``); PyTorch has no scan
+    compiler, so here the line-search kernel stands in for it: it computes
+    the same function as the twin it is tested against.
 
-Not ported yet: state bounds (the augmented-Lagrangian outer loop),
-``backend="scan"`` and the fused derivs+backward kernel.
+On CPU tensors every kernel wrapper runs its twin, so ``"cuda"`` and
+``"cuda_fused"`` on the CPU give the ``"torch"`` results.
+
+Not ported yet: state bounds (the augmented-Lagrangian outer loop) and
+``backend="scan"``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, jacfwd, vmap
 
 from ..ocp.spec import OCP
+from ..ops.cuda.fused import fused_backward
 from ..ops.cuda.riccati import (SUPPORTED, riccati_backward,
                                 riccati_backward_torch)
 from ..ops.cuda.rollout import linesearch_forward, linesearch_forward_torch
-from ..ops.linearize import linearize_trajectory
+from ..ops.linearize import trajectory_derivatives
 from .ilqr import ILQROptions, ILQRResult
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "cuda_fused")
 
 
 @dataclasses.dataclass
@@ -45,6 +55,9 @@ class _Parts:
     derivs: Callable       # (xs, us, ps) -> d, gN, HN, dlb, dub
     backward: Callable     # (d, gN, HN, dlb, dub, reg, ddp) -> kffs, Ks, dV1, dV2, gmax
     linesearch: Callable   # (x0s, xs, us, ps, kffs, Ks) -> xs_b, us_b, new_cost
+    # derivs + backward in one kernel ("cuda_fused"), None otherwise:
+    # (xs, us, ps, reg, ddp) -> kffs, Ks, dV1, dV2, gmax
+    fused: Optional[Callable] = None
 
 
 def _check_ocp(ocp: OCP, backend: str):
@@ -56,14 +69,14 @@ def _check_ocp(ocp: OCP, backend: str):
     if ocp.nu > 4:
         raise NotImplementedError(
             "the stage box QP enumerates 3^nu patterns; nu <= 4")
-    if backend == "cuda":
+    if backend in ("cuda", "cuda_fused"):
         if ocp.device_model is None:
             raise NotImplementedError(
-                "backend='cuda' needs ocp.device_model: the line-search "
-                "kernel cannot evaluate Python callables")
+                f"backend={backend!r} needs ocp.device_model: the kernels "
+                "cannot evaluate Python callables")
         if ocp.dtype != torch.float32:
-            raise TypeError("backend='cuda' runs float32 kernels; build the "
-                            f"OCP in float32, not {ocp.dtype}")
+            raise TypeError(f"backend={backend!r} runs float32 kernels; build "
+                            f"the OCP in float32, not {ocp.dtype}")
         if (ocp.nx, ocp.nu) not in SUPPORTED:
             raise NotImplementedError(
                 f"no Riccati kernel for (nx, nu) = ({ocp.nx}, {ocp.nu})")
@@ -72,13 +85,11 @@ def _check_ocp(ocp: OCP, backend: str):
 def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
     _check_ocp(ocp, backend)
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
-    F, l, lf, cb = (ocp.dynamics, ocp.stage_cost, ocp.terminal_cost,
-                    ocp.control_bounds)
     alphas = tuple(float(opt.alpha_decay) ** i for i in range(opt.n_alphas))
-    if backend == "cuda":
-        bw_fn, ls_fn = riccati_backward, linesearch_forward
-    else:
+    if backend == "torch":
         bw_fn, ls_fn = riccati_backward_torch, linesearch_forward_torch
+    else:
+        bw_fn, ls_fn = riccati_backward, linesearch_forward
 
     def linesearch(x0s, xs, us, ps, kffs, Ks):
         xs_b, us_b, cost, _ = ls_fn(x0s, xs, us, ps, kffs, Ks, alphas, ocp=ocp)
@@ -95,32 +106,30 @@ def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
         return xs_b, us_b, cost
 
     def derivs(xs, us, ps):
-        B = xs.shape[0]
-        d = linearize_trajectory(F, l, xs[:, :N], us, ps[:, :N],
-                                 second_order=opt.use_ddp)
-        if lf is None:
-            gN = torch.zeros((B, nx), dtype=xs.dtype, device=xs.device)
-            HN = torch.zeros((B, nx, nx), dtype=xs.dtype, device=xs.device)
-        else:
-            lfx = lambda x, p: lf(x, p)
-            gN = vmap(grad(lfx))(xs[:, N], ps[:, N])
-            HN = vmap(jacfwd(grad(lfx)))(xs[:, N], ps[:, N])
-        if cb is None:
-            lbs = torch.full_like(us, -torch.inf)
-            ubs = torch.full_like(us, torch.inf)
-        else:
-            ks = torch.arange(N, device=xs.device).expand(B, N).reshape(-1)
-            lbs, ubs = vmap(cb)(xs[:, :N].reshape(B * N, nx),
-                                ps[:, :N].reshape(B * N, -1), ks)
-            lbs, ubs = lbs.reshape(B, N, nu), ubs.reshape(B, N, nu)
-        return d, gN, HN, lbs - us, ubs - us
+        return trajectory_derivatives(ocp, xs, us, ps,
+                                      second_order=opt.use_ddp)
 
     def backward(d, gN, HN, dlb, dub, reg, ddp_scale):
         return bw_fn(d, dlb, dub, gN, HN, reg, ddp_scale, nx=nx, nu=nu,
                      use_ddp=opt.use_ddp, tol=opt.boxqp_tol)
 
+    fused = None
+    if backend == "cuda_fused":
+        def fused(xs, us, ps, reg, ddp_scale):
+            return fused_backward(xs, us, ps, reg, ddp_scale, ocp=ocp,
+                                  use_ddp=opt.use_ddp, tol=opt.boxqp_tol)
+
     return _Parts(rollout=rollout, derivs=derivs, backward=backward,
-                  linesearch=linesearch)
+                  linesearch=linesearch, fused=fused)
+
+
+def _search_direction(parts: _Parts, xs, us, ps, reg, ddp_scale):
+    """kffs, Ks, dV1, dV2, gmax of one iteration: the fused kernel where the
+    backend has one, derivs -> backward otherwise."""
+    if parts.fused is not None:
+        return parts.fused(xs, us, ps, reg, ddp_scale)
+    d, gN, HN, dlb, dub = parts.derivs(xs, us, ps)
+    return parts.backward(d, gN, HN, dlb, dub, reg, ddp_scale)
 
 
 def _as_tensor(a, z):
@@ -238,9 +247,8 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
 
         while running(carry):
             xs, us, cost, reg, it, done, gnorm, stall, fail, ddp_on = carry
-            d, gN, HN, dlb, dub = parts.derivs(xs, us, ps)
-            kffs, Ks, dV1, dV2, gmax = parts.backward(
-                d, gN, HN, dlb, dub, reg, ddp_on.to(cost.dtype))
+            kffs, Ks, dV1, dV2, gmax = _search_direction(
+                parts, xs, us, ps, reg, ddp_on.to(cost.dtype))
             xs_b, us_b, new_cost = parts.linesearch(x0s, xs, us, ps, kffs, Ks)
             carry = _accept_and_update(opt, carry, gmax, xs_b, us_b, new_cost)
 

@@ -1,8 +1,9 @@
-"""Box-DDP options, result type and the stage QP with feedback gain.
+"""Box-DDP options, result type, the stage QP with feedback gain, and the
+single-problem solver.
 
-Port of the shared pieces of ``mpc_verde_tpu.solver.ilqr``.  The
-single-problem ``make_ilqr_solver`` is not ported yet; the batched solver
-covers B = 1.
+Port of ``mpc_verde_tpu.solver.ilqr``.  The JAX package keeps a second copy
+of the iteration for one problem; here ``make_ilqr_solver`` is a B = 1 call
+of the batched solver (``solver/batched.py``), which runs the same math.
 """
 from __future__ import annotations
 
@@ -62,3 +63,26 @@ def _stage_boxqp_with_gain(Quu, Qu, Qux, lb, ub, tol):
     A = m[..., :, None] * Quu * m[..., None, :] + torch.diag_embed(1.0 - m)
     K = -small_solve(A, m[..., :, None] * Qux)
     return k_ff, K, m
+
+
+def make_ilqr_solver(ocp, options: ILQROptions = ILQROptions()):
+    """Build ``solve(x0, params, us_init) -> ILQRResult`` for one problem.
+
+    Args of ``solve``: x0 (nx,); params (N+1, npar) or (npar,) or None;
+    us_init (N, nu) or None.  The result has no batch axis: xs (N+1, nx),
+    us (N, nu), and 0-d cost, grad_norm, iterations, converged and
+    max_violation, as the JAX solver returns them.
+    """
+    from .batched import _as_tensor, make_batched_ilqr_solver
+
+    solve_b = make_batched_ilqr_solver(ocp, options)
+    z = dict(dtype=ocp.dtype, device=ocp.device)
+
+    def solve(x0, params=None, us_init=None):
+        # the batched solver broadcasts (npar,) and (N+1, npar) params itself
+        res = solve_b(_as_tensor(x0, z)[None], params,
+                      None if us_init is None else _as_tensor(us_init, z)[None])
+        return ILQRResult(**{f.name: getattr(res, f.name)[0]
+                             for f in dataclasses.fields(res)})
+
+    return solve

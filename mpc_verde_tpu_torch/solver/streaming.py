@@ -29,7 +29,7 @@ import torch
 
 from ..ocp.spec import OCP
 from .batched import (_accept_and_update, _as_tensor, _broadcast_params,
-                      _make_parts)
+                      _make_parts, _search_direction)
 from .ilqr import ILQROptions, ILQRResult
 
 
@@ -148,9 +148,8 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
 
             for _ in range(R):
                 # ---- one shared solver iteration ---------------------------
-                d, gN, HN, dlb, dub = parts.derivs(xs, us, ps)
-                kffs, Ks, dV1, dV2, gmax = parts.backward(
-                    d, gN, HN, dlb, dub, reg, ddp_on.to(z["dtype"]))
+                kffs, Ks, dV1, dV2, gmax = _search_direction(
+                    parts, xs, us, ps, reg, ddp_on.to(z["dtype"]))
                 xs_b, us_b, new_cost = parts.linesearch(
                     x0s, xs.contiguous(), us.contiguous(), ps, kffs, Ks)
                 (xs, us, cost, reg, it, done, gnorm, stall, fail,

@@ -8,8 +8,8 @@ nothing from ``tests/conftest.py``; run it there with
 
 Tolerances are float32 kernel vs float32 twin, relative to max(1, |ref|):
 the Riccati ones are those of the Pallas kernel's own test
-(``tests/test_pallas_riccati.py``), the line-search ones those of
-``chip_smoke.py`` phase 4.
+(``tests/test_pallas_riccati.py``) and hold for the fused kernel as well,
+the line-search ones those of ``chip_smoke.py`` phase 4.
 """
 import dataclasses
 
@@ -19,9 +19,11 @@ import torch
 
 import mpc_verde_tpu_torch as mt
 from chip_smoke import _random_riccati, _rel_err
-from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp
+from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
 from mpc_verde_tpu_torch.models import unicycle
 from mpc_verde_tpu_torch.ops import euler_step, rk4_step
+from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
+                                                fused_backward_torch)
 from mpc_verde_tpu_torch.ops.cuda.riccati import (SUPPORTED, riccati_backward,
                                                   riccati_backward_torch)
 from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward,
@@ -166,4 +168,102 @@ def test_streaming_cuda_matches_torch_float64(dev):
     both = ck.converged & ct.converged
     assert bool(both.any())
     rel = (ck.cost.double() - ct.cost).abs() / ct.cost.abs()
+    assert float(rel[both].max()) <= 1e-3
+
+
+def _fused_ocp(variant, N, dev):
+    """The bench OCP, or with the terminal cost 2 e'Qe, or with no box."""
+    if variant == "bench":
+        return bench_ocp(N, dev, torch.float32)
+    Q, R = np.diag([1.0, 5.0, 0.1]), np.diag([0.5, 0.05])
+    if variant == "terminal":
+        return unicycle_ocp(N, dev, dt=BENCH_DT, Q=Q, R=R, Qf=2.0 * Q,
+                            lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4])
+    return unicycle_ocp(N, dev, dt=BENCH_DT, Q=Q, R=R)
+
+
+def _fused_inputs(dev, B, N, reg=1e-3, seed=6):
+    """Rolled-out trajectories of random controls from random starts, each
+    with a target within 1 of its start, half the problems on Gauss-Newton."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    x0 = rng.uniform(-2, 2, (B, 3))
+    target = x0 + rng.uniform(-1, 1, (B, 3))
+    ps = t(np.broadcast_to(target[:, None], (B, N + 1, 3)).copy())
+    xs, us, _, _ = linesearch_forward_torch(
+        t(x0), t(np.zeros((B, N + 1, 3))),
+        t(rng.uniform(-0.5, 0.5, (B, N, 2))), ps, t(np.zeros((B, N, 2))),
+        t(np.zeros((B, N, 2, 3))), (1.0,), ocp=bench_ocp(N, dev))
+    ddp = np.ones(B)
+    ddp[::2] = 0.0
+    return xs, us, ps, t(np.full(B, reg)), t(ddp)
+
+
+@pytest.mark.parametrize("variant", ["bench", "terminal", "unbounded"])
+@pytest.mark.parametrize("use_ddp", [True, False])
+def test_fused_kernel_matches_twin(dev, variant, use_ddp):
+    """B = 300 is not a multiple of the block; with no box, dlb/dub are
+    -inf/+inf and nothing may turn NaN.
+
+    With DDP on, the curvature Vx . d2F/dv domega (about 0.02 |Vx|) makes Quu
+    indefinite on these trajectories.  A box keeps the stage QP bounded; an
+    unbounded Newton step on a near-singular Quu amplifies float32 round-off
+    past any tolerance, so the unbounded case runs at reg = 10, a value the
+    solver's x100 escalation reaches, which keeps Quu positive definite.
+    """
+    B, N = 300, 12
+    ocp = _fused_ocp(variant, N, dev)
+    args = _fused_inputs(dev, B, N, reg=10.0 if variant == "unbounded" else 1e-3)
+    before = fused_backward.launches
+    out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp)
+    torch.cuda.synchronize()
+    assert fused_backward.launches == before + 1
+    ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+    for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
+        assert bool(torch.isfinite(o).all()), name
+        assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    ocp = bench_ocp(4, dev)
+    xs, us, ps, reg, ddp = _fused_inputs(dev, 8, 4)
+    before = fused_backward.launches
+    with pytest.raises(TypeError, match="float32"):
+        fused_backward(xs.double(), us, ps, reg, ddp, ocp=ocp)
+    strided = torch.zeros((8, 5, 6), device=dev)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_backward(strided, us, ps, reg, ddp, ocp=ocp)
+    with pytest.raises(ValueError, match="shape"):
+        fused_backward(xs, us, ps, reg[:4], ddp, ocp=ocp)
+    with pytest.raises(NotImplementedError, match="device_model"):
+        fused_backward(xs, us, ps, reg, ddp,
+                       ocp=dataclasses.replace(ocp, device_model=None))
+    assert fused_backward.launches == before
+
+
+def test_batched_cuda_fused_matches_cuda(dev):
+    """One batched solve on "cuda_fused" against "cuda": the two float32
+    paths differ only in where the stage derivatives come from."""
+    N, B = 20, 64
+    x0 = np.random.default_rng(3).uniform(-2.0, 2.0, (B, 3))
+    target = np.array([10.0, 10.0, 0.0])
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    ocp = bench_ocp(N, dev, torch.float32)
+    fused_backward_torch.cuda_calls = 0
+    riccati_backward_torch.cuda_calls = 0
+    linesearch_forward_torch.cuda_calls = 0
+    k1, k2, k3 = (riccati_backward.launches, linesearch_forward.launches,
+                  fused_backward.launches)
+    rf = mt.make_batched_ilqr_solver(ocp, opts, backend="cuda_fused")(x0, target)
+    assert fused_backward.launches > k3 and linesearch_forward.launches > k2
+    assert riccati_backward.launches == k1
+    assert fused_backward_torch.cuda_calls == 0
+    assert riccati_backward_torch.cuda_calls == 0
+    assert linesearch_forward_torch.cuda_calls == 0
+    rc = mt.make_batched_ilqr_solver(ocp, opts, backend="cuda")(x0, target)
+    assert float((rf.converged == rc.converged).float().mean()) >= 0.95
+    both = rf.converged & rc.converged
+    assert float(both.float().mean()) >= 0.9
+    rel = (rf.cost - rc.cost).abs() / rc.cost.abs()
     assert float(rel[both].max()) <= 1e-3
