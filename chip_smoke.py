@@ -8,28 +8,41 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
               card: random problems for every instantiated (nx, nu), and the
               bench OCP's derivatives at B=1024, N=40.
-  4. K2:      line-search kernel vs its twin on the bench OCP, random gains.
+  4. K2:      line-search kernel vs its twin on the bench OCP, random gains,
+              at B=1024, N=40, A=8 (the plan's "lanes" variant), and at A=5,
+              A=1 (the pre-roll, "lanes_reroll"), B=1000 and an all-ties
+              input; at the shapes the driven paths give it: the streaming
+              pre-roll of phases 5 and 8 (B=16384, N=40, A=1), the fleet's
+              line search on the fleet's own OCP (B=1024, N=10, A=12: groups
+              of 16 lanes, 4 of them idle) and the fleet's pre-roll; the
+              "lanes" and "lanes_reroll" variants against the "thread" one.
   5. main:    the streaming solver, backend="cuda", batch width 1024, over a
               16384-problem N=40 queue (60 iterations + 2 restarts).  Every
               kernel launch count is reset just before and read just after.
   6. cross:   256 problems, f32 "cuda" backend vs f64 "torch" backend.
   7. K3:      fused derivs+backward kernel vs its twin, float32 on the card:
               the bench OCP at B=1024, N=40 along pre-rolled trajectories
-              (DDP on and off), the same with a terminal cost (Qf = 2Q), and
-              random trajectories.
+              (DDP on and off), the same with a terminal cost (Qf = 2Q),
+              random trajectories, B=1000 and N=10 (the fleet's horizon);
+              the "staged" variant against the "thread" one, and the cycles
+              of its two phases.
   8. main-fused: phase 5's queue and options on backend="cuda_fused"; its
               results are held against phase 5's.
   9. fleet:   the closed-loop fleet (scenarios/fleet.py SPEC: B=1024, N=10,
               Nsim=150, RK4 controller, Euler plant) on "cuda_fused", with
               the JAX package's own gates.
 Phases 5, 8 and 9 each set every kernel launch count to 0 just before and
-read it just after.  Then one JSON line of kernel results, the nvidia-smi
-name/power-limit line, and last the JSON status line.  Imports torch, numpy
-and mpc_verde_tpu_torch only.
+read it just after, and check that the launches were of the variants the
+launch plans choose for the shape.  Then one JSON line of kernel results
+(each kernel's time beside its roofline bound, computed from this run's
+shapes, and beside its one-thread-per-problem variant's time), the
+nvidia-smi name/power-limit line, and last the JSON status line.  Imports
+torch, numpy and mpc_verde_tpu_torch only.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -52,6 +65,28 @@ K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "gmax": 1e-4}
 BACKWARD_OUT = ("kff", "K", "dV1", "dV2", "gmax")
 # JAX full-mode quality band on the same workload (TPU run, BENCH_r05.json)
 JAX_BAND = {"converged_frac": 1.0, "mean_iterations": 15.14}
+# Published peaks of one H100 SXM: device memory bytes/s, float32 FLOP/s
+# outside the tensor cores.
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# Operations per unit of work, counted from the kernels' arithmetic with a
+# full-precision sinf or cosf taken as 16: one clipped closed-loop RK4 step
+# with its stage cost (K2); one stage QP of the Riccati recursion, nx = 3,
+# nu = 2 (K1); the same plus the stage's dual-number derivatives (K3).
+K2_STEP_FLOPS, K1_STAGE_FLOPS, K3_STAGE_FLOPS = 250, 1000, 4000
+# the variants the launch plans choose at the bench and the fleet shapes:
+# K2's line search and (without candidate slots) its pre-roll, K3 at 1024
+PLANNED = {"linesearch_forward": ("lanes", "lanes_reroll"),
+           "fused_backward": ("staged",)}
+
+
+def _bound(n_bytes, flops):
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the operations at
+    the float32 peak, whichever is larger."""
+    t_bytes, t_flops = n_bytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "library_ms": None}   # no single PyTorch call computes any of them
 
 
 def _opts():
@@ -70,19 +105,30 @@ def _queue(M, N, seed=0):
     return x0q, psq, np.zeros((M, N, 2), np.float32)
 
 
-def _time_ms(fn, reps, warmup=2):
-    """Mean device time of one call, by CUDA events around `reps` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def _ptxas_summary(log, sources=("rollout.cu", "fused.cu")):
+    """Registers, stack and spills of each kernel of `sources`, from the
+    build's `ptxas -v` output (build.py's log, one "== file" part a source)."""
+    lines = []
+    for part in log.split("== ")[1:]:
+        if not part.startswith(sources):
+            continue
+        for m in re.finditer(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
+                r"Used (\d+) registers", part, re.S):
+            name, stack, st, ld, regs = m.groups()
+            lines.append(f"{part.split()[0]} {name}: {regs} registers, stack "
+                         f"{stack} B, spill stores {st} B, loads {ld} B")
+    return lines
+
+
+def _time_ms(fn, reps, warmup=2, queued=True):
+    """Mean device time of one call: back-to-back launches behind a device
+    spin for a kernel, the host's own pace (`queued=False`) for a twin,
+    which is many launches."""
+    from mpc_verde_tpu_torch.utils import device_time_ms
+
+    return device_time_ms(fn, reps, warmup, queued)
 
 
 def _rel_err(a, ref):
@@ -172,50 +218,129 @@ def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N):
     err = compare(args, 3, 2, f"bench B={B} N={N}")
     ms = _time_ms(lambda: riccati_backward(*args, nx=3, nu=2), reps=50)
     plain_ms = _time_ms(lambda: riccati_backward_torch(*args, nx=3, nu=2),
-                        reps=5, warmup=1)
+                        reps=5, warmup=1, queued=False)
     print(f"[k1] bench B={B} N={N}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms",
           flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    n_in = sum(a.numel() for a in args[1:]) + sum(v.numel() for v in args[0].values())
+    n_out = sum(o.numel() for o in riccati_backward(*args, nx=3, nu=2))
+    # K1 has the one design, a thread per problem
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(4 * (n_in + n_out), B * N * K1_STAGE_FLOPS),
+            "variant": "thread", "thread_variant_ms": ms}
 
 
-def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8):
+def _k2_inputs(dev, B, N, seed=3):
+    """Random nominal trajectories and gains on the bench OCP's target."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    return (t(rng.uniform(-2, 2, (B, 3))), t(rng.uniform(-2, 2, (B, N + 1, 3))),
+            t(rng.uniform(-0.8, 0.8, (B, N, 2))),
+            t(np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy()),
+            t(0.3 * rng.normal(size=(B, N, 2))),
+            t(0.2 * rng.normal(size=(B, N, 2, 3))))
+
+
+def _variants_used(fn, run):
+    """The variants `fn` launched while `run()` ran, and run's result."""
+    before = dict(fn.launches_by_variant)
+    out = run()
+    return {v for v, n in fn.launches_by_variant.items() if n > before[v]}, out
+
+
+def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
+    from mpc_verde_tpu_torch import ILQROptions
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        linesearch_forward, linesearch_forward_torch)
+        linesearch_forward, linesearch_forward_torch, linesearch_launch_plan)
+    from mpc_verde_tpu_torch.scenarios import build_fleet
 
-    ocp = bench_ocp(N, dev, torch.float32)
-    rng = np.random.default_rng(3)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-    x0 = t(rng.uniform(-2, 2, (B, 3)))
-    xs = t(rng.uniform(-2, 2, (B, N + 1, 3)))
-    us = t(rng.uniform(-0.8, 0.8, (B, N, 2)))
-    ps = t(np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy())
-    kffs = t(0.3 * rng.normal(size=(B, N, 2)))
-    Ks = t(0.2 * rng.normal(size=(B, N, 2, 3)))
-    alphas = tuple(0.4 ** i for i in range(A))
-    args = (x0, xs, us, ps, kffs, Ks, alphas)
+    bench = bench_ocp(N, dev, torch.float32)
+    alphas_of = lambda n: tuple(0.4 ** i for i in range(n))
 
-    xs_k, us_k, c_k, b_k = linesearch_forward(*args, ocp=ocp)
-    xs_t, us_t, c_t, b_t = linesearch_forward_torch(*args, ocp=ocp)
-    cost_rel = float(((c_k.double() - c_t.double()).abs()
-                      / c_t.double().abs()).max())
-    same = b_k == b_t
-    same_frac = float(same.float().mean())
-    traj = max(_rel_err(xs_k[same], xs_t[same]), _rel_err(us_k[same], us_t[same]))
-    print(f"[k2] bench B={B} N={N} A={A}: cost rel err {cost_rel:.2e}, "
-          f"same alpha {same_frac:.4f}, traj err (same alpha, vs max(1,|ref|)) "
-          f"{traj:.2e}", flush=True)
-    if cost_rel > 1e-5 or same_frac < 0.999 or traj > 1e-4:
-        raise AssertionError(f"K2 out of tolerance: cost rel {cost_rel}, "
-                             f"same alpha {same_frac}, traj {traj}")
-    err = max(_abs_err(c_k, c_t), _abs_err(xs_k[same], xs_t[same]),
-              _abs_err(us_k[same], us_t[same]))
-    ms = _time_ms(lambda: linesearch_forward(*args, ocp=ocp), reps=50)
-    plain_ms = _time_ms(lambda: linesearch_forward_torch(*args, ocp=ocp),
-                        reps=5, warmup=1)
-    print(f"[k2] bench B={B} N={N} A={A}: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    def compare(data, alphas, label, variant=None, ocp=bench):
+        """Kernel vs twin at phase 4's tolerances; returns (max abs err,
+        the kernel's outputs).  Unless one is forced, the variant must be
+        the plan's: "lanes", and for one alpha "lanes_reroll"."""
+        args = (*data, alphas)
+        used, out = _variants_used(
+            linesearch_forward,
+            lambda: linesearch_forward(*args, ocp=ocp, variant=variant))
+        xs_k, us_k, c_k, b_k = out
+        xs_t, us_t, c_t, b_t = linesearch_forward_torch(*args, ocp=ocp)
+        cost_rel = float(((c_k.double() - c_t.double()).abs()
+                          / c_t.double().abs()).max())
+        same = b_k == b_t
+        same_frac = float(same.float().mean())
+        traj = max(_rel_err(xs_k[same], xs_t[same]),
+                   _rel_err(us_k[same], us_t[same]))
+        print(f"[k2] {label} variant {sorted(used)}: cost rel err "
+              f"{cost_rel:.2e}, same alpha {same_frac:.4f}, traj err (same "
+              f"alpha, vs max(1,|ref|)) {traj:.2e}", flush=True)
+        if cost_rel > 1e-5 or same_frac < 0.999 or traj > 1e-4:
+            raise AssertionError(f"K2 {label} out of tolerance: cost rel "
+                                 f"{cost_rel}, same alpha {same_frac}, traj {traj}")
+        if used != {variant or PLANNED["linesearch_forward"][len(alphas) == 1]}:
+            raise AssertionError(f"K2 {label} ran variants {used}")
+        return max(_abs_err(c_k, c_t), _abs_err(xs_k[same], xs_t[same]),
+                   _abs_err(us_k[same], us_t[same])), out
+
+    data = _k2_inputs(dev, B, N)
+    err, out_lanes = compare(data, alphas_of(A), f"bench B={B} N={N} A={A}")
+    err = max(err, compare(data, alphas_of(5), f"B={B} N={N} A=5")[0])
+    ragged = _k2_inputs(dev, B_ragged, N, seed=4)
+    err = max(err, compare(ragged, alphas_of(A), f"B={B_ragged} N={N} A={A}")[0])
+    zero = lambda d: (*d[:4], torch.zeros_like(d[4]), torch.zeros_like(d[5]))
+    err = max(err, compare(zero(ragged), (1.0,),
+                           f"pre-roll B={B_ragged} N={N} A=1")[0])
+    e, out_ties = compare(zero(data), alphas_of(A),
+                          f"all ties B={B} N={N} A={A}")
+    err = max(err, e)
+    if int(out_ties[3].abs().max()) != 0:
+        raise AssertionError("K2: on all-tied costs alpha 0 must win")
+
+    # the shapes the driven paths give the kernel: the streaming pre-roll of
+    # the whole queue, and the fleet's line search and pre-roll on its OCP
+    # with the solver's default alphas
+    err = max(err, compare(zero(_k2_inputs(dev, M, N, seed=5)), (1.0,),
+                           f"streaming pre-roll B={M} N={N} A=1")[0])
+    fleet = build_fleet(n_steps=1, device=dev)
+    o = ILQROptions()
+    fleet_alphas = tuple(float(o.alpha_decay) ** i for i in range(o.n_alphas))
+    B_f, N_f, A_f = fleet["spec"]["B"], fleet["spec"]["N"], len(fleet_alphas)
+    fleet_data = _k2_inputs(dev, B_f, N_f, seed=6)
+    print(f"[k2] fleet shape: {linesearch_launch_plan(N_f, A_f, 3)}", flush=True)
+    err = max(err,
+              compare(fleet_data, fleet_alphas,
+                      f"fleet B={B_f} N={N_f} A={A_f}", ocp=fleet["ocp"])[0],
+              compare(zero(fleet_data), (1.0,),
+                      f"fleet pre-roll B={B_f} N={N_f} A=1", ocp=fleet["ocp"])[0])
+
+    # the other variants, forced, against their twin and against "lanes"
+    diffs = {}
+    for variant in ("thread", "lanes_reroll"):
+        e, out_v = compare(data, alphas_of(A), f"bench B={B} N={N} A={A}",
+                           variant=variant)
+        err = max(err, e)
+        diffs[variant] = max(_abs_err(a, b) for a, b in zip(out_lanes, out_v))
+    print(f"[k2] bench B={B} N={N} A={A}: max |lanes - thread| "
+          f"{diffs['thread']:.2e}, max |lanes - lanes_reroll| "
+          f"{diffs['lanes_reroll']:.2e} over xs, us, cost, best", flush=True)
+    if max(diffs.values()) > 1e-4:
+        raise AssertionError(f"K2 variants disagree: {diffs}")
+
+    args = (*data, alphas_of(A))
+    ms = _time_ms(lambda: linesearch_forward(*args, ocp=bench), reps=50)
+    thread_ms = _time_ms(
+        lambda: linesearch_forward(*args, ocp=bench, variant="thread"), reps=50)
+    plain_ms = _time_ms(lambda: linesearch_forward_torch(*args, ocp=bench),
+                        reps=5, warmup=1, queued=False)
+    print(f"[k2] bench B={B} N={N} A={A}: kernel {ms:.4f} ms, \"thread\" "
+          f"variant {thread_ms:.4f} ms, twin {plain_ms:.4f} ms", flush=True)
+    n_io = sum(a.numel() for a in data) + sum(o.numel() for o in out_lanes)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(4 * n_io, B * A * N * K2_STEP_FLOPS),
+            "variant": "lanes", "thread_variant_ms": thread_ms,
+            "max_abs_diff_vs_thread": diffs["thread"]}
 
 
 def _hold(out, ref, tag, label):
@@ -252,18 +377,25 @@ def _path_counters():
 
 def _drive(run):
     """Run one path with every count set to 0 just before and read just
-    after; returns (result, wall s, launches, twin calls on CUDA)."""
+    after; returns (result, wall s, launches, twin calls on CUDA).  A
+    kernel with variants also reports its launches of each, under
+    "<name>.<variant>"."""
     kernels, twins = _path_counters()
     for f in kernels:
         f.launches = 0
+        if hasattr(f, "launches_by_variant"):
+            f.launches_by_variant = dict.fromkeys(f.launches_by_variant, 0)
     for f in twins:
         f.cuda_calls = 0
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return (res, wall, {f.__name__: f.launches for f in kernels},
-            {f.__name__: f.cuda_calls for f in twins})
+    launches = {f.__name__: f.launches for f in kernels}
+    for f in kernels:
+        for v, n in getattr(f, "launches_by_variant", {}).items():
+            launches[f"{f.__name__}.{v}"] = n
+    return res, wall, launches, {f.__name__: f.cuda_calls for f in twins}
 
 
 def _check_path(launches, twin_calls, path_kernels):
@@ -271,6 +403,11 @@ def _check_path(launches, twin_calls, path_kernels):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     if max(twin_calls.values()) > 0:
         raise AssertionError(f"a twin ran on CUDA tensors: {twin_calls}")
+    for k in path_kernels:   # every planned variant ran, and no other
+        if k in PLANNED:
+            ran = [launches[f"{k}.{v}"] for v in PLANNED[k]]
+            if min(ran) < 1 or sum(ran) != launches[k]:
+                raise AssertionError(f"{k} left its planned variants: {launches}")
 
 
 def _streaming(dev, gpu, backend, path_kernels, tag, M, W, N):
@@ -350,15 +487,21 @@ def phase_cross(dev, M=CROSS, N=BENCH_N):
         raise AssertionError(f"cross-check failed: agree {agree}, rel {rel}")
 
 
-def phase_k3(dev, B=WIDTH, N=BENCH_N, B_rand=1000, N_rand=6):
+def phase_k3(dev, B=WIDTH, N=BENCH_N, B_rand=1000, N_rand=6, N_fleet=10):
     from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
-    from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
-                                                    fused_backward_torch)
+    from mpc_verde_tpu_torch.ops.cuda.fused import (
+        fused_backward, fused_backward_torch, fused_launch_plan,
+        fused_phase_clocks)
 
-    def compare(ocp, args, use_ddp, label):
-        out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp)
+    def compare(ocp, args, use_ddp, label, variant=None):
+        used, out = _variants_used(
+            fused_backward,
+            lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                   variant=variant))
         ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
-        return _hold(out, ref, "k3", label)
+        if used != {variant or "staged"}:
+            raise AssertionError(f"K3 {label} ran variants {used}")
+        return _hold(out, ref, "k3", f"{label} variant {sorted(used)}"), out
 
     def terminal_ocp(n):   # tests/test_pallas_fused.py's terminal cost 2 e'Qe
         Q = np.diag([1.0, 5.0, 0.1])
@@ -367,13 +510,22 @@ def phase_k3(dev, B=WIDTH, N=BENCH_N, B_rand=1000, N_rand=6):
                             Qf=2.0 * Q)
 
     f = dict(dtype=torch.float32, device=dev)
+    bench_args = lambda ocp, b: (*_bench_trajectories(ocp, b, dev),
+                                 torch.full((b,), 1e-6, **f),
+                                 torch.ones((b,), **f))
     ocp = bench_ocp(N, dev, torch.float32)
-    args = (*_bench_trajectories(ocp, B, dev), torch.full((B,), 1e-6, **f),
-            torch.ones((B,), **f))
-    err = max(compare(ocp, args, True, f"bench B={B} N={N} DDP"),
-              compare(ocp, args, False, f"bench B={B} N={N} Gauss-Newton"),
+    args = bench_args(ocp, B)
+    e_ddp, out_staged = compare(ocp, args, True, f"bench B={B} N={N} DDP")
+    e_gn, out_staged_gn = compare(ocp, args, False,
+                                  f"bench B={B} N={N} Gauss-Newton")
+    err = max(e_ddp, e_gn,
               compare(terminal_ocp(N), args, True,
-                      f"terminal Qf=2Q B={B} N={N} DDP"))
+                      f"terminal Qf=2Q B={B} N={N} DDP")[0],
+              compare(ocp, bench_args(ocp, B_rand), True,
+                      f"bench B={B_rand} N={N} DDP")[0])
+    ocp_fleet = bench_ocp(N_fleet, dev, torch.float32)
+    err = max(err, compare(ocp_fleet, bench_args(ocp_fleet, B), True,
+                           f"bench B={B} N={N_fleet} DDP")[0])
     rng = np.random.default_rng(9)
     t = lambda a: torch.as_tensor(a, **f).contiguous()
     ps = np.zeros((B_rand, N_rand + 1, 3))
@@ -384,14 +536,38 @@ def phase_k3(dev, B=WIDTH, N=BENCH_N, B_rand=1000, N_rand=6):
             t(rng.uniform(-0.7, 0.7, (B_rand, N_rand, 2))), t(ps),
             t(np.full(B_rand, 1e-4)), t(ddp))
     err = max(err, compare(terminal_ocp(N_rand), rand, True,
-                           f"random B={B_rand} N={N_rand} DDP/GN mixed"))
+                           f"random B={B_rand} N={N_rand} DDP/GN mixed")[0])
 
-    run = lambda fn: fn(*args, ocp=ocp, use_ddp=True)
+    # the "thread" variant, forced, against its twin and against "staged"
+    diff = 0.0
+    for use_ddp, staged in ((True, out_staged), (False, out_staged_gn)):
+        e, out_thread = compare(ocp, args, use_ddp,
+                                f"bench B={B} N={N} DDP={use_ddp}",
+                                variant="thread")
+        err = max(err, e)
+        diff = max(diff, *(_abs_err(a, b) for a, b in zip(staged, out_thread)))
+    print(f"[k3] bench B={B} N={N}: max |staged - thread| {diff:.2e} over "
+          f"kff, K, dV1, dV2, gmax (DDP on and off)", flush=True)
+    if diff > 1e-4:
+        raise AssertionError(f"K3 variants disagree: {diff}")
+
+    run = lambda fn, **kw: fn(*args, ocp=ocp, use_ddp=True, **kw)
     ms = _time_ms(lambda: run(fused_backward), reps=50)
-    plain_ms = _time_ms(lambda: run(fused_backward_torch), reps=5, warmup=1)
-    print(f"[k3] bench B={B} N={N} DDP: kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    thread_ms = _time_ms(lambda: run(fused_backward, variant="thread"), reps=50)
+    plain_ms = _time_ms(lambda: run(fused_backward_torch), reps=5, warmup=1,
+                        queued=False)
+    plan = fused_launch_plan(N, True)
+    cycles = fused_phase_clocks(*args, ocp=ocp).double().mean(0).tolist()
+    print(f"[k3] bench B={B} N={N} DDP: kernel {ms:.4f} ms, \"thread\" variant "
+          f"{thread_ms:.4f} ms, twin {plain_ms:.4f} ms; {plan}; mean cycles a "
+          f"block: phase 1 {cycles[0]:.0f}, phase 2 {cycles[1]:.0f}, write-out "
+          f"{cycles[2]:.0f}", flush=True)
+    n_io = sum(a.numel() for a in args) + sum(o.numel() for o in out_staged)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **_bound(4 * n_io, B * N * K3_STAGE_FLOPS),
+            "variant": "staged",
+            "thread_variant_ms": thread_ms, "max_abs_diff_vs_thread": diff,
+            "phase_cycles": dict(zip(("phase1", "phase2", "write_out"), cycles))}
 
 
 def phase_fleet(dev, gpu, B=None, n_steps=None):
@@ -453,8 +629,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build()
     load_library()
-    print(f"[build] {built.path.name}: nvcc {built.seconds:.1f} s, load "
-          f"{time.perf_counter() - t0:.1f} s total", flush=True)
+    per_source = " ".join(line[3:] for line in built.log.splitlines()
+                          if line.startswith("== "))
+    print(f"[build] {built.path.name}: nvcc {built.seconds:.1f} s "
+          f"({per_source}), load {time.perf_counter() - t0:.1f} s total",
+          flush=True)
+    for line in _ptxas_summary(built.log):
+        print(f"[build] ptxas {line}", flush=True)
 
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
@@ -476,7 +657,11 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": by_path[count_in[name]][name], **m,
                         "launches_by_path": {p: c[name]
-                                             for p, c in by_path.items()}})
+                                             for p, c in by_path.items()},
+                        "launches_by_variant": {
+                            p: {k.split(".")[1]: n for k, n in c.items()
+                                if k.startswith(name + ".")}
+                            for p, c in by_path.items()}})
     print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

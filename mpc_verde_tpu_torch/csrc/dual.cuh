@@ -18,12 +18,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "tri.cuh"
 
-__host__ __device__ constexpr int tri_index(int n, int i, int j) {
-  // (i, j) of the upper triangle, row-major; symmetric in (i, j)
-  return i <= j ? i * n - i * (i - 1) / 2 + (j - i) : tri_index(n, j, i);
-}
+namespace {
 
 template <int NZ, bool H>
 struct Dual {

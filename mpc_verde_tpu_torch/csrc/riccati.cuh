@@ -11,8 +11,9 @@
 // thread walks the stages N-1..0 in a loop and keeps (Vx, Vxx) and the
 // dV1/dV2/gmax accumulators in registers, so nothing carries across blocks.
 // One stage is backward_stage, which reads the stage derivatives through an
-// accessor: K1 reads them from device memory, the fused kernel K3
-// (fused.cu) computes them in registers.
+// accessor: K1 reads them from device memory (GlobalStage); the fused kernel
+// K3 (fused.cu) computes them itself and hands them over in shared memory
+// (SharedStage) or in registers.
 // The 3^NU active-set patterns of the stage box QP (itertools.product order,
 // strict-< first minimum) are unrolled at compile time per (NX, NU): each
 // candidate step solves its free system (up to two free coordinates in
@@ -37,6 +38,8 @@
 
 #include <type_traits>
 #include <utility>
+
+#include "tri.cuh"
 
 // Kernel arguments: device pointers in the JAX (B, N, ...) layouts.
 struct RiccatiArgs {
@@ -247,10 +250,53 @@ struct GlobalStage {
   __device__ __forceinline__ float hi(int a) const { return hi_[a]; }
 };
 
+// The stage derivatives as one record of floats (in shared memory for K3's
+// "staged" variant): per dynamics component m a gradient over z = [x; u] and,
+// with DDP, the upper triangle of its Hessian (tri.cuh's order); the cost's
+// gradient and Hessian triangle; then lo and hi.  kStride is the record
+// length rounded up to an odd number of floats, so that consecutive records
+// written by consecutive lanes fall into different shared-memory banks.
+template <int NX, int NU, bool DDP>
+struct SharedStage {
+  static constexpr int kNZ = NX + NU;
+  static constexpr int kTri = kNZ * (kNZ + 1) / 2;
+  static constexpr int kF = kNZ + (DDP ? kTri : 0);  // floats per dynamics component
+  static constexpr int kL = NX * kF;                 // the cost's gradient
+  static constexpr int kLH = kL + kNZ;               // the cost's Hessian triangle
+  static constexpr int kLo = kLH + kTri;
+  static constexpr int kHi = kLo + NU;
+  static constexpr int kFloats = kHi + NU;
+  static constexpr int kStride = kFloats | 1;
+  const float* r;
+
+  __device__ __forceinline__ float fx(int m, int i) const { return r[m * kF + i]; }
+  __device__ __forceinline__ float fu(int m, int a) const { return r[m * kF + NX + a]; }
+  __device__ __forceinline__ float lx(int i) const { return r[kL + i]; }
+  __device__ __forceinline__ float lu(int a) const { return r[kL + NX + a]; }
+  __device__ __forceinline__ float lxx(int i, int j) const { return r[kLH + tri_index(kNZ, i, j)]; }
+  __device__ __forceinline__ float luu(int a, int c) const {
+    return r[kLH + tri_index(kNZ, NX + a, NX + c)];
+  }
+  __device__ __forceinline__ float lux(int a, int i) const {
+    return r[kLH + tri_index(kNZ, NX + a, i)];
+  }
+  __device__ __forceinline__ float fxx(int m, int i, int j) const {
+    return r[m * kF + kNZ + tri_index(kNZ, i, j)];
+  }
+  __device__ __forceinline__ float fux(int m, int a, int i) const {
+    return r[m * kF + kNZ + tri_index(kNZ, NX + a, i)];
+  }
+  __device__ __forceinline__ float fuu(int m, int a, int c) const {
+    return r[m * kF + kNZ + tri_index(kNZ, NX + a, NX + c)];
+  }
+  __device__ __forceinline__ float lo(int a) const { return r[kLo + a]; }
+  __device__ __forceinline__ float hi(int a) const { return r[kHi + a]; }
+};
+
 // One stage of the box-constrained Riccati recursion (the port of
 // riccati._backward_stage, which K1 and K3 share in JAX as well): reads the
-// stage's derivatives through the accessor `d` (GlobalStage for K1, the dual
-// numbers of fused.cu for K3), updates the value function (Vx, Vxx) and the
+// stage's derivatives through the accessor `d` (GlobalStage for K1;
+// SharedStage or the dual numbers of fused.cu for K3), updates the value function (Vx, Vxx) and the
 // accumulators dV1, dV2, gmax in place, and returns the stage's kff and K.
 template <int NX, int NU, bool DDP, class Stage>
 __device__ __forceinline__ void backward_stage(const Stage& d, float rg, float ds, float tol,

@@ -10,8 +10,8 @@ minutes; the build time is that of the kernels themselves.
 The library is built on first use into ``mpc_verde_tpu_torch/_build/``
 (ignored by git), under a name that carries a hash of the sources and flags:
 a changed source builds a new library.  ``python -m
-mpc_verde_tpu_torch.ops.cuda.build`` builds it and prints ``ptxas``'s
-register and spill report.
+mpc_verde_tpu_torch.ops.cuda.build`` builds it and prints, per source, the
+seconds ``nvcc`` took and ``ptxas``'s register and spill report.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -36,15 +37,36 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
+_IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the kernels' entry points (argtypes, restype int).
 _SIGNATURES = {
     "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_P],
     "mv_linesearch_forward": [_I, _I, _I] + [_P] * 6 + [_FP, _I, _I, _I, _FP,
-                                                        _I] + [_P] * 4 + [_P],
+                                                        _I] + [_P] * 4
+                             + [_I, _I, _IP] + [_P],
     "mv_fused_backward": [_I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _I, _I, _I]
-                         + [_P] * 5 + [_P],
+                         + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
 }
+
+# Dynamic shared memory one block can use on sm_90 (227 KB of the SM's 256):
+# kSmemMaxBytes in csrc/launch.cuh.
+SMEM_MAX_BYTES = 232_448
+
+
+class LaunchPlan(NamedTuple):
+    """How a kernel is launched for one shape: a pure function of the shape
+    (``linesearch_launch_plan``, ``fused_launch_plan``), never of a trial."""
+
+    variant: str
+    problems: int     # problems per block
+    threads: int      # threads per block
+    smem_bytes: int   # dynamic shared memory per block
+    layout: tuple = ()   # the kernel's shared-memory offsets or strides, floats
+
+    def c_layout(self):
+        """``layout`` as the C entry points take it (a host int array)."""
+        return (ctypes.c_int * len(self.layout))(*self.layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +114,23 @@ def build() -> BuildResult:
     nvcc = _nvcc()
     cu, _ = _sources()
     t0 = time.perf_counter()
-    procs = [(src, subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(objdir / f"{src.stem}.o")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for src in cu]
+    procs = {}
+    for src in cu:   # one nvcc per source, all started together
+        out_file = open(objdir / f"{src.stem}.log", "w")
+        procs[src] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(objdir / f"{src.stem}.o")],
+            stdout=out_file, stderr=subprocess.STDOUT), out_file)
+    done = {}
+    while len(done) < len(procs):
+        for src, (proc, out_file) in procs.items():
+            if src not in done and proc.poll() is not None:
+                done[src] = time.perf_counter() - t0
+                out_file.close()
+        time.sleep(0.05)
     logs, failed = [], []
-    for src, proc in procs:
-        logs.append(f"== {src.name}\n{proc.communicate()[0]}")
+    for src, (proc, _) in procs.items():
+        text = (objdir / f"{src.stem}.log").read_text()
+        logs.append(f"== {src.name} ({done[src]:.1f} s)\n{text}")
         if proc.returncode != 0:
             failed.append(src.name)
     if not failed:

@@ -7,13 +7,20 @@ box, and runs the box-constrained Riccati backward pass: the outputs of
 ``riccati_backward`` without the derivative tensors ever reaching device
 memory.
 
-Its kernel is ``csrc/fused.cu``: one thread per problem walks the stages
-N-1..0, evaluates the OCP's ``UnicycleDeviceModel`` (``csrc/unicycle.cuh``,
-the model K2 evaluates) on second-order forward-mode dual numbers
-(``csrc/dual.cuh``) over z = [x; u], and hands the derivatives in registers
-to K1's stage recursion (``backward_stage`` in ``csrc/riccati.cuh``).  At
-the bench shapes (B = 1024, N = 40) the card is latency bound on that
-per-thread chain (1024 threads on 16 of 132 SMs, 250 registers each).
+Its kernel is ``csrc/fused.cu``, two phases in one launch.  In phase 1 a
+block's threads take its problems' stages one (problem, stage) at a time:
+each evaluates the OCP's ``UnicycleDeviceModel`` (``csrc/unicycle.cuh``, the
+model K2 evaluates) on second-order forward-mode dual numbers
+(``csrc/dual.cuh``) over z = [x; u] and stores the stage's derivatives as
+one record in shared memory.  In phase 2 one thread per problem walks the
+stages N-1..0 with K1's stage recursion (``backward_stage`` in
+``csrc/riccati.cuh``) on those records, and the gains leave through a
+shared-memory staging area as coalesced slabs.  ``fused_launch_plan`` picks
+the variant from the shape alone: ``"staged"`` as described, and
+``"thread"`` (one thread per problem, each stage's derivatives computed in
+registers just before its stage QP) for horizons at which fewer than 4
+problems' records fit a block's shared memory and for batches whose
+``"staged"`` blocks would take more than two waves.
 
 ``fused_backward_torch`` is the plain PyTorch version: the port's
 ``derivs`` -> ``backward`` on the OCP's own callables
@@ -21,11 +28,82 @@ per-thread chain (1024 threads on 16 of 132 SMs, 250 registers each).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..linearize import trajectory_derivatives
-from .build import check_args, check_launch, load_library
+from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
+                    load_library)
 from .riccati import riccati_backward_torch
+
+FUSED_VARIANTS = ("thread", "staged")  # the C entry's ids
+_NX, _NU = 3, 2
+# The plan's constants follow measurements on the H100
+# (utils/tune_launch_plans.py, DDP, B = 1024 unless said).
+# Problems a block: at N = 40, 8 take 0.074 ms, 4 and 2 take 0.137 ms (their
+# blocks no longer run in one wave) and more do not fit; at N = 10, 2 to 16
+# are equal.  With fewer than 4 a block "thread" is the faster: 1.03 ms
+# against 0.83 ms at N = 160, where "staged" still won at N = 150 with 4.
+_BLOCK_PROBLEMS = 8
+_MIN_PROBLEMS = 4
+# Waves: a "staged" block is large, so an SM holds one (N = 40) or two
+# (N = 10) and a wide batch takes them in turn, while the small "thread"
+# blocks all run at once.  At N = 40, B = 1024 / 2048 / 4096 / 16384 take
+# 0.075 / 0.146 / 0.287 / 1.141 ms against 0.210 / 0.225 / 0.226 / 0.259 ms,
+# and at N = 10 "staged" wins up to B = 4096: two waves are the most.  What
+# an SM holds at once is set by its shared memory (each block takes 1 KB
+# besides its own) and its registers (250 a thread, allotted as 256).
+_MAX_WAVES = 2
+_SMS, _SM_SMEM_BYTES, _SM_REGISTERS, _THREAD_REGISTERS = 132, 233_472, 65_536, 256
+_MAX_THREADS = 256    # kMaxThreads in csrc/fused.cu: 255 registers a thread
+
+
+def fused_launch_plan(N: int, use_ddp: bool, variant: Optional[str] = None,
+                      B: Optional[int] = None) -> LaunchPlan:
+    """How ``fused_backward`` launches its kernel for horizon ``N`` and
+    batch ``B`` (one wave of blocks if not given): a rule on the shape.
+
+    A block takes 8 problems, halved until their N stage records and kff/K
+    staging fit its shared memory: ``"staged"`` if at least 4 fit and the
+    batch's blocks run in at most two waves, else ``"thread"`` (both limits
+    are measurements, stated at the constants above).  A block's threads
+    share the problems x N stages of phase 1 in equal turns of at most 256
+    threads (a multiple of 32).
+    ``variant`` forces one (for a comparison on the card); a forced
+    ``"staged"`` that does not fit raises ``ValueError``.  The plan's
+    ``layout`` holds the per-problem strides of the records and of the kff
+    and K staging areas (StagedLayout of ``csrc/fused.cu``), computed here
+    and nowhere else: the C entry point takes them as they are.
+    """
+    if variant is not None and variant not in FUSED_VARIANTS:
+        raise ValueError(f"unknown fused-backward variant {variant!r}")
+    nz = _NX + _NU
+    tri = nz * (nz + 1) // 2
+    # SharedStage's record (csrc/riccati.cuh, kStride): the dynamics'
+    # gradients (and Hessian triangles with DDP), the cost's gradient and
+    # triangle, lo and hi.  Every stride is odd, so that neither phase's
+    # lanes meet in a shared-memory bank.
+    record = (_NX * (nz + (tri if use_ddp else 0)) + nz + tri + 2 * _NU) | 1
+    strides = ((N * record) | 1, (N * _NU) | 1, (N * _NU * _NX) | 1)
+    smem = lambda pb: 4 * pb * sum(strides)
+    if variant != "thread":
+        pb = _BLOCK_PROBLEMS
+        while pb > 1 and smem(pb) > SMEM_MAX_BYTES:
+            pb //= 2
+        turns = -(-pb * N // _MAX_THREADS)
+        threads = max(32, (-(-pb * N // turns) + 31) // 32 * 32)
+        resident = max(1, min(_SM_SMEM_BYTES // (smem(pb) + 1024),
+                              _SM_REGISTERS // (threads * _THREAD_REGISTERS)))
+        waves = -(-(-(-(B or 1) // pb)) // (_SMS * resident))
+        if smem(pb) <= SMEM_MAX_BYTES and (variant or (
+                pb >= _MIN_PROBLEMS and waves <= _MAX_WAVES)):
+            return LaunchPlan("staged", pb, threads, smem(pb), strides)
+        if variant is not None:
+            raise ValueError(f'variant "staged" needs {smem(1)} bytes of shared '
+                             f"memory for one problem at N={N}, "
+                             f"use_ddp={use_ddp}; a block has {SMEM_MAX_BYTES}")
+    return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
 def fused_backward_torch(xs, us, ps, reg, ddp_scale=None, *, ocp,
@@ -51,19 +129,11 @@ def fused_backward_torch(xs, us, ps, reg, ddp_scale=None, *, ocp,
 fused_backward_torch.cuda_calls = 0
 
 
-def fused_backward(xs, us, ps, reg, ddp_scale=None, *, ocp,
-                   use_ddp: bool = True, tol: float = 1e-8):
-    """Fused derivs + backward: the CUDA kernel for CUDA tensors.
-
-    Same arguments and results as ``fused_backward_torch``, which is what
-    runs when the tensors lie on the CPU.  On the card the kernel evaluates
-    ``ocp.device_model`` (its dynamics, stage cost, terminal weight and
-    control box); an OCP without one raises ``NotImplementedError``.  CUDA
-    tensors must be contiguous float32.
-    """
-    if xs.device.type == "cpu":
-        return fused_backward_torch(xs, us, ps, reg, ddp_scale, ocp=ocp,
-                                    use_ddp=use_ddp, tol=tol)
+def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
+            timed=False):
+    """Check the arguments, plan and launch ``mv_fused_backward``; returns
+    the outputs and the plan.  With ``timed`` the launch is of the kernel's
+    timing instantiation and the block cycles are appended to the outputs."""
     if not xs.is_cuda:
         raise ValueError(f"fused_backward: unsupported device {xs.device}")
     model = ocp.device_model
@@ -81,12 +151,19 @@ def fused_backward(xs, us, ps, reg, ddp_scale=None, *, ocp,
              ("ps", ps, (B, N + 1, npar)), ("reg", reg, (B,)),
              ("ddp_scale", ddp_scale, (B,))]
     check_args("fused_backward", xs.device, named)
+    plan = fused_launch_plan(N, use_ddp, variant, B)
 
     lib = load_library()
     opts = dict(dtype=torch.float32, device=xs.device)
     kff = torch.empty((B, N, nu), **opts)
     K = torch.empty((B, N, nu, nx), **opts)
     dV1, dV2, gmax = (torch.empty((B,), **opts) for _ in range(3))
+    out = (kff, K, dV1, dV2, gmax)
+    clocks = None
+    if timed:
+        clocks = torch.zeros((-(-B // plan.problems), 3), dtype=torch.int64,
+                             device=xs.device)
+        out += (clocks,)
     c_model, substeps, euler, has_terminal = model.kernel_args()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -95,10 +172,50 @@ def fused_backward(xs, us, ps, reg, ddp_scale=None, *, ocp,
             us.data_ptr(), ps.data_ptr(), reg.data_ptr(), ddp_scale.data_ptr(),
             c_model, substeps, euler, has_terminal, kff.data_ptr(),
             K.data_ptr(), dV1.data_ptr(), dV2.data_ptr(), gmax.data_ptr(),
+            FUSED_VARIANTS.index(plan.variant), plan.problems, plan.threads,
+            plan.c_layout(), None if clocks is None else clocks.data_ptr(),
             stream)
     check_launch(rc, "mv_fused_backward")
+    return out, plan
+
+
+def fused_backward(xs, us, ps, reg, ddp_scale=None, *, ocp,
+                   use_ddp: bool = True, tol: float = 1e-8,
+                   variant: Optional[str] = None):
+    """Fused derivs + backward: the CUDA kernel for CUDA tensors.
+
+    Same arguments and results as ``fused_backward_torch``, which is what
+    runs when the tensors lie on the CPU.  On the card the kernel evaluates
+    ``ocp.device_model`` (its dynamics, stage cost, terminal weight and
+    control box); an OCP without one raises ``NotImplementedError``.  CUDA
+    tensors must be contiguous float32.  The kernel's variant is
+    ``fused_launch_plan``'s choice for the shape; ``variant`` forces another
+    for a comparison on the card (the solvers never pass it).  ``launches``
+    counts every launch and ``launches_by_variant`` the launches of each
+    variant.
+    """
+    if xs.device.type == "cpu":
+        return fused_backward_torch(xs, us, ps, reg, ddp_scale, ocp=ocp,
+                                    use_ddp=use_ddp, tol=tol)
+    out, plan = _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant)
     fused_backward.launches += 1
-    return kff, K, dV1, dV2, gmax
+    fused_backward.launches_by_variant[plan.variant] += 1
+    return out
 
 
 fused_backward.launches = 0
+fused_backward.launches_by_variant = dict.fromkeys(FUSED_VARIANTS, 0)
+
+
+def fused_phase_clocks(xs, us, ps, reg, ddp_scale=None, *, ocp,
+                       tol: float = 1e-8):
+    """A measurement aid: one launch of the ``"staged"`` DDP kernel's timing
+    instantiation (the same body with four ``clock64()`` reads, which the
+    solvers' kernel does not carry) on ``fused_backward``'s arguments.
+    Returns an int64 tensor (blocks, 3), blocks = ceil(B / plan.problems)
+    of ``fused_launch_plan(N, True, "staged")``:
+    each block's clock cycles in phase 1, phase 2 and the write-out.  Not
+    counted in ``fused_backward.launches``."""
+    out, _ = _launch(xs, us, ps, reg, ddp_scale, ocp, True, tol, "staged",
+                     timed=True)
+    return out[-1]

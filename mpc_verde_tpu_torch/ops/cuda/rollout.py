@@ -8,11 +8,21 @@ accumulating the cost, keeps the first minimum over ascending alpha, and
 returns the winner's trajectory.  With zero gains and one alpha it is the
 pre-roll of a problem queue.
 
-Its kernel is ``csrc/rollout.cu``: one thread per problem runs A cost
-passes and one re-roll of the winner, (A+1)*N sequential steps.  At the
-bench shapes (B = 1024, N = 40, A = 8) the card is latency bound on that
-per-thread chain; the (B, N, ...) loads do not coalesce.  A problem-fastest
-layout and alpha passes spread over threads are left for a later change.
+Its kernel is ``csrc/rollout.cu``: one lane per (problem, alpha).  The
+lanes of a problem roll all candidates at once, so the dependent chain is
+N steps and not (A+1)*N.  A block copies its problems' contiguous slabs of
+the nominal trajectory and gains to shared memory with coalesced loads,
+every lane keeps its candidate's trajectory in a shared-memory slot, the
+first minimum over (cost, alpha index) is found by warp shuffles, and the
+winners' slots leave as one coalesced slab, with no second roll.
+``linesearch_launch_plan`` picks the variant from the shape alone:
+``"lanes"`` as described, ``"lanes_reroll"`` (no slots: the winner rolls
+again and writes device memory itself) where the slots of a warp of lanes
+do not fit shared memory and for the pre-roll, whose one lane a problem
+rolls once, and ``"thread"`` (one thread per problem over device memory,
+A cost passes and one writing pass) where not even one problem's slabs fit.
+The plan also computes the kernel's shared-memory layout, which the C entry
+point takes as it is.
 
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
 Python callable, so the kernel evaluates a ``UnicycleDeviceModel`` carried on
@@ -36,9 +46,80 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from .build import check_args, check_launch, load_library
+from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
+                    load_library)
 
-MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cu
+MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cu: one problem's lanes fit a warp
+LINESEARCH_VARIANTS = ("thread", "lanes", "lanes_reroll")  # the C entry's ids
+_NX, _NU = 3, 2
+# The plan's constants follow measurements on the H100
+# (utils/tune_launch_plans.py, B = 1024 unless said).
+# Lanes a block: the kernel's time is one candidate's chain, so 32 to 256
+# threads a block run within 1% of each other at the bench shape and within
+# 8% at the fleet's.  Below one warp a block "lanes" is slower than
+# "lanes_reroll": 3.2 ms against 1.3 ms at N = 600, A = 8 ("thread" 8.0 ms).
+# With one alpha, the pre-roll, there is nothing to choose and no second
+# roll to save, so candidate slots only make the blocks larger: 0.114 ms
+# against 0.082 ms at B = 16384, N = 40, and 0.0155 against 0.0111 ms at
+# N = 10.
+_BLOCK_THREADS = 64
+_WARP = 32
+
+
+def linesearch_launch_plan(N: int, A: int, npar: int,
+                           variant: Optional[str] = None) -> LaunchPlan:
+    """How ``linesearch_forward`` launches its kernel for horizon ``N``,
+    ``A`` alphas and ``npar`` parameters: a rule on the shape.
+
+    A block takes 64 / A_pad problems (A_pad: A rounded up to a power of
+    two), halved until its shared memory fits.  ``"lanes"`` if A > 1 and the
+    nominal slabs and the candidate slots of at least one warp of lanes fit;
+    else ``"lanes_reroll"`` if the nominal slabs of one problem fit; else
+    ``"thread"`` (the limits are measurements, stated at the constants
+    above).  ``variant`` forces one (for a comparison on the card); a
+    forced variant that does not fit raises
+    ``ValueError``.  The plan's ``layout`` is the kernel's shared-memory
+    layout, computed here and nowhere else: the C entry point takes it as
+    it is.
+    """
+    if not 1 <= A <= MAX_ALPHAS:
+        raise ValueError(f"linesearch_forward takes 1..{MAX_ALPHAS} alphas")
+    if variant is not None and variant not in LINESEARCH_VARIANTS:
+        raise ValueError(f"unknown line-search variant {variant!r}")
+    a_pad = 1 << (A - 1).bit_length()
+    lx, lu, lk, lp = (N + 1) * _NX, N * _NU, N * _NU * _NX, (N + 1) * npar
+    slot = (lx + lu) | 1    # odd: the lanes of a group write different banks
+
+    def layout(pb, slots):
+        """LanesLayout of ``csrc/rollout.cu`` from ``xs`` on, in floats: the
+        offsets of the five nominal slabs of ``pb`` problems, each a
+        multiple of 4 floats (16 bytes, for the vector copies), of the
+        candidate slots and of the winners' indices; the slot stride; the
+        total."""
+        offsets = [0]
+        for n in (lx, lu, lu, lk, lp):      # xs, us, kff, K, ps
+            offsets.append(offsets[-1] + (pb * n + 3) // 4 * 4)
+        best = offsets[-1] + (pb * a_pad * slot if slots else 0)
+        return (*offsets, best, slot, best + (pb if slots else 0))
+
+    smem = lambda pb, slots: 4 * layout(pb, slots)[-1]
+    for name in ("lanes", "lanes_reroll"):
+        if variant not in (None, name):
+            continue
+        slots = name == "lanes"
+        pb = max(1, _BLOCK_THREADS // a_pad)
+        while pb > 1 and smem(pb, slots) > SMEM_MAX_BYTES:
+            pb //= 2
+        if slots and variant is None and (A == 1 or pb * a_pad < _WARP):
+            continue
+        if smem(pb, slots) <= SMEM_MAX_BYTES:
+            return LaunchPlan(name, pb, pb * a_pad, smem(pb, slots),
+                              layout(pb, slots))
+        if variant is not None:
+            raise ValueError(f"variant {name!r} needs {smem(1, slots)} bytes of "
+                             f"shared memory for one problem at N={N}, A={A}, "
+                             f"npar={npar}; a block has {SMEM_MAX_BYTES}")
+    return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,13 +273,17 @@ linesearch_forward_torch.cuda_calls = 0
 
 
 def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
-                       ocp):
+                       ocp, variant: Optional[str] = None):
     """Fused line search: the CUDA kernel for CUDA tensors.
 
     Same arguments and results as ``linesearch_forward_torch``, which is
     what runs when the tensors lie on the CPU.  On the card the kernel
     evaluates ``ocp.device_model``; an OCP without one raises
     ``NotImplementedError``.  CUDA tensors must be contiguous float32.
+    The kernel's variant is ``linesearch_launch_plan``'s choice for the
+    shape; ``variant`` forces another for a comparison on the card (the
+    solvers never pass it).  ``launches`` counts every launch and
+    ``launches_by_variant`` the launches of each variant.
     """
     if x0.device.type == "cpu":
         return linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas,
@@ -215,8 +300,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     A = len(alphas)
     if (nx, nu) != (3, 2) or npar < 3:
         raise ValueError("the unicycle device model needs nx=3, nu=2, npar>=3")
-    if not 1 <= A <= MAX_ALPHAS:
-        raise ValueError(f"linesearch_forward takes 1..{MAX_ALPHAS} alphas")
+    plan = linesearch_launch_plan(N, A, npar, variant)
     named = [("x0", x0, (B, nx)), ("xs", xs, (B, N + 1, nx)),
              ("us", us, (B, N, nu)), ("ps", ps, (B, N + 1, npar)),
              ("kffs", kffs, (B, N, nu)), ("Ks", Ks, (B, N, nu, nx))]
@@ -236,10 +320,14 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
             B, N, npar, x0.data_ptr(), xs.data_ptr(), us.data_ptr(),
             ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(), c_model,
             substeps, euler, has_terminal, c_alphas, A, xs_o.data_ptr(),
-            us_o.data_ptr(), cost.data_ptr(), best.data_ptr(), stream)
+            us_o.data_ptr(), cost.data_ptr(), best.data_ptr(),
+            LINESEARCH_VARIANTS.index(plan.variant), plan.problems,
+            plan.c_layout(), stream)
     check_launch(rc, "mv_linesearch_forward")
     linesearch_forward.launches += 1
+    linesearch_forward.launches_by_variant[plan.variant] += 1
     return xs_o, us_o, cost, best
 
 
 linesearch_forward.launches = 0
+linesearch_forward.launches_by_variant = dict.fromkeys(LINESEARCH_VARIANTS, 0)

@@ -30,9 +30,11 @@ SPEC = dict(T=0.2, N=10, Nsim=150, B=1024, target=(10.0, 10.0, 0.0),
 
 
 def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
-                max_iters: int = 30, device="cpu", dtype=torch.float32):
+                max_iters: int = 30, device=None, dtype=torch.float32):
     """The fleet's OCP, closed-loop runner and inputs.
 
+    ``device`` defaults to the CUDA device; without one the call raises, and
+    the fleet runs on the CPU only when asked with ``device="cpu"``.
     ``backend`` defaults to ``"cuda_fused"`` on a CUDA device and ``"torch"``
     elsewhere.  Returns a dict with ``ocp``, ``run``, ``x0s`` (B, 3) and
     ``params`` (Nsim, N+1, 3) as numpy float32, and ``spec``.
@@ -42,6 +44,12 @@ def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
         s["B"] = B
     if n_steps is not None:
         s["Nsim"] = n_steps
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "build_fleet runs on the CUDA device by default and none is "
+                'available; pass device="cpu" to run the fleet on the CPU')
+        device = "cuda"
     device = torch.device(device)
     if backend is None:
         backend = "cuda_fused" if device.type == "cuda" else "torch"
@@ -68,7 +76,9 @@ def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
 
 def run_fleet(built=None, **kw):
     """Run the fleet; returns the per-robot final-error distribution metrics
-    under the JAX package's keys (``result`` is the ``ClosedLoopResult``)."""
+    under the JAX package's keys (``result`` is the ``ClosedLoopResult``).
+    Without ``built`` the fleet is ``build_fleet(**kw)``, on the CUDA device
+    unless ``device="cpu"`` is given."""
     if built is None:
         built = build_fleet(**kw)
     s = built["spec"]

@@ -1,1 +1,2 @@
 from .platform import gpu_info
+from .timing import device_time_ms

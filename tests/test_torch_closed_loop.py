@@ -184,7 +184,8 @@ def test_fleet_matches_jax():
     trajectories and metrics that match JAX's."""
     B, Nsim = 8, 24
     built_j = j_build_fleet(B=B, n_steps=Nsim, backend="xla")
-    built_t = build_fleet(B=B, n_steps=Nsim, dtype=torch.float64)
+    built_t = build_fleet(B=B, n_steps=Nsim, device="cpu",
+                          dtype=torch.float64)
     np.testing.assert_array_equal(built_t["x0s"], built_j["x0s"])
     np.testing.assert_array_equal(built_t["params"], built_j["params"])
     m_j, m_t = j_run_fleet(built_j), run_fleet(built_t)
@@ -197,3 +198,16 @@ def test_fleet_matches_jax():
         np.testing.assert_allclose(m_t[key], m_j[key], rtol=1e-6, err_msg=key)
     for key in ("B", "n_steps", "frac_reached", "converged_frac"):
         assert m_t[key] == m_j[key], key
+
+
+@pytest.mark.parametrize("entry", ["build_fleet", "run_fleet"])
+def test_fleet_needs_a_card_unless_asked_for_the_cpu(entry, monkeypatch):
+    """The fleet's entry points run on the CUDA device by default: where
+    there is none they raise and name ``device="cpu"``, and never carry on
+    silently on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"build_fleet": build_fleet, "run_fleet": run_fleet}[entry]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call(B=2, n_steps=1)
+    built = build_fleet(B=2, n_steps=1, device="cpu", dtype=torch.float64)
+    assert built["ocp"].device == torch.device("cpu")

@@ -18,16 +18,20 @@ import pytest
 import torch
 
 import mpc_verde_tpu_torch as mt
-from chip_smoke import _random_riccati, _rel_err
+from chip_smoke import _k2_inputs, _random_riccati, _rel_err
 from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
 from mpc_verde_tpu_torch.models import unicycle
 from mpc_verde_tpu_torch.ops import euler_step, rk4_step
 from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
-                                                fused_backward_torch)
+                                                fused_backward_torch,
+                                                fused_launch_plan,
+                                                fused_phase_clocks)
 from mpc_verde_tpu_torch.ops.cuda.riccati import (SUPPORTED, riccati_backward,
                                                   riccati_backward_torch)
 from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward,
-                                                  linesearch_forward_torch)
+                                                  linesearch_forward_torch,
+                                                  linesearch_launch_plan)
+from mpc_verde_tpu_torch.scenarios import build_fleet
 
 pytestmark = pytest.mark.cuda
 
@@ -85,27 +89,58 @@ def _ocp_variant(variant, N, dev):
     return ocp
 
 
+def _launched(fn, before):
+    """The variants `fn` launched since the counts `before`."""
+    return {v: n - before[v] for v, n in fn.launches_by_variant.items()
+            if n > before[v]}
+
+
 @pytest.mark.parametrize("variant", ["bench", "preroll", "terminal", "euler",
-                                     "rk4_m3"])
+                                     "rk4_m3", "a5", "ties", "ragged_B",
+                                     "fleet", "long_N_thread"])
 def test_linesearch_kernel_matches_twin(dev, variant):
-    B, N = 300, 12
+    """B = 300 leaves the last block ragged (8 problems a block), B = 301
+    also the last warp; "a5" has an alpha count that is no power of two;
+    on "ties" (zero gains) every cost ties and alpha 0 must win; the
+    pre-roll (one alpha) takes the variant without slots; "fleet" is
+    the shape the closed-loop fleet gives the kernel, on the fleet's own OCP
+    with the solver's default alphas (B = 1024, N = 10, A = 12: groups of 16
+    lanes, 4 of them idle, 4 problems a block); N = 3700
+    is past what shared memory holds, so the plan takes the one thread per
+    problem kernel (zero feedback there: 3700 steps of a clipped feedback
+    loop amplify float32 round-off past any tolerance)."""
+    B, N, A = 300, 12, 8
+    if variant == "ragged_B":
+        B = 301
+    elif variant == "long_N_thread":
+        B, N = 20, 3700
+    elif variant == "a5":
+        A = 5
     ocp = _ocp_variant(variant, N, dev)
-    rng = np.random.default_rng(5)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-    x0 = t(rng.uniform(-2, 2, (B, 3)))
-    xs = t(rng.uniform(-2, 2, (B, N + 1, 3)))
-    us = t(rng.uniform(-0.8, 0.8, (B, N, 2)))
-    ps = t(np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy())
-    kffs = t(0.3 * rng.normal(size=(B, N, 2)))
-    Ks = t(0.2 * rng.normal(size=(B, N, 2, 3)))
-    alphas = tuple(0.4 ** i for i in range(8))
+    alphas = tuple(0.4 ** i for i in range(A))
+    if variant == "fleet":
+        fleet, o = build_fleet(n_steps=1, device=dev), mt.ILQROptions()
+        ocp, B, N = fleet["ocp"], fleet["spec"]["B"], fleet["spec"]["N"]
+        alphas = tuple(float(o.alpha_decay) ** i for i in range(o.n_alphas))
+        assert (B, N, len(alphas)) == (1024, 10, 12)
+        assert linesearch_launch_plan(N, 12, 3)[:3] == ("lanes", 4, 64)
+    x0, xs, us, ps, kffs, Ks = _k2_inputs(dev, B, N, seed=5)
+    if variant in ("preroll", "ties"):
+        kffs, Ks = torch.zeros_like(kffs), torch.zeros_like(Ks)
     if variant == "preroll":
-        kffs, Ks, alphas = torch.zeros_like(kffs), torch.zeros_like(Ks), (1.0,)
+        alphas = (1.0,)
+    if variant == "long_N_thread":
+        Ks = torch.zeros_like(Ks)
     args = (x0, xs, us, ps, kffs, Ks, alphas)
     before = linesearch_forward.launches
+    by_variant = dict(linesearch_forward.launches_by_variant)
     xs_k, us_k, c_k, b_k = linesearch_forward(*args, ocp=ocp)
     torch.cuda.synchronize()
     assert linesearch_forward.launches == before + 1
+    expected = {"long_N_thread": "thread",
+                "preroll": "lanes_reroll"}.get(variant, "lanes")
+    assert linesearch_launch_plan(N, len(alphas), 3).variant == expected
+    assert _launched(linesearch_forward, by_variant) == {expected: 1}
     xs_t, us_t, c_t, b_t = linesearch_forward_torch(*args, ocp=ocp)
     # the winner's cost is the minimum over alphas, so it agrees even where
     # a near-tie picks another alpha; trajectories are compared where the
@@ -115,6 +150,38 @@ def test_linesearch_kernel_matches_twin(dev, variant):
     assert float(same.float().mean()) >= 0.99
     assert _rel_err(xs_k[same], xs_t[same]) <= 1e-4
     assert _rel_err(us_k[same], us_t[same]) <= 1e-4
+    if variant in ("preroll", "ties"):
+        assert int(b_k.abs().max()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["linesearch", "linesearch_reroll", "fused",
+                                    "fused_gauss_newton"])
+def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
+    """Every variant runs the same device functions per candidate and per
+    stage, so a forced variant gives the planned one's results (to float32
+    round-off, should the compiler contract them differently)."""
+    B, N = 301, 12
+    if kernel.startswith("linesearch"):
+        ocp = _ocp_variant("terminal", N, dev)
+        args = (*_k2_inputs(dev, B, N, seed=5), tuple(0.4 ** i for i in range(8)))
+        other = "lanes_reroll" if kernel == "linesearch_reroll" else "thread"
+        by_variant = dict(linesearch_forward.launches_by_variant)
+        planned = linesearch_forward(*args, ocp=ocp)
+        forced = linesearch_forward(*args, ocp=ocp, variant=other)
+        assert _launched(linesearch_forward, by_variant) == {"lanes": 1, other: 1}
+        assert float((planned[3] == forced[3]).float().mean()) >= 0.999
+    else:
+        ocp = _fused_ocp("terminal", N, dev)
+        kw = dict(ocp=ocp, use_ddp=kernel == "fused")
+        args = _fused_inputs(dev, B, N)
+        by_variant = dict(fused_backward.launches_by_variant)
+        planned = fused_backward(*args, **kw)
+        forced = fused_backward(*args, variant="thread", **kw)
+        assert _launched(fused_backward, by_variant) == {"staged": 1, "thread": 1}
+    torch.cuda.synchronize()
+    for o, r in zip(planned[:3] if kernel.startswith("linesearch") else planned,
+                    forced):
+        assert _rel_err(o, r) <= 1e-5
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -182,46 +249,79 @@ def _fused_ocp(variant, N, dev):
     return unicycle_ocp(N, dev, dt=BENCH_DT, Q=Q, R=R)
 
 
-def _fused_inputs(dev, B, N, reg=1e-3, seed=6):
-    """Rolled-out trajectories of random controls from random starts, each
-    with a target within 1 of its start, half the problems on Gauss-Newton."""
+def _fused_inputs(dev, B, N, reg=1e-3, seed=6, spread=1.0):
+    """Rolled-out trajectories of random controls (within 0.5 * spread) from
+    random starts, each with a target within spread of its start, half the
+    problems on Gauss-Newton."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
     x0 = rng.uniform(-2, 2, (B, 3))
-    target = x0 + rng.uniform(-1, 1, (B, 3))
+    target = x0 + spread * rng.uniform(-1, 1, (B, 3))
     ps = t(np.broadcast_to(target[:, None], (B, N + 1, 3)).copy())
     xs, us, _, _ = linesearch_forward_torch(
         t(x0), t(np.zeros((B, N + 1, 3))),
-        t(rng.uniform(-0.5, 0.5, (B, N, 2))), ps, t(np.zeros((B, N, 2))),
+        t(spread * rng.uniform(-0.5, 0.5, (B, N, 2))), ps, t(np.zeros((B, N, 2))),
         t(np.zeros((B, N, 2, 3))), (1.0,), ocp=bench_ocp(N, dev))
     ddp = np.ones(B)
     ddp[::2] = 0.0
     return xs, us, ps, t(np.full(B, reg)), t(ddp)
 
 
-@pytest.mark.parametrize("variant", ["bench", "terminal", "unbounded"])
+@pytest.mark.parametrize("variant", ["bench", "terminal", "unbounded", "n10",
+                                     "ragged_B", "long_N_thread",
+                                     "wide_B_thread"])
 @pytest.mark.parametrize("use_ddp", [True, False])
 def test_fused_kernel_matches_twin(dev, variant, use_ddp):
-    """B = 300 is not a multiple of the block; with no box, dlb/dub are
-    -inf/+inf and nothing may turn NaN.
+    """B = 300 is not a multiple of the block (8 problems), B = 301 not of
+    anything; N = 10 is the fleet's horizon; N = 640 with DDP and N = 1300
+    without are past what shared memory holds, so the plan takes the one
+    thread per problem kernel, as it does for B = 8200, whose blocks would
+    take more than two waves.  With no box, dlb/dub are -inf/+inf and
+    nothing may turn NaN.
 
     With DDP on, the curvature Vx . d2F/dv domega (about 0.02 |Vx|) makes Quu
     indefinite on these trajectories.  A box keeps the stage QP bounded; an
     unbounded Newton step on a near-singular Quu amplifies float32 round-off
     past any tolerance, so the unbounded case runs at reg = 10, a value the
     solver's x100 escalation reaches, which keeps Quu positive definite.
+    Over a long horizon the value gradient Vx sums hundreds of stages, and
+    float32 round-off in kff grows with it (9e-4 at N = 640 with targets
+    within 1): the long cases keep targets and controls within 0.02 of the
+    start and run at reg = 10 as well.
     """
-    B, N = 300, 12
-    ocp = _fused_ocp(variant, N, dev)
-    args = _fused_inputs(dev, B, N, reg=10.0 if variant == "unbounded" else 1e-3)
+    B, N = {"n10": (300, 10), "ragged_B": (301, 12), "wide_B_thread": (8200, 12),
+            "long_N_thread": (4, 640 if use_ddp else 1300)}.get(variant, (300, 12))
+    ocp = _fused_ocp(variant if variant in ("terminal", "unbounded")
+                     else "bench", N, dev)
+    args = _fused_inputs(
+        dev, B, N, reg=10.0 if variant in ("unbounded", "long_N_thread") else 1e-3,
+        spread=0.02 if variant == "long_N_thread" else 1.0)
     before = fused_backward.launches
+    by_variant = dict(fused_backward.launches_by_variant)
     out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp)
     torch.cuda.synchronize()
     assert fused_backward.launches == before + 1
+    expected = "thread" if variant.endswith("_thread") else "staged"
+    assert fused_launch_plan(N, use_ddp, None, B).variant == expected
+    assert _launched(fused_backward, by_variant) == {expected: 1}
     ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
     for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
         assert bool(torch.isfinite(o).all()), name
         assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+def test_fused_phase_clocks_times_the_staged_kernel(dev):
+    """The timing instantiation reports positive cycles for every block and
+    phase, and is not counted as a launch of the solvers' kernel."""
+    B, N = 301, 12
+    args = _fused_inputs(dev, B, N)
+    before = fused_backward.launches
+    clocks = fused_phase_clocks(*args, ocp=bench_ocp(N, dev, torch.float32))
+    torch.cuda.synchronize()
+    blocks = -(-B // fused_launch_plan(N, True).problems)
+    assert tuple(clocks.shape) == (blocks, 3) and clocks.dtype == torch.int64
+    assert int(clocks.min()) > 0
+    assert fused_backward.launches == before
 
 
 def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):

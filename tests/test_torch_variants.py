@@ -1,0 +1,197 @@
+"""The kernels' launch plans, and the tie rule every line-search variant keeps.
+
+``linesearch_launch_plan`` and ``fused_launch_plan`` choose a kernel variant,
+its block and its shared memory from the shape alone; they are plain Python
+and are held here against an independent count of the bytes each variant
+keeps in shared memory.  The plain PyTorch line search is held against the
+JAX materialising line search on inputs where every alpha ties and on an
+alpha count that is not a power of two: the first minimum wins, which is
+what the kernel's shuffle reduction must reproduce on the card
+(``tests/test_torch_cuda.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import bench
+import mpc_verde_tpu as mv
+from mpc_verde_tpu.solver.batched import _make_parts as j_make_parts
+from mpc_verde_tpu_torch.interop import bench_ocp
+from mpc_verde_tpu_torch.ops.cuda import rollout
+from mpc_verde_tpu_torch.ops.cuda.build import SMEM_MAX_BYTES
+from mpc_verde_tpu_torch.ops.cuda.fused import fused_launch_plan
+from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward_torch,
+                                                  linesearch_launch_plan)
+
+NPAR = 3
+
+
+def test_shared_memory_limit_is_hoppers():
+    assert SMEM_MAX_BYTES == 232_448        # 227 KB a block on sm_90
+
+
+def _linesearch_floats(N, A_pad):
+    """Floats one problem keeps in shared memory: (nominal slabs, slots)."""
+    nominal = (N + 1) * 3 + N * 2 + N * 2 + N * 6 + (N + 1) * NPAR
+    return nominal, A_pad * ((N + 1) * 3 + N * 2)
+
+
+@pytest.mark.parametrize("A", [1, 5, 8, 32])
+@pytest.mark.parametrize("N", [1, 10, 40, 600, 5000])
+def test_linesearch_launch_plan(N, A):
+    plan = linesearch_launch_plan(N, A, NPAR)
+    A_pad = {1: 1, 5: 8, 8: 8, 32: 32}[A]
+    nominal, slots = _linesearch_floats(N, A_pad)
+    assert plan.smem_bytes <= SMEM_MAX_BYTES and 1 <= plan.threads <= 1024
+    # "lanes" where there is a choice of alpha and at least a warp of lanes
+    # fits a block with its slots, else the first that fits one problem (a
+    # few floats of alignment and padding aside, which no case here sits
+    # within)
+    warp = max(1, 32 // A_pad)     # the problems of one warp of lanes
+    if A > 1 and 4 * warp * (nominal + slots) < SMEM_MAX_BYTES - 64 * warp:
+        expected = "lanes"
+    elif 4 * nominal < SMEM_MAX_BYTES - 64:
+        expected = "lanes_reroll"
+    else:
+        expected = "thread"
+    assert plan.variant == expected
+    if plan.variant == "thread":
+        assert (plan.problems, plan.threads, plan.smem_bytes) == (64, 64, 0)
+        return
+    assert plan.threads == plan.problems * A_pad
+    kept = nominal + (slots if plan.variant == "lanes" else 0)
+    assert plan.smem_bytes >= 4 * plan.problems * kept
+    assert plan.smem_bytes <= 4 * plan.problems * (kept + A_pad + 1) + 5 * 16
+    # the layout the kernel is given: five slabs that hold the block's
+    # problems at 16-byte offsets, then the slots (odd stride) and indices
+    *slabs, cand, best, slot, total = plan.layout
+    sizes = [plan.problems * n for n in
+             ((N + 1) * 3, N * 2, N * 2, N * 6, (N + 1) * NPAR)]
+    for start, size, end in zip(slabs, sizes, slabs[1:] + [cand]):
+        assert start % 4 == 0 and start + size <= end
+    assert 4 * total == plan.smem_bytes
+    if plan.variant == "lanes":
+        assert slot % 2 == 1 and slot >= (N + 1) * 3 + N * 2
+        assert cand + plan.threads * slot == best
+        assert best + plan.problems == total
+    else:
+        assert cand == best == total
+    # a forced variant is the same plan, or another that fits, or an error
+    assert linesearch_launch_plan(N, A, NPAR, plan.variant) == plan
+    assert linesearch_launch_plan(N, A, NPAR, "thread").variant == "thread"
+
+
+def test_linesearch_launch_plan_at_the_bench_and_fleet_shapes():
+    assert linesearch_launch_plan(40, 8, 3)[:4] == ("lanes", 8, 64, 72_672)
+    assert linesearch_launch_plan(10, 12, 3)[:4] == ("lanes", 4, 64, 16_240)
+    assert linesearch_launch_plan(10, 8, 3).variant == "lanes"
+    # the pre-rolls of the streaming queue and of the fleet: no slots
+    assert linesearch_launch_plan(40, 1, 3)[:3] == ("lanes_reroll", 64, 64)
+    assert linesearch_launch_plan(10, 1, 3)[:3] == ("lanes_reroll", 64, 64)
+    assert linesearch_launch_plan(40, 1, 3, "lanes").variant == "lanes"
+    # fewer lanes than a warp would fit with their slots: the winner re-rolls
+    assert linesearch_launch_plan(600, 8, 3)[:3] == ("lanes_reroll", 4, 32)
+    assert linesearch_launch_plan(600, 8, 3, "lanes")[:3] == ("lanes", 1, 8)
+
+
+def test_linesearch_launch_plan_refuses():
+    with pytest.raises(ValueError, match="alphas"):
+        linesearch_launch_plan(40, rollout.MAX_ALPHAS + 1, 3)
+    with pytest.raises(ValueError, match="unknown"):
+        linesearch_launch_plan(40, 8, 3, "warp")
+    with pytest.raises(ValueError, match="shared memory"):
+        linesearch_launch_plan(5000, 8, 3, "lanes")
+    with pytest.raises(ValueError, match="shared memory"):
+        linesearch_launch_plan(5000, 8, 3, "lanes_reroll")
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("N", [1, 10, 40, 600, 5000])
+def test_fused_launch_plan(N, use_ddp):
+    plan = fused_launch_plan(N, use_ddp)
+    # a stage record: per dynamics component 5 gradient (+ 15 Hessian
+    # triangle) floats, the cost's 5 + 15, lo and hi; 8 floats of kff and K
+    record = 3 * (5 + (15 if use_ddp else 0)) + 20 + 4
+    kept = N * (record + 8)
+    assert plan.smem_bytes <= SMEM_MAX_BYTES and 1 <= plan.threads <= 1024
+    # "staged" where at least 4 problems fit a block
+    expected = "staged" if 16 * (kept + N + 3) <= SMEM_MAX_BYTES else "thread"
+    assert plan.variant == expected
+    if plan.variant == "thread":
+        assert (plan.problems, plan.threads, plan.smem_bytes) == (64, 64, 0)
+        return
+    assert plan.smem_bytes >= 4 * plan.problems * kept
+    assert plan.smem_bytes <= 4 * plan.problems * (kept + N + 3)
+    assert plan.problems <= plan.threads <= 256 and plan.threads % 32 == 0
+    # the per-problem strides the kernel is given: odd (no bank conflicts)
+    rec, kff, K = plan.layout
+    assert (rec >= N * record and kff >= N * 2 and K >= N * 6
+            and rec % 2 == kff % 2 == K % 2 == 1)
+    assert 4 * plan.problems * (rec + kff + K) == plan.smem_bytes
+    turns = -(-plan.problems * N // plan.threads)
+    assert plan.threads * turns >= plan.problems * N       # every stage taken
+    assert plan.threads * (turns - 1) < plan.problems * N  # no idle turn
+    assert plan.problems >= 4
+    assert fused_launch_plan(N, use_ddp, "staged") == plan
+    assert fused_launch_plan(N, use_ddp, "thread").variant == "thread"
+
+
+def test_fused_launch_plan_at_the_bench_and_fleet_shapes():
+    assert fused_launch_plan(40, True)[:4] == ("staged", 8, 160, 119_136)
+    assert fused_launch_plan(10, True)[:4] == ("staged", 8, 96, 29_856)
+    assert fused_launch_plan(156, True)[:2] == ("staged", 4)
+    assert fused_launch_plan(157, True).variant == "thread"
+    # forced, "staged" runs as long as one problem fits
+    assert fused_launch_plan(624, True, "staged")[:2] == ("staged", 1)
+
+
+@pytest.mark.parametrize("N,B,expected", [
+    (40, 1000, "staged"), (40, 1024, "staged"), (40, 2048, "staged"),
+    (40, 4096, "thread"), (40, 16384, "thread"),
+    (10, 1024, "staged"), (10, 4096, "staged"), (10, 8192, "thread")])
+def test_fused_launch_plan_takes_the_batch(N, B, expected):
+    """A batch whose "staged" blocks would run in more than two waves goes
+    to the "thread" kernel, as measured on the card; the widths the solvers
+    run (1024) stay "staged", and a forced variant ignores the batch."""
+    assert fused_launch_plan(N, True, None, B).variant == expected
+    assert fused_launch_plan(N, True, "staged", B) == fused_launch_plan(N, True)
+    assert fused_launch_plan(N, True, "thread", B).variant == "thread"
+
+
+def test_fused_launch_plan_refuses():
+    with pytest.raises(ValueError, match="unknown"):
+        fused_launch_plan(40, True, "lanes")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_launch_plan(5000, True, "staged")
+
+
+@pytest.mark.parametrize("case", ["ties", "a5"])
+def test_twin_tie_rule_matches_jax_materialize(case):
+    """With zero gains every alpha rolls the nominal controls, so all costs
+    tie and the first alpha (index 0) must win; with A = 5 the alpha count
+    is not a power of two.  Both against the JAX materialising line search
+    (float64, inputs from a numpy seed)."""
+    N, B = 12, 16
+    A = 8 if case == "ties" else 5
+    rng = np.random.default_rng(11)
+    kffs = 0.3 * rng.normal(size=(B, N, 2))
+    Ks = 0.2 * rng.normal(size=(B, N, 2, 3))
+    if case == "ties":
+        kffs, Ks = np.zeros_like(kffs), np.zeros_like(Ks)
+    data = (rng.uniform(-2, 2, (B, 3)), rng.uniform(-2, 2, (B, N + 1, 3)),
+            rng.uniform(-0.8, 0.8, (B, N, 2)),
+            np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy(),
+            kffs, Ks)
+    xs_j, us_j, c_j = j_make_parts(
+        bench.build_ocp(N), mv.ILQROptions(n_alphas=A, alpha_decay=0.4), "xla",
+        "materialize").linesearch(*data)
+    xs_t, us_t, c_t, best = linesearch_forward_torch(
+        *(torch.as_tensor(a) for a in data), tuple(0.4 ** i for i in range(A)),
+        ocp=bench_ocp(N, "cpu", torch.float64))
+    np.testing.assert_allclose(us_t.numpy(), np.asarray(us_j), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(xs_t.numpy(), np.asarray(xs_j), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=0, atol=1e-10)
+    if case == "ties":
+        assert best.tolist() == [0] * B
+    else:
+        assert len(set(best.tolist())) > 1 and max(best.tolist()) < A
