@@ -6,8 +6,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
   2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc.
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
-              card: random problems for every instantiated (nx, nu), and the
-              bench OCP's derivatives at B=1024, N=40.
+              card: random problems for every instantiated (nx, nu), DDP on
+              and off, and the bench OCP's derivatives at B=1024, N=40 (DDP
+              on and off, half the problems with ddp_scale 0, infinite
+              bounds), B=1000, N=10 and B=16384; each under the planned
+              variant and under the other ("warps" / "thread"), the two
+              against each other, and the cycles of the "warps" variant's
+              parts.
   4. K2:      line-search kernel vs its twin on the bench OCP, random gains,
               at B=1024, N=40, A=8 (the plan's "lanes" variant), and at A=5,
               A=1 (the pre-roll, "lanes_reroll"), B=1000 and an all-ties
@@ -74,8 +79,10 @@ HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # nu = 2 (K1); the same plus the stage's dual-number derivatives (K3).
 K2_STEP_FLOPS, K1_STAGE_FLOPS, K3_STAGE_FLOPS = 250, 1000, 4000
 # the variants the launch plans choose at the bench and the fleet shapes:
-# K2's line search and (without candidate slots) its pre-roll, K3 at 1024
-PLANNED = {"linesearch_forward": ("lanes", "lanes_reroll"),
+# K1 at 1024, K2's line search and (without candidate slots) its pre-roll,
+# K3 at 1024
+PLANNED = {"riccati_backward": ("warps",),
+           "linesearch_forward": ("lanes", "lanes_reroll"),
            "fused_backward": ("staged",)}
 
 
@@ -105,7 +112,8 @@ def _queue(M, N, seed=0):
     return x0q, psq, np.zeros((M, N, 2), np.float32)
 
 
-def _ptxas_summary(log, sources=("rollout.cu", "fused.cu")):
+def _ptxas_summary(log, sources=("riccati_warps_3x2.cu", "rollout.cu",
+                                 "fused.cu")):
     """Registers, stack and spills of each kernel of `sources`, from the
     build's `ptxas -v` output (build.py's log, one "== file" part a source)."""
     lines = []
@@ -117,6 +125,10 @@ def _ptxas_summary(log, sources=("rollout.cu", "fused.cu")):
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
                 r"Used (\d+) registers", part, re.S):
             name, stack, st, ld, regs = m.groups()
+            t = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]\d+E)+)", name)
+            if t:   # a template's mangled name: kernel<args>
+                name = (t.group(1) + "<"
+                        + ",".join(re.findall(r"L[ib](\d+)E", t.group(2))) + ">")
             lines.append(f"{part.split()[0]} {name}: {regs} registers, stack "
                          f"{stack} B, spill stores {st} B, loads {ld} B")
     return lines
@@ -198,35 +210,117 @@ def _bench_backward_inputs(ocp, B, dev):
             torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
 
 
-def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N):
+def _active_sets(kff, K, dlb, dub):
+    """The winning active-set pattern of every (problem, stage, control),
+    read off the outputs: 0 free (a K row that is not all zero), 1 at the
+    lower bound, 2 at the upper."""
+    clamped = (K == 0).all(-1)
+    return torch.where(clamped, torch.where(kff == dlb, 1, 2), 0)
+
+
+def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N, B_ragged=1000,
+             N_fleet=10, B_wide=QUEUE):
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.ops.cuda.riccati import (
-        SUPPORTED, riccati_backward, riccati_backward_torch)
+        CLOCK_PARTS, RICCATI_VARIANTS, SUPPORTED, riccati_backward,
+        riccati_backward_torch, riccati_launch_plan, riccati_stage_clocks)
 
     rng = np.random.default_rng(7)
+    worst = {"err": 0.0, "diff": 0.0, "same": 1.0}
+    # Every variant runs the same stage functions on the same floats.  For
+    # nu <= 2 the compiled arithmetic is the same too and the variants agree
+    # to the bit; for nu = 3, 4 nvcc fuses the multiply-adds of the larger
+    # elimination code differently in the two kernels, which moves results by
+    # float32 round-off (relative to max(1, |ref|)).
+    diff_bound = lambda nu: 0.0 if nu <= 2 else 1e-5
 
-    def compare(args, nx, nu, label):
-        out = riccati_backward(*args, nx=nx, nu=nu)
-        ref = riccati_backward_torch(*args, nx=nx, nu=nu)
-        return _hold(out, ref, "k1", f"{label} (nx,nu)=({nx},{nu})")
+    def compare(args, nx, nu, label, use_ddp=True):
+        """The planned variant and every other that fits, each against the
+        twin at K1_TOL and against the planned one; returns the planned
+        variant's outputs."""
+        B_, N_ = args[0]["fx"].shape[:2]
+        kw = dict(nx=nx, nu=nu, use_ddp=use_ddp)
+        ref = riccati_backward_torch(*args, **kw)
+        planned = riccati_launch_plan(N_, nx, nu, use_ddp, B_).variant
+        outs = {}
+        for variant in (None, *(v for v in RICCATI_VARIANTS if v != planned)):
+            try:
+                riccati_launch_plan(N_, nx, nu, use_ddp, B_, variant)
+            except ValueError:
+                continue   # a forced "warps" that does not fit
+            used, out = _variants_used(
+                riccati_backward,
+                lambda: riccati_backward(*args, variant=variant, **kw))
+            if used != {variant or planned}:
+                raise AssertionError(f"K1 {label} ran variants {used}")
+            err = _hold(out, ref, "k1", f"{label} (nx,nu)=({nx},{nu}) "
+                        f"DDP={use_ddp} variant {sorted(used)}")
+            if (nx, nu) == (3, 2):   # the size the main path gives it
+                worst["err"] = max(worst["err"], err)
+            outs[variant or planned] = out
+        if len(outs) == 2:
+            a, b = outs.values()
+            diff = max(_rel_err(x, y) for x, y in zip(a, b))
+            same = float((_active_sets(a[0], a[1], args[1], args[2])
+                          == _active_sets(b[0], b[1], args[1], args[2])
+                          ).all(-1).float().mean())
+            print(f"[k1] {label} ({nx},{nu}) DDP={use_ddp}: max |"
+                  + " - ".join(outs) + f"| {diff:.2e} over kff, K, dV1, dV2, "
+                  f"gmax (vs max(1,|ref|)); same winning pattern in {same:.6f} of "
+                  f"the stages",
+                  flush=True)
+            if not diff <= diff_bound(nu) or same < 1.0:
+                raise AssertionError(f"K1 {label} ({nx},{nu}): variants differ "
+                                     f"by {diff}, same pattern in {same}")
+            if (nx, nu) == (3, 2):
+                worst["diff"] = max(worst["diff"], diff)
+            worst["same"] = min(worst["same"], same)
+        return outs[planned]
 
     for nx, nu in sorted(SUPPORTED):
-        compare(_random_riccati(rng, B_rand, N_rand, nx, nu, dev), nx, nu,
-                f"random B={B_rand} N={N_rand}")
+        for use_ddp in (True, False):
+            compare(_random_riccati(rng, B_rand, N_rand, nx, nu, dev), nx, nu,
+                    f"random B={B_rand} N={N_rand}", use_ddp)
     ocp = bench_ocp(N, dev, torch.float32)
     args = _bench_backward_inputs(ocp, B, dev)
-    err = compare(args, 3, 2, f"bench B={B} N={N}")
-    ms = _time_ms(lambda: riccati_backward(*args, nx=3, nu=2), reps=50)
+    out = compare(args, 3, 2, f"bench B={B} N={N}")
+    compare(args, 3, 2, f"bench B={B} N={N}", use_ddp=False)
+    half = args[6].clone()
+    half[::2] = 0.0
+    compare((*args[:6], half), 3, 2, f"bench B={B} N={N} half ddp_scale 0")
+    # no box: Gauss-Newton, whose Quu is positive definite without one (with
+    # DDP the bench's Quu is indefinite and only the box bounds the step)
+    compare((args[0], torch.full_like(args[1], -torch.inf),
+             torch.full_like(args[2], torch.inf), *args[3:]), 3, 2,
+            f"bench B={B} N={N} infinite bounds", use_ddp=False)
+    compare(_bench_backward_inputs(ocp, B_ragged, dev), 3, 2,
+            f"bench B={B_ragged} N={N}")
+    compare(_bench_backward_inputs(bench_ocp(N_fleet, dev, torch.float32), B,
+                                   dev), 3, 2, f"bench B={B} N={N_fleet}")
+    compare(_bench_backward_inputs(ocp, B_wide, dev), 3, 2,
+            f"bench B={B_wide} N={N}")
+    run = lambda **kw: riccati_backward(*args, nx=3, nu=2, **kw)
+    plan = riccati_launch_plan(N, 3, 2, True, B)
+    ms = _time_ms(run, reps=50)
+    thread_ms = _time_ms(lambda: run(variant="thread"), reps=50)
     plain_ms = _time_ms(lambda: riccati_backward_torch(*args, nx=3, nu=2),
                         reps=5, warmup=1, queued=False)
-    print(f"[k1] bench B={B} N={N}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms",
-          flush=True)
+    cycles = dict(zip(CLOCK_PARTS,
+                      riccati_stage_clocks(*args).double().mean(0).tolist()))
+    per_stage = sum(cycles[k] for k in CLOCK_PARTS[1:7]) / N
+    print(f"[k1] bench B={B} N={N} DDP: kernel {ms:.4f} ms, \"thread\" variant "
+          f"{thread_ms:.4f} ms, twin {plain_ms:.4f} ms; {plan[:4]}; mean "
+          f"cycles a block: "
+          + ", ".join(f"{k} {v:.0f}" for k, v in cycles.items())
+          + f"; {per_stage:.0f} a stage", flush=True)
     n_in = sum(a.numel() for a in args[1:]) + sum(v.numel() for v in args[0].values())
-    n_out = sum(o.numel() for o in riccati_backward(*args, nx=3, nu=2))
-    # K1 has the one design, a thread per problem
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    n_out = sum(o.numel() for o in out)
+    return {"max_abs_err": worst["err"], "ms": ms, "plain_ms": plain_ms,
             **_bound(4 * (n_in + n_out), B * N * K1_STAGE_FLOPS),
-            "variant": "thread", "thread_variant_ms": ms}
+            "variant": plan.variant, "thread_variant_ms": thread_ms,
+            "max_abs_diff_vs_thread": worst["diff"],
+            "same_pattern_share": worst["same"],
+            "block_cycles": cycles, "cycles_per_stage": per_stage}
 
 
 def _k2_inputs(dev, B, N, seed=3):
@@ -346,7 +440,8 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
 def _hold(out, ref, tag, label):
     """Hold backward-pass outputs against the twin's at K1_TOL; max abs err."""
     errs = {n: _rel_err(o, r) for n, o, r in zip(BACKWARD_OUT, out, ref)}
-    bad = {n: e for n, e in errs.items() if n in K1_TOL and e > K1_TOL[n]}
+    bad = {n: e for n, e in errs.items()
+           if n in K1_TOL and not e <= K1_TOL[n]}   # a NaN fails
     print(f"[{tag}] {label} rel err (vs max(1,|ref|)) "
           + " ".join(f"{n}={e:.2e}" for n, e in errs.items()), flush=True)
     if bad:

@@ -6,30 +6,42 @@
 // Replaces the Pallas TPU kernel riccati_backward_pallas
 // (mpc_verde_tpu/ops/pallas/riccati.py, body _backward_stage / _make_kernel).
 //
-// Design: one thread per problem.  The TPU kernel walks the stages as a
-// sequential grid axis and carries (Vx, Vxx) in VMEM scratch; here the
-// thread walks the stages N-1..0 in a loop and keeps (Vx, Vxx) and the
-// dV1/dV2/gmax accumulators in registers, so nothing carries across blocks.
-// One stage is backward_stage, which reads the stage derivatives through an
-// accessor: K1 reads them from device memory (GlobalStage); the fused kernel
-// K3 (fused.cu) computes them itself and hands them over in shared memory
-// (SharedStage) or in registers.
-// The 3^NU active-set patterns of the stage box QP (itertools.product order,
-// strict-< first minimum) are unrolled at compile time per (NX, NU): each
-// candidate step solves its free system (up to two free coordinates in
-// closed form, three or four by no-pivot Gaussian elimination, as
-// _backward_stage does).  The feedback gain K is solved once per stage, for
-// the winning pattern only, on the masked system (identity rows for clamped
-// coordinates, whose K rows are zero): solving it per candidate, as the TPU
-// kernel does, made nvcc take minutes for nu = 4.
+// What bounds it on the H100.  At B = 1024, N = 40, nx = 3, nu = 2 with DDP
+// the function reads 100 floats a stage and writes 8: 17.7 MB, 5.3 us at
+// 3.35 TB/s, and its arithmetic (about 1k flops a stage) is 0.6 us at
+// 67 TFLOP/s.  Neither is the limit: the recursion is a chain of N stage
+// QPs, each waiting for the next stage's (Vx, Vxx), and 1024 problems are too
+// few threads to hide one chain behind another.  The chain's length in
+// dependent instructions times N is the floor no design passes under.
 //
-// What bounds it on the H100: with B = 1024 there are only 1024 threads, so
-// the card is latency bound on the per-thread stage chain (N sequential
-// stages of a few hundred dependent flops each), not on bytes or flops.
-// The derivative loads keep the JAX (B, N, ...) layout, so neighbouring
-// threads read addresses one stage-block apart and the loads do not
-// coalesce.  Left for later: a problem-fastest (SoA) layout so each entry
-// load coalesces, and more than one thread per problem.
+// The stage (below: expand_u, expand_x, scan_candidates, free_gain,
+// finish_stage) reads
+// its derivatives through an accessor and is shared with the fused kernel K3
+// (fused.cu), which computes the derivatives itself.  The 3^NU active-set
+// patterns of the stage box QP (itertools.product order, strict-< first
+// minimum) are unrolled at compile time per (NX, NU): each candidate step
+// solves its free system (up to two free coordinates in closed form, three
+// or four by no-pivot Gaussian elimination, as _backward_stage does).  The
+// feedback gain K is solved once per stage, for the winning pattern only, on
+// the masked system (identity rows for clamped coordinates, whose K rows are
+// zero): solving it per candidate, as the TPU kernel does, made nvcc take
+// minutes for nu = 4.
+//
+// Variants, chosen by the caller from the shape (riccati_launch_plan in
+// ops/cuda/riccati.py, which also computes the shared-memory layout):
+//   "warps" (riccati_warps.cuh, instantiated in riccati_warps_<nx>x<nu>.cu):
+//   a block stages its problems' derivative slabs in shared memory with
+//   coalesced 16-byte copies and gives each problem one lane in each of its
+//   warps; a warp per share of the active-set patterns solves the candidates
+//   while another expands Qx, Qxx, Qux, and that warp then finishes the
+//   stage.  It shortens the chain and removes the uncoalesced loads.
+//   "thread" (this file): one thread per problem walks the stages N-1..0 over
+//   device memory with (Vx, Vxx) and the accumulators in registers.  The
+//   loads keep the JAX (B, N, ...) layout, so neighbouring threads read
+//   addresses one stage-block apart and do not coalesce.  It needs no shared
+//   memory, so it takes the shapes "warps" does not fit and the batches whose
+//   "warps" blocks would run in many waves.
+// Both run the same stage functions, so their results are the same floats.
 
 #pragma once
 
@@ -196,8 +208,15 @@ __device__ __forceinline__ void candidate(const float (&Quu)[NU][NU], const floa
 }
 
 // Feedback gain of pattern `pat` (a runtime value): Quu_FF K_F = -Qux_F on
-// the masked system, clamped rows zero.
-template <int NX, int NU>
+// the masked system, clamped rows zero.  A clamped row's right-hand sides
+// never reach a free row's solution (its couplings are masked to 0), so they
+// may hold anything.  With zeros, every clamped row costs NX divisions 0 / x,
+// and a zero numerator sends the float32 division to its slow path: a
+// subroutine of some 250 cycles, 1,700 cycles a stage at nx = 3, nu = 2 with
+// one control at its bound (measured, riccati_stage_clocks).  With UNIT_RHS
+// they hold 1, the divisions are 1 / 1, and the free rows' floats are the
+// same.  K1's kernels pass UNIT_RHS; the default keeps K3's code as it was.
+template <int NX, int NU, bool UNIT_RHS = false>
 __device__ __forceinline__ void free_gain(const float (&Quu)[NU][NU], const float (&Qux)[NU][NX],
                                           int pat, float (&K)[NU][NX]) {
   bool fr[NU];
@@ -210,16 +229,16 @@ __device__ __forceinline__ void free_gain(const float (&Quu)[NU][NU], const floa
 #pragma unroll
     for (int c = 0; c < NU; ++c) A[a][c] = (fr[a] && fr[c]) ? Quu[a][c] : (a == c ? 1.0f : 0.0f);
 #pragma unroll
-    for (int i = 0; i < NX; ++i) X[i][a] = fr[a] ? -Qux[a][i] : 0.0f;
+    for (int i = 0; i < NX; ++i) X[i][a] = fr[a] ? -Qux[a][i] : (UNIT_RHS ? 1.0f : 0.0f);
   }
   solve_free<NU, NX>(A, X);
 #pragma unroll
   for (int a = 0; a < NU; ++a)
 #pragma unroll
-    for (int i = 0; i < NX; ++i) K[a][i] = X[i][a];
+    for (int i = 0; i < NX; ++i) K[a][i] = (UNIT_RHS && !fr[a]) ? 0.0f : X[i][a];
 }
 
-// The stage derivatives as K1 reads them: the (B, N, ...) arrays at
+// The stage derivatives as the "thread" variant reads them: the (B, N, ...) arrays at
 // problem-stage index s.  Stage accessors give fx(m, i) = dF_m/dx_i, fu(m, a),
 // lx(i), lu(a), lxx(i, j), luu(a, c), lux(a, i), fxx(m, i, j), fux(m, a, i),
 // fuu(m, a, c) (DDP only) and the step bounds lo(a) = lb - u, hi(a) = ub - u.
@@ -294,28 +313,27 @@ struct SharedStage {
 };
 
 // One stage of the box-constrained Riccati recursion (the port of
-// riccati._backward_stage, which K1 and K3 share in JAX as well): reads the
-// stage's derivatives through the accessor `d` (GlobalStage for K1;
-// SharedStage or the dual numbers of fused.cu for K3), updates the value function (Vx, Vxx) and the
-// accumulators dV1, dV2, gmax in place, and returns the stage's kff and K.
+// riccati._backward_stage, which K1 and K3 share in JAX as well) comes in four
+// parts, so that a kernel can give them to different warps: expand_u (Qu and
+// Quu, all that the stage QP's candidates need), expand_x (Qx, Qxx, Qux; its
+// rows are expand_x_row),
+// scan_candidates (the warp's share of the 3^NU active-set patterns), then
+// free_gain (the winner's gain) and finish_stage (the accumulators, the value
+// update).
+// backward_stage runs them all in one thread.  All read the stage's
+// derivatives through an accessor `d` (GlobalStage, SlabStage of
+// riccati_warps.cuh, SharedStage, or the dual numbers of fused.cu).  Each
+// output entry is one expression whichever thread evaluates it, so every
+// split gives the same floats.
+
+// Qu = lu + fu' Vx and Quu = luu + fu' Vxx fu (+ ds Vx . fuu) + rg I.
 template <int NX, int NU, bool DDP, class Stage>
-__device__ __forceinline__ void backward_stage(const Stage& d, float rg, float ds, float tol,
-                                               float (&Vx)[NX], float (&Vxx)[NX][NX],
-                                               float& dV1, float& dV2, float& gmax,
-                                               float (&kff)[NU], float (&Kg)[NU][NX]) {
-  constexpr int P = pow3(NU);
-  // ---- Q expansion ----------------------------------------------------
-  float Qx[NX], Qu[NU], Qxx[NX][NX], Quu[NU][NU], Qux[NU][NX];
-  float VF[NX][NX], VFu[NX][NU];
+__device__ __forceinline__ void expand_u(const Stage& d, float rg, float ds,
+                                         const float (&Vx)[NX], const float (&Vxx)[NX][NX],
+                                         float (&Qu)[NU], float (&Quu)[NU][NU]) {
+  float VFu[NX][NU];
 #pragma unroll
-  for (int j = 0; j < NX; ++j) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * d.fx(m, i);
-      VF[j][i] = acc;
-    }
+  for (int j = 0; j < NX; ++j)
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       float acc = 0.0f;
@@ -323,21 +341,6 @@ __device__ __forceinline__ void backward_stage(const Stage& d, float rg, float d
       for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * d.fu(m, a);
       VFu[j][a] = acc;
     }
-  }
-#pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) acc = acc + d.fx(j, i) * Vx[j];
-    Qx[i] = d.lx(i) + acc;
-#pragma unroll
-    for (int j = 0; j < NX; ++j) {
-      float a2 = 0.0f;
-#pragma unroll
-      for (int m = 0; m < NX; ++m) a2 = a2 + d.fx(m, i) * VF[m][j];
-      Qxx[i][j] = d.lxx(i, j) + a2;
-    }
-  }
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
     float acc = 0.0f;
@@ -351,34 +354,10 @@ __device__ __forceinline__ void backward_stage(const Stage& d, float rg, float d
       for (int m = 0; m < NX; ++m) a2 = a2 + d.fu(m, a) * VFu[m][c];
       Quu[a][c] = d.luu(a, c) + a2;
     }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      float a2 = 0.0f;
-#pragma unroll
-      for (int m = 0; m < NX; ++m) a2 = a2 + d.fu(m, a) * VF[m][i];
-      Qux[a][i] = d.lux(a, i) + a2;
-    }
   }
-
   if constexpr (DDP) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i)
-#pragma unroll
-      for (int j = 0; j < NX; ++j) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fxx(m, i, j);
-        Qxx[i][j] = Qxx[i][j] + ds * acc;
-      }
-#pragma unroll
-    for (int a = 0; a < NU; ++a) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fux(m, a, i);
-        Qux[a][i] = Qux[a][i] + ds * acc;
-      }
+    for (int a = 0; a < NU; ++a)
 #pragma unroll
       for (int c = 0; c < NU; ++c) {
         float acc = 0.0f;
@@ -386,34 +365,133 @@ __device__ __forceinline__ void backward_stage(const Stage& d, float rg, float d
         for (int m = 0; m < NX; ++m) acc = acc + Vx[m] * d.fuu(m, a, c);
         Quu[a][c] = Quu[a][c] + ds * acc;
       }
-    }
   }
 #pragma unroll
   for (int a = 0; a < NU; ++a) Quu[a][a] = Quu[a][a] + rg;
+}
 
-  float lo[NU], hi[NU];
+// VF = Vxx fx, which every row of expand_x reads.
+template <int NX, class Stage>
+__device__ __forceinline__ void value_times_fx(const Stage& d, const float (&Vxx)[NX][NX],
+                                               float (&VF)[NX][NX]) {
+#pragma unroll
+  for (int j = 0; j < NX; ++j)
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) acc = acc + Vxx[j][m] * d.fx(m, i);
+      VF[j][i] = acc;
+    }
+}
+
+// State coordinate i's share of expand_x (i may be a run-time value): Qx[i],
+// row i of Qxx and column i of Qux.
+template <int NX, int NU, bool DDP, class Stage>
+__device__ __forceinline__ void expand_x_row(const Stage& d, float ds, const float (&Vx)[NX],
+                                             const float (&VF)[NX][NX], int i, float& Qx_i,
+                                             float (&Qxx_i)[NX], float (&Qux_i)[NU]) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) acc = acc + d.fx(j, i) * Vx[j];
+  Qx_i = d.lx(i) + acc;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    float a2 = 0.0f;
+#pragma unroll
+    for (int m = 0; m < NX; ++m) a2 = a2 + d.fx(m, i) * VF[m][j];
+    Qxx_i[j] = d.lxx(i, j) + a2;
+  }
 #pragma unroll
   for (int a = 0; a < NU; ++a) {
-    lo[a] = d.lo(a);
-    hi[a] = d.hi(a);
-  }
-
-  // ---- exact box QP: compile-time active-set enumeration ----------------
-  float best_obj = kBig;
-  int best_pat = 0;
-  static_for<P>([&](auto pc) {
-    constexpr int PAT = decltype(pc)::value;
-    float v[NU], obj;
-    candidate<NU, PAT>(Quu, Qu, lo, hi, tol, v, obj);
-    if (PAT == 0 || obj < best_obj) {
-      best_obj = obj;
-      best_pat = PAT;
+    float a2 = 0.0f;
 #pragma unroll
-      for (int a = 0; a < NU; ++a) kff[a] = v[a];
+    for (int m = 0; m < NX; ++m) a2 = a2 + d.fu(m, a) * VF[m][i];
+    Qux_i[a] = d.lux(a, i) + a2;
+  }
+  if constexpr (DDP) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      float a3 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) a3 = a3 + Vx[m] * d.fxx(m, i, j);
+      Qxx_i[j] = Qxx_i[j] + ds * a3;
+    }
+#pragma unroll
+    for (int a = 0; a < NU; ++a) {
+      float a3 = 0.0f;
+#pragma unroll
+      for (int m = 0; m < NX; ++m) a3 = a3 + Vx[m] * d.fux(m, a, i);
+      Qux_i[a] = Qux_i[a] + ds * a3;
+    }
+  }
+}
+
+// Qx = lx + fx' Vx, Qxx = lxx + fx' Vxx fx (+ ds Vx . fxx) and
+// Qux = lux + fu' Vxx fx (+ ds Vx . fux): every row of expand_x_row.
+template <int NX, int NU, bool DDP, class Stage>
+__device__ __forceinline__ void expand_x(const Stage& d, float ds, const float (&Vx)[NX],
+                                         const float (&Vxx)[NX][NX], float (&Qx)[NX],
+                                         float (&Qxx)[NX][NX], float (&Qux)[NU][NX]) {
+  float VF[NX][NX];
+  value_times_fx<NX>(d, Vxx, VF);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    float col[NU];
+    expand_x_row<NX, NU, DDP>(d, ds, Vx, VF, i, Qx[i], Qxx[i], col);
+#pragma unroll
+    for (int a = 0; a < NU; ++a) Qux[a][i] = col[a];
+  }
+}
+
+// The exact box QP by compile-time active-set enumeration: of the patterns
+// PAT with PAT % W == w, in ascending order, the first with the least
+// objective (strict <), its objective and its step.  With W = 1 that is the
+// whole stage QP; with W warps, merge_candidates joins the warps' results.
+// Pattern 0 is taken whatever its objective, as the sequential scan takes it;
+// a share without pattern 0 starts from +inf, which a NaN never beats.
+template <int NU, int W>
+__device__ __forceinline__ void scan_candidates(const float (&Quu)[NU][NU], const float (&Qu)[NU],
+                                                const float (&lo)[NU], const float (&hi)[NU],
+                                                float tol, int w, float& best_obj,
+                                                int& best_pat, float (&kff)[NU]) {
+  best_obj = INFINITY;
+  best_pat = w;
+#pragma unroll
+  for (int a = 0; a < NU; ++a) kff[a] = 0.0f;
+  static_for<pow3(NU)>([&](auto pc) {
+    constexpr int PAT = decltype(pc)::value;
+    if (PAT % W == w) {
+      float v[NU], obj;
+      candidate<NU, PAT>(Quu, Qu, lo, hi, tol, v, obj);
+      if (PAT == 0 || obj < best_obj) {
+        best_obj = obj;
+        best_pat = PAT;
+#pragma unroll
+        for (int a = 0; a < NU; ++a) kff[a] = v[a];
+      }
     }
   });
-  free_gain<NX, NU>(Quu, Qux, best_pat, Kg);
+}
 
+// Whether share (obj, pat) replaces the best so far in the merge of the
+// warps' shares, taken in the order w = 0, 1, ...: the result is the
+// sequential scan's first minimum (share 0 starts the merge unconditionally).
+__device__ __forceinline__ bool candidate_wins(float obj, int pat, float best_obj, int best_pat) {
+  return obj < best_obj || (obj == best_obj && pat < best_pat);
+}
+
+// The rest of the stage once the winning pattern's step kff and gain Kg
+// (free_gain) are known: the dV1 / dV2 / gmax increments and the value update.
+template <int NX, int NU>
+__device__ __forceinline__ void finish_stage(const float (&Qx)[NX], const float (&Qu)[NU],
+                                             const float (&Qxx)[NX][NX],
+                                             const float (&Quu)[NU][NU],
+                                             const float (&Qux)[NU][NX], const float (&lo)[NU],
+                                             const float (&hi)[NU], const float (&kff)[NU],
+                                             const float (&Kg)[NU][NX], float (&Vx)[NX],
+                                             float (&Vxx)[NX][NX], float& dV1, float& dV2,
+                                             float& gmax) {
   // ---- step-quality / stationarity increments ---------------------------
   float Quk[NU];
 #pragma unroll
@@ -463,8 +541,32 @@ __device__ __forceinline__ void backward_stage(const Stage& d, float rg, float d
   }
 }
 
+// One whole stage in one thread: updates the value function (Vx, Vxx) and the
+// accumulators dV1, dV2, gmax in place, and returns the stage's kff and K.
+// UNIT_RHS: see free_gain.
+template <int NX, int NU, bool DDP, bool UNIT_RHS = false, class Stage>
+__device__ __forceinline__ void backward_stage(const Stage& d, float rg, float ds, float tol,
+                                               float (&Vx)[NX], float (&Vxx)[NX][NX],
+                                               float& dV1, float& dV2, float& gmax,
+                                               float (&kff)[NU], float (&Kg)[NU][NX]) {
+  float Qx[NX], Qu[NU], Qxx[NX][NX], Quu[NU][NU], Qux[NU][NX];
+  expand_x<NX, NU, DDP>(d, ds, Vx, Vxx, Qx, Qxx, Qux);
+  expand_u<NX, NU, DDP>(d, rg, ds, Vx, Vxx, Qu, Quu);
+  float lo[NU], hi[NU];
+#pragma unroll
+  for (int a = 0; a < NU; ++a) {
+    lo[a] = d.lo(a);
+    hi[a] = d.hi(a);
+  }
+  float best_obj;
+  int best_pat;
+  scan_candidates<NU, 1>(Quu, Qu, lo, hi, tol, 0, best_obj, best_pat, kff);
+  free_gain<NX, NU, UNIT_RHS>(Quu, Qux, best_pat, Kg);
+  finish_stage<NX, NU>(Qx, Qu, Qxx, Quu, Qux, lo, hi, kff, Kg, Vx, Vxx, dV1, dV2, gmax);
+}
+
 template <int NX, int NU, bool DDP>
-__global__ void riccati_backward_kernel(RiccatiArgs g) {
+__global__ void riccati_thread_kernel(RiccatiArgs g) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.B) return;
 
@@ -483,8 +585,8 @@ __global__ void riccati_backward_kernel(RiccatiArgs g) {
   for (int k = g.N - 1; k >= 0; --k) {
     const size_t s = (size_t)b * g.N + k;
     float kff[NU], Kg[NU][NX];
-    backward_stage<NX, NU, DDP>(GlobalStage<NX, NU, DDP>(g, s), rg, ds, g.tol, Vx, Vxx, dV1,
-                                dV2, gmax, kff, Kg);
+    backward_stage<NX, NU, DDP, true>(GlobalStage<NX, NU, DDP>(g, s), rg, ds, g.tol, Vx, Vxx,
+                                      dV1, dV2, gmax, kff, Kg);
 #pragma unroll
     for (int a = 0; a < NU; ++a) {
       g.kff[s * NU + a] = kff[a];
@@ -502,16 +604,27 @@ cudaError_t riccati_launch(const RiccatiArgs& a, bool ddp, cudaStream_t stream) 
   constexpr int kThreads = 64;
   const int blocks = (a.B + kThreads - 1) / kThreads;
   if (ddp)
-    riccati_backward_kernel<NX, NU, true><<<blocks, kThreads, 0, stream>>>(a);
+    riccati_thread_kernel<NX, NU, true><<<blocks, kThreads, 0, stream>>>(a);
   else
-    riccati_backward_kernel<NX, NU, false><<<blocks, kThreads, 0, stream>>>(a);
+    riccati_thread_kernel<NX, NU, false><<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// One launcher per instantiated (nx, nu), each in its own riccati_<nx>x<nu>.cu.
+// One launcher per variant and instantiated (nx, nu), each in its own
+// riccati_<nx>x<nu>.cu or riccati_warps_<nx>x<nu>.cu.  For "warps", `layout`
+// is the host array of WarpsLayout's ints from `in` on (riccati_warps.cuh)
+// and `clocks` null or the device array the timing instantiation fills.
 cudaError_t mv_riccati_launch_3x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_3x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_4x3(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_5x4(const RiccatiArgs& a, bool ddp, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_3x1(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_3x2(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_4x3(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_5x4(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);

@@ -1,4 +1,4 @@
-// Riccati backward kernel (riccati.cuh) instantiated for nx = 3, nu = 2.
+// Riccati backward kernel, variant "thread" (riccati.cuh), instantiated for nx = 3, nu = 2.
 #include "riccati.cuh"
 
 cudaError_t mv_riccati_launch_3x2(const RiccatiArgs& a, bool ddp, cudaStream_t s) {

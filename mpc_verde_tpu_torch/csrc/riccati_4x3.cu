@@ -1,4 +1,4 @@
-// Riccati backward kernel (riccati.cuh) instantiated for nx = 4, nu = 3.
+// Riccati backward kernel, variant "thread" (riccati.cuh), instantiated for nx = 4, nu = 3.
 #include "riccati.cuh"
 
 cudaError_t mv_riccati_launch_4x3(const RiccatiArgs& a, bool ddp, cudaStream_t s) {

@@ -41,7 +41,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 
 # C signatures of the kernels' entry points (argtypes, restype int).
 _SIGNATURES = {
-    "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_P],
+    "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21
+                           + [_I, _I, _IP, _P] + [_P],
     "mv_linesearch_forward": [_I, _I, _I] + [_P] * 6 + [_FP, _I, _I, _I, _FP,
                                                         _I] + [_P] * 4
                              + [_I, _I, _IP] + [_P],
@@ -56,7 +57,8 @@ SMEM_MAX_BYTES = 232_448
 
 class LaunchPlan(NamedTuple):
     """How a kernel is launched for one shape: a pure function of the shape
-    (``linesearch_launch_plan``, ``fused_launch_plan``), never of a trial."""
+    (``riccati_launch_plan``, ``linesearch_launch_plan``,
+    ``fused_launch_plan``), never of a trial."""
 
     variant: str
     problems: int     # problems per block

@@ -1,13 +1,29 @@
 """Batched box-constrained Riccati backward pass: CUDA kernel K1 and its PyTorch twin.
 
 ``riccati_backward`` replaces the Pallas TPU kernel ``riccati_backward_pallas``
-(``mpc_verde_tpu/ops/pallas/riccati.py``).  Its kernel is
-``csrc/riccati.cu``: one thread per problem walks the stages N-1..0 with
-(Vx, Vxx) in registers, and the 3^nu stage box-QP patterns are unrolled at
-compile time for (nx, nu) in {(3, 1), (3, 2), (4, 3), (5, 4)}.  At the bench
-shapes (B = 1024, N = 40) the card is latency bound on that per-thread
-stage chain; the derivative loads keep the JAX (B, N, ...) layout and do not
-coalesce.  A problem-fastest (SoA) layout is left for a later change.
+(``mpc_verde_tpu/ops/pallas/riccati.py``).  The 3^nu stage box-QP patterns
+are unrolled at compile time for (nx, nu) in {(3, 1), (3, 2), (4, 3), (5, 4)}.
+What bounds the function on the H100 is neither bytes nor operations but the
+recursion's chain: N stage QPs that each wait for the next stage's
+(Vx, Vxx), with too few problems to hide one chain behind another.
+
+Its kernels are ``csrc/riccati_warps.cuh`` and ``csrc/riccati.cuh``.
+``riccati_launch_plan`` picks the variant from the shape alone:
+``"warps"``: a block copies its problems' derivative slabs to shared memory
+(coalesced 16-byte ``cp.async``, each problem's chunk at a padded stride so
+that the problems' reads fall into different banks) and deals each stage
+over its warps: one warp keeps the value function, expands Qu and Quu and
+hands them to a warp per share of the active-set patterns, which solve the
+candidates while it expands Qx, Qxx, Qux; it then merges the first minimum,
+solves the gain and updates the value function; kff and K leave
+through a staging area as coalesced slabs.  ``"thread"``: one thread per
+problem walks the stages over device memory, with uncoalesced loads; it
+needs no shared memory and its small blocks all run at once, so it takes
+the horizons at which too few problems' slabs fit a block and the batches
+whose ``"warps"`` blocks would run in many waves.  Both run the same stage
+functions and give the same floats.  The plan also computes the
+``"warps"`` kernel's shared-memory layout, which the C entry point takes as
+it is.
 
 ``riccati_backward_torch`` is the plain PyTorch version: the batched form
 of the JAX ``"xla"`` backward (``mpc_verde_tpu/solver/batched.py``), on any
@@ -15,15 +31,120 @@ device and dtype.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ...solver.ilqr import _stage_boxqp_with_gain
-from .build import check_args, check_launch, load_library
+from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
+                    load_library)
 
 SUPPORTED = {(3, 1), (3, 2), (4, 3), (5, 4)}
+RICCATI_VARIANTS = ("thread", "warps")  # the C entry's ids
 
 _STAGE_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
 _DDP_KEYS = ("fxx", "fux", "fuu")
+CLOCK_PARTS = ("load", "expand_u", "expand_x", "wait_candidates", "merge",
+               "gain", "finish", "write_out", "candidates")   # kClockSlots of csrc/riccati_warps.cuh
+
+# The plan's constants follow measurements on the H100
+# (utils/tune_launch_plans.py, nx = 3, nu = 2, DDP, B = 1024 unless said).
+# Problems a block: at N = 40, 1 / 2 / 4 / 8 / 12 take 0.197 / 0.102 / 0.0533
+# / 0.0507 / 0.0533 ms ("thread": 0.141); at N = 10, 4 / 8 / 16 take 0.0192 /
+# 0.0187 / 0.0204 ms.
+_BLOCK_PROBLEMS = 8
+# Chunk strides padded to 4 modulo 32 floats: 0.0507 ms against 0.0567 ms for
+# contiguous chunks (fx 8 modulo 32 floats apart, a 4-way bank conflict) at
+# N = 40; no difference at N = 10.
+_PAD_BANKS = True
+# Blocks: a "warps" block's chain leaves no room to hide a second block's
+# behind it, whether the SM holds one block (N = 40) or five (N = 10), so a
+# batch of more blocks than about three an SM is faster on the small
+# "thread" blocks, which all run at once.  B = 1024 / 2048 / 4096 / 16384:
+# at N = 40 "warps" 0.0513 / 0.101 / 0.202 / 0.801 ms against "thread" 0.141
+# / 0.155 / 0.160 / 0.291; at N = 10 0.0193 / 0.0209 / 0.0393 / 0.152
+# against 0.0287 / 0.0292 / 0.0292 / 0.0608; at N = 160, 3 problems a block,
+# 0.523 / 1.04 against 0.816 / 0.821 (342 and 683 blocks on 132 SMs).
+_MAX_BLOCKS_PER_SM = 3
+_SMS = 132
+# Patterns a candidate warp: (nx, nu) = (3, 1), 1 pattern a warp, 0.0319 ms
+# against 0.0767 for "thread"; (4, 3), 3 a warp, 5 problems a block, 0.850
+# against 1.12; (5, 4), 9 a warp, 3 problems a block, 7.94 against 5.57: the
+# 81 patterns' code in every warp loses to one thread a problem.
+_MAX_WARP_PATTERNS = 3
+
+
+def _slab_entries(nx: int, nu: int, use_ddp: bool):
+    """Floats a stage of the twelve input arrays (slab_entries of
+    ``csrc/riccati_warps.cuh``); 0 for the second-order ones without DDP."""
+    second = (nx * nx * nx, nx * nu * nx, nx * nu * nu)
+    return (nx * nx, nx * nu, nx, nu, nx * nx, nu * nu, nu * nx,
+            *(second if use_ddp else (0, 0, 0)), nu, nu)
+
+
+def riccati_launch_plan(N: int, nx: int, nu: int, use_ddp: bool,
+                        B: Optional[int] = None,
+                        variant: Optional[str] = None) -> LaunchPlan:
+    """How ``riccati_backward`` launches its kernel for horizon ``N``, sizes
+    ``(nx, nu)`` and batch ``B`` (one wave of blocks if not given): a rule
+    on the shape.
+
+    A block takes 8 problems, or as many fewer as their slabs, the kff/K
+    staging and the exchange areas leave room for in its shared memory:
+    ``"warps"`` if one fits, the batch makes at most three blocks an SM
+    and a candidate warp has at most three patterns (nu <= 3), else
+    ``"thread"`` (the limits are measurements, stated at the constants
+    above).  A block has one warp per share of the 3^nu active-set patterns
+    (3 for nu = 1, else 9) and one more for the rest of the stage.
+    ``variant`` forces one (for a comparison on the card); a forced
+    ``"warps"`` that does not fit raises ``ValueError``.  The plan's
+    ``layout`` is WarpsLayout of ``csrc/riccati_warps.cuh`` from ``in`` on,
+    in floats, computed here and nowhere else: per input array the offset of
+    problem 0's chunk and the stride between problems' chunks (multiples of
+    4 floats, for the 16-byte copies; the stride 4 modulo 32, so that 8
+    problems read 8 different banks), the offsets and odd per-problem
+    strides of the kff and K staging areas, the offsets of the two exchange
+    areas, and the total.
+    """
+    if (nx, nu) not in SUPPORTED:
+        raise ValueError(f"riccati_backward kernel is built for (nx, nu) in "
+                         f"{sorted(SUPPORTED)}, not ({nx}, {nu})")
+    if variant is not None and variant not in RICCATI_VARIANTS:
+        raise ValueError(f"unknown Riccati variant {variant!r}")
+    cand_warps = 3 if nu == 1 else 9       # kCandWarps of riccati_warps.cuh
+    threads = 32 * (cand_warps + 1)
+
+    def layout(pb):
+        pad = lambda n: n + (4 - n) % 32 if _PAD_BANKS else (n + 3) // 4 * 4
+        strides = [pad(N * e) if e else 0
+                   for e in _slab_entries(nx, nu, use_ddp)]
+        offsets = [0]
+        for s in strides:
+            offsets.append(offsets[-1] + pb * s)
+        skff, sK = (N * nu) | 1, (N * nu * nx) | 1
+        okff = offsets.pop()
+        oK = okff + pb * skff
+        xu = oK + pb * sK
+        xc = xu + pb * (nu + nu * nu)
+        total = xc + pb * cand_warps * (2 + nu)
+        return (*offsets, *strides, okff, oK, skff, sK, xu, xc, total)
+
+    smem = lambda pb: 4 * layout(pb)[-1]
+    if variant != "thread":
+        pb = _BLOCK_PROBLEMS
+        while pb > 1 and smem(pb) > SMEM_MAX_BYTES:
+            pb -= 1
+        blocks = -(-(B or 1) // pb)
+        if smem(pb) <= SMEM_MAX_BYTES and (variant or (
+                blocks <= _MAX_BLOCKS_PER_SM * _SMS
+                and 3 ** nu <= _MAX_WARP_PATTERNS * cand_warps)):
+            return LaunchPlan("warps", pb, threads, smem(pb), layout(pb))
+        if variant is not None:
+            raise ValueError(f'variant "warps" needs {smem(1)} bytes of shared '
+                             f"memory for one problem at N={N}, (nx, nu)="
+                             f"({nx}, {nu}), use_ddp={use_ddp}; a block has "
+                             f"{SMEM_MAX_BYTES}")
+    return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
 def _mv(A, v):
@@ -91,20 +212,13 @@ def riccati_backward_torch(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
 riccati_backward_torch.cuda_calls = 0
 
 
-def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
-                     nx: int, nu: int, use_ddp: bool = True,
-                     tol: float = 1e-8):
-    """Batched Riccati backward: the CUDA kernel for CUDA tensors.
-
-    Same arguments and results as ``riccati_backward_torch``, which is what
-    runs when the tensors lie on the CPU.  CUDA tensors must be contiguous
-    float32; anything else raises.
-    """
+def _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu, use_ddp, tol,
+            variant, timed=False):
+    """Check the arguments, plan and launch ``mv_riccati_backward``; returns
+    the outputs and the plan.  With ``timed`` the launch is of the ``"warps"``
+    kernel's timing instantiation and the block cycles are appended to the
+    outputs."""
     fx = derivs["fx"]
-    if fx.device.type == "cpu":
-        return riccati_backward_torch(derivs, dlb, dub, gN, HN, reg,
-                                      ddp_scale, nx=nx, nu=nu,
-                                      use_ddp=use_ddp, tol=tol)
     if not fx.is_cuda:
         raise ValueError(f"riccati_backward: unsupported device {fx.device}")
     if (nx, nu) not in SUPPORTED:
@@ -126,12 +240,19 @@ def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
         ("gN", gN, (B, nx)), ("HN", HN, (B, nx, nx)), ("reg", reg, (B,)),
         ("ddp_scale", ddp_scale, (B,))]
     check_args("riccati_backward", fx.device, named)
+    plan = riccati_launch_plan(N, nx, nu, use_ddp, B, variant)
 
     lib = load_library()
     opts = dict(dtype=torch.float32, device=fx.device)
     kff = torch.empty((B, N, nu), **opts)
     K = torch.empty((B, N, nu, nx), **opts)
     dV1, dV2, gmax = (torch.empty((B,), **opts) for _ in range(3))
+    out = (kff, K, dV1, dV2, gmax)
+    clocks = None
+    if timed:
+        clocks = torch.zeros((-(-B // plan.problems), len(CLOCK_PARTS)),
+                             dtype=torch.int64, device=fx.device)
+        out += (clocks,)
     ptr = lambda name: derivs[name].data_ptr() if name in keys else None
     with torch.cuda.device(fx.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -141,10 +262,55 @@ def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
             dlb.data_ptr(), dub.data_ptr(), gN.data_ptr(), HN.data_ptr(),
             reg.data_ptr(), ddp_scale.data_ptr(),
             kff.data_ptr(), K.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
-            gmax.data_ptr(), stream)
+            gmax.data_ptr(), RICCATI_VARIANTS.index(plan.variant),
+            plan.problems, plan.c_layout(),
+            None if clocks is None else clocks.data_ptr(), stream)
     check_launch(rc, "mv_riccati_backward")
+    return out, plan
+
+
+def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
+                     nx: int, nu: int, use_ddp: bool = True,
+                     tol: float = 1e-8, variant: Optional[str] = None):
+    """Batched Riccati backward: the CUDA kernel for CUDA tensors.
+
+    Same arguments and results as ``riccati_backward_torch``, which is what
+    runs when the tensors lie on the CPU.  CUDA tensors must be contiguous
+    float32; anything else raises.  The kernel's variant is
+    ``riccati_launch_plan``'s choice for the shape; ``variant`` forces
+    another for a comparison on the card (the solvers never pass it).
+    ``launches`` counts every launch and ``launches_by_variant`` the
+    launches of each variant.
+    """
+    if derivs["fx"].device.type == "cpu":
+        return riccati_backward_torch(derivs, dlb, dub, gN, HN, reg,
+                                      ddp_scale, nx=nx, nu=nu,
+                                      use_ddp=use_ddp, tol=tol)
+    out, plan = _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu,
+                        use_ddp, tol, variant)
     riccati_backward.launches += 1
-    return kff, K, dV1, dV2, gmax
+    riccati_backward.launches_by_variant[plan.variant] += 1
+    return out
 
 
 riccati_backward.launches = 0
+riccati_backward.launches_by_variant = dict.fromkeys(RICCATI_VARIANTS, 0)
+
+
+def riccati_stage_clocks(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
+                         tol: float = 1e-8):
+    """A measurement aid: one launch of the ``"warps"`` kernel's timing
+    instantiation (nx = 3, nu = 2, DDP; the same body with ``clock64()``
+    reads, which the solvers' kernel does not carry) on
+    ``riccati_backward``'s arguments.  Returns an int64 tensor
+    (blocks, 9), blocks = ceil(B / plan.problems) of the forced ``"warps"``
+    plan: each block's clock cycles in ``CLOCK_PARTS`` order: the load of
+    the slabs; summed over the N stages, the stage warp's expand_u, expand_x
+    (with the first barrier), its wait for the candidate warps (to the first
+    of their results read), its merge of their results, the gain and the
+    rest of the stage; the write-out; and candidate warp 0's cycles from
+    the Qu it reads to its result.
+    Not counted in ``riccati_backward.launches``."""
+    out, _ = _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, 3, 2, True,
+                     tol, "warps", timed=True)
+    return out[-1]

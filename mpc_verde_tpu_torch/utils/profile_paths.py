@@ -1,9 +1,10 @@
 """Where the device time of the port's two driven paths goes.
 
-    python -m mpc_verde_tpu_torch.utils.profile_paths [--fleet] [--out FILE]
+    python -m mpc_verde_tpu_torch.utils.profile_paths [--backend NAME] [--fleet] [--out FILE]
 
 Runs the streaming solve of the bench queue (16384 problems, N = 40, 1024
-slots, ``backend="cuda_fused"``, 60 iterations + 2 restarts) once warm and
+slots, ``backend="cuda_fused"`` or with ``--backend cuda`` the eager
+derivatives and K1, 60 iterations + 2 restarts) once warm and
 unprofiled for its wall time, then once under ``torch.profiler``, and prints
 the number of device kernels, their summed time, the device's busy share of
 the unprofiled wall, and the time and launches of the hand-written kernels
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 # substrings of the hand-written kernels' names as the profiler reports them
-KERNELS = {"K1": ("riccati_backward_kernel",),
+KERNELS = {"K1": ("riccati_warps_kernel", "riccati_thread_kernel"),
            "K2": ("linesearch_lanes_kernel", "linesearch_thread_kernel"),
            "K3": ("fused_staged_kernel", "fused_thread_kernel")}
 
@@ -68,6 +69,8 @@ def _report(path, wall, profiled, rows, launches):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--backend", default="cuda_fused",
+                    choices=("cuda", "cuda_fused"))
     ap.add_argument("--fleet", action="store_true")
     ap.add_argument("--out")
     ns = ap.parse_args(argv)
@@ -76,7 +79,7 @@ def main(argv=None) -> int:
         return 1
     from .. import ILQROptions, make_streaming_solver
     from ..interop import bench_ocp
-    from ..ops.cuda import fused_backward, linesearch_forward
+    from ..ops.cuda import fused_backward, linesearch_forward, riccati_backward
     from ..scenarios import build_fleet, run_fleet
     from .platform import gpu_info
 
@@ -92,18 +95,19 @@ def main(argv=None) -> int:
         bench_ocp(N, dev, torch.float32),
         ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6, n_alphas=8,
                     alpha_decay=0.4),
-        backend="cuda_fused", batch_width=W, restarts=2)
-    paths = [("streaming 16384 x N=40", lambda: solve(
+        backend=ns.backend, batch_width=W, restarts=2)
+    paths = [(f"streaming 16384 x N=40 {ns.backend}", lambda: solve(
         x0q, psq, us0q, max_iters=60, restarts_n=2))]
     if ns.fleet:
-        built = build_fleet(device=dev, backend="cuda_fused")
-        paths.append(("fleet SPEC", lambda: run_fleet(built)))
+        built = build_fleet(device=dev, backend=ns.backend)
+        paths.append((f"fleet SPEC {ns.backend}", lambda: run_fleet(built)))
     for name, run in paths:
         wall, profiled, rows = _profile(run)
-        before = (linesearch_forward.launches, fused_backward.launches)
+        wrappers = {"K1": riccati_backward, "K2": linesearch_forward,
+                    "K3": fused_backward}
+        before = {k: f.launches for k, f in wrappers.items()}
         run()
-        launches = {"K2": linesearch_forward.launches - before[0],
-                    "K3": fused_backward.launches - before[1]}
+        launches = {k: f.launches - before[k] for k, f in wrappers.items()}
         line = json.dumps({"gpu": gpu, **_report(name, wall, profiled, rows,
                                                  launches)})
         print(line, flush=True)

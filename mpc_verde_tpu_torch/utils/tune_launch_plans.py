@@ -1,16 +1,21 @@
-"""Time the line-search and fused kernels under other launch plans.
+"""Time the three kernels under other launch plans.
 
-    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE]
+    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE] [--only K1,K2,K3]
 
-The launch plans (``linesearch_launch_plan``, ``fused_launch_plan``) hold a
-few constants: the threads of a line-search block, the problems of a fused
-block.  This script times each kernel with those constants varied, at the
+The launch plans (``riccati_launch_plan``, ``linesearch_launch_plan``,
+``fused_launch_plan``) hold a few constants: the problems of a Riccati
+block and whether its slabs' strides are padded, the threads of a
+line-search block, the problems of a fused block.  This script times each
+kernel with those constants varied, at the
 bench shape (B = 1024, N = 40, A = 8), the fleet's (B = 1024, N = 10,
 A = 12) and the pre-rolls' (B = 16384, N = 40 and B = 1024, N = 10, A = 1),
 and times each kernel's variants against each other around the horizons
 where the plans change variant (N = 150 to 2000) and over batches of one
 to many waves of blocks (B = 1024 to 16384), so that the plans' rules rest
-on a measurement.
+on a measurement.  K1 is timed on the bench OCP's derivatives for (nx, nu) =
+(3, 2), at N = 10 / 40 / 160 / 600, with the cycles of its ``"warps"``
+variant's parts, and on random problems at the bench shape for the other
+instantiated sizes.
 Times are CUDA events over back-to-back launches (``device_time_ms``).
 Needs a CUDA device; prints one JSON line per case, also appended to
 ``--out`` when given.
@@ -48,15 +53,48 @@ def _k3_args(dev, ocp, B, N, seed=6):
             torch.ones((B,), device=dev))
 
 
+def _k1_args(dev, ocp, B, N):
+    """The bench OCP's stage derivatives along ``_k3_args``'s trajectories,
+    as ``riccati_backward`` takes them."""
+    from ..ops.linearize import linearize_trajectory
+
+    xs, us, ps, reg, ddp = _k3_args(dev, ocp, B, N)
+    d = linearize_trajectory(ocp.dynamics, ocp.stage_cost, xs[:, :N], us,
+                             ps[:, :N], second_order=True)
+    lb, ub = ocp.control_bounds(None, None, 0)
+    return ({k: v.contiguous() for k, v in d.items()}, (lb - us).contiguous(),
+            (ub - us).contiguous(), torch.zeros((B, 3), device=dev),
+            torch.zeros((B, 3, 3), device=dev), reg, ddp)
+
+
+def _k1_random_args(dev, B, N, nx, nu, seed=8):
+    """Random well-conditioned stage data of any (nx, nu)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    eye = lambda n: np.tile(np.eye(n), (B, N, 1, 1))
+    r = lambda *shape: rng.normal(size=(B, N, *shape))
+    d = {"fx": 0.9 * eye(nx) + 0.02 * r(nx, nx), "fu": 0.3 * r(nx, nu),
+         "lx": r(nx), "lu": r(nu), "lxx": 2 * eye(nx), "luu": eye(nu),
+         "lux": 0.1 * r(nu, nx), "fxx": 0.01 * r(nx, nx, nx),
+         "fux": 0.01 * r(nx, nu, nx), "fuu": 0.01 * r(nx, nu, nu)}
+    return ({k: t(v) for k, v in d.items()}, t(np.full((B, N, nu), -0.7)),
+            t(np.full((B, N, nu), 0.5)), t(rng.normal(size=(B, nx))),
+            t(np.tile(np.eye(nx), (B, 1, 1))), t(np.full((B,), 1e-6)),
+            t(np.ones((B,))))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
+    ap.add_argument("--only", default="K1,K2,K3",
+                    help="kernels to time, e.g. K1 or K2,K3")
     ns = ap.parse_args(argv)
+    only = set(ns.only.split(","))
     if not torch.cuda.is_available():
         print("tune_launch_plans: no CUDA device", file=sys.stderr)
         return 1
     from ..interop import bench_ocp
-    from ..ops.cuda import fused, rollout
+    from ..ops.cuda import fused, riccati, rollout
     from .platform import gpu_info
     from .timing import device_time_ms
 
@@ -88,16 +126,58 @@ def main(argv=None) -> int:
         return {"kernel": "K3", "B": B, "N": N, "ms": ms,
                 "plan": plan[:4]}
 
+    def k1(args, nx, nu, reps=50, **kw):
+        B, N = args[0]["fx"].shape[:2]
+        ms = device_time_ms(
+            lambda: riccati.riccati_backward(*args, nx=nx, nu=nu, **kw), reps)
+        plan = riccati.riccati_launch_plan(N, nx, nu, True, B, kw.get("variant"))
+        return {"kernel": "K1", "B": B, "N": N, "nx": nx, "nu": nu, "ms": ms,
+                "plan": plan[:4]}
+
+    if "K1" in only:
+        # problems a block and padded strides, with the cycles of the parts
+        bench = {N: _k1_args(dev, bench_ocp(N, dev, torch.float32), 1024, N)
+                 for N in (40, 10)}
+        problems0, pad0 = riccati._BLOCK_PROBLEMS, riccati._PAD_BANKS
+        for pad in (True, False):
+            for problems in (1, 2, 4, 8, 16, 32):
+                riccati._PAD_BANKS, riccati._BLOCK_PROBLEMS = pad, problems
+                for N, args in bench.items():
+                    cycles = riccati.riccati_stage_clocks(*args).double().mean(0)
+                    emit(block_problems=problems, pad_banks=pad,
+                         block_cycles=dict(zip(riccati.CLOCK_PARTS,
+                                               cycles.tolist())),
+                         **k1(args, 3, 2, variant="warps"))
+        riccati._BLOCK_PROBLEMS, riccati._PAD_BANKS = problems0, pad0
+        del bench
+        # every variant that fits, forced, over horizons and batches
+        for N in (10, 40, 160, 600):
+            ocp = bench_ocp(N, dev, torch.float32)
+            for B in (1024, 2048, 4096, 16384):
+                if B * N > 16384 * 160:
+                    continue        # derivatives of 10 M stages: not needed
+                args = _k1_args(dev, ocp, B, N)
+                for variant in riccati.RICCATI_VARIANTS:
+                    try:
+                        riccati.riccati_launch_plan(N, 3, 2, True, B, variant)
+                    except ValueError:
+                        continue
+                    emit(variant=variant, **k1(args, 3, 2, reps=5, variant=variant))
+        for nx, nu in sorted(riccati.SUPPORTED - {(3, 2)}):
+            args = _k1_random_args(dev, 1024, 40, nx, nu)
+            for variant in riccati.RICCATI_VARIANTS:
+                emit(variant=variant, **k1(args, nx, nu, reps=20, variant=variant))
+
     shapes = ((1024, 40, 8), (1024, 10, 12), (16384, 40, 1), (1024, 10, 1))
     threads0 = rollout._BLOCK_THREADS
-    for threads in (32, 64, 128, 256):
+    for threads in (32, 64, 128, 256) if "K2" in only else ():
         rollout._BLOCK_THREADS = threads
         for shape in shapes:
             emit(block_threads=threads, **k2(*shape))
     rollout._BLOCK_THREADS = threads0
 
     problems0 = fused._BLOCK_PROBLEMS
-    for problems in (1, 2, 4, 8, 16, 32):
+    for problems in (1, 2, 4, 8, 16, 32) if "K3" in only else ():
         fused._BLOCK_PROBLEMS = problems
         for B, N in ((1024, 40), (1024, 10)):
             emit(block_problems=problems, **k3(B, N))
@@ -109,7 +189,7 @@ def main(argv=None) -> int:
     k2_cases = [(1024, 250, 8), (1024, 600, 8), (1024, 2000, 8), (1024, 600, 1)]
     k2_cases += [(B, N, A) for N, A in ((40, 8), (10, 12), (40, 1), (10, 1))
                  for B in batches]
-    for B, N, A in k2_cases:
+    for B, N, A in k2_cases if "K2" in only else ():
         for variant in rollout.LINESEARCH_VARIANTS:
             try:
                 rollout.linesearch_launch_plan(N, A, 3, variant)
@@ -118,7 +198,7 @@ def main(argv=None) -> int:
             emit(variant=variant, **k2(B, N, A, reps=3, variant=variant))
     k3_cases = [(1024, 150), (1024, 160), (1024, 300), (1024, 600)]
     k3_cases += [(B, N) for N in (40, 10) for B in batches]
-    for B, N in k3_cases:
+    for B, N in k3_cases if "K3" in only else ():
         for variant in fused.FUSED_VARIANTS:
             emit(variant=variant, **k3(B, N, reps=3, variant=variant))
     return 0

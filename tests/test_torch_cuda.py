@@ -26,8 +26,11 @@ from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
                                                 fused_backward_torch,
                                                 fused_launch_plan,
                                                 fused_phase_clocks)
-from mpc_verde_tpu_torch.ops.cuda.riccati import (SUPPORTED, riccati_backward,
-                                                  riccati_backward_torch)
+from mpc_verde_tpu_torch.ops.cuda.riccati import (CLOCK_PARTS, SUPPORTED,
+                                                  riccati_backward,
+                                                  riccati_backward_torch,
+                                                  riccati_launch_plan,
+                                                  riccati_stage_clocks)
 from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward,
                                                   linesearch_forward_torch,
                                                   linesearch_launch_plan)
@@ -46,22 +49,31 @@ def dev():
     return torch.device("cuda", 0)
 
 
+@pytest.mark.parametrize("variant", ["planned", "thread"])
 @pytest.mark.parametrize("bounds", ["box", "none"])
 @pytest.mark.parametrize("use_ddp", [True, False])
 @pytest.mark.parametrize("nx,nu", sorted(SUPPORTED))
-def test_riccati_kernel_matches_twin(dev, nx, nu, use_ddp, bounds):
-    """B = 200 is not a multiple of the block; half the problems have DDP
-    off; with no bounds, dlb/dub are -inf/+inf and nothing may turn NaN."""
+def test_riccati_kernel_matches_twin(dev, nx, nu, use_ddp, bounds, variant):
+    """B = 203 is not a multiple of either variant's block; half the
+    problems have DDP off; with no bounds, dlb/dub are -inf/+inf and nothing
+    may turn NaN.  The planned variant is "warps" up to nu = 3 and "thread"
+    at nu = 4."""
     d, dlb, dub, gN, HN, reg, ddp = _random_riccati(
-        np.random.default_rng(10 * nx + nu), 200, 6, nx, nu, dev)
+        np.random.default_rng(10 * nx + nu), 203, 6, nx, nu, dev)
     ddp[::2] = 0.0
     if bounds == "none":
         dlb, dub = torch.full_like(dlb, -torch.inf), torch.full_like(dub, torch.inf)
     args = (d, dlb, dub, gN, HN, reg, ddp)
     before = riccati_backward.launches
-    out = riccati_backward(*args, nx=nx, nu=nu, use_ddp=use_ddp)
+    by_variant = dict(riccati_backward.launches_by_variant)
+    out = riccati_backward(*args, nx=nx, nu=nu, use_ddp=use_ddp,
+                           variant=None if variant == "planned" else variant)
     torch.cuda.synchronize()
     assert riccati_backward.launches == before + 1
+    expected = ("thread" if variant == "thread" or nu == 4 else "warps")
+    assert riccati_launch_plan(6, nx, nu, use_ddp, 203).variant == (
+        "thread" if nu == 4 else "warps")
+    assert _launched(riccati_backward, by_variant) == {expected: 1}
     ref = riccati_backward_torch(*args, nx=nx, nu=nu, use_ddp=use_ddp)
     for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
         assert bool(torch.isfinite(o).all()), name
@@ -155,13 +167,29 @@ def test_linesearch_kernel_matches_twin(dev, variant):
 
 
 @pytest.mark.parametrize("kernel", ["linesearch", "linesearch_reroll", "fused",
-                                    "fused_gauss_newton"])
+                                    "fused_gauss_newton", "riccati",
+                                    "riccati_gauss_newton", "riccati_4x3",
+                                    "riccati_5x4_forced_warps"])
 def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
     """Every variant runs the same device functions per candidate and per
     stage, so a forced variant gives the planned one's results (to float32
-    round-off, should the compiler contract them differently)."""
+    round-off, should the compiler contract them differently).  K1 at
+    (5, 4) is planned "thread", so there "warps" is the forced one."""
     B, N = 301, 12
-    if kernel.startswith("linesearch"):
+    if kernel.startswith("riccati"):
+        nx, nu = {"riccati_4x3": (4, 3),
+                  "riccati_5x4_forced_warps": (5, 4)}.get(kernel, (3, 2))
+        kw = dict(nx=nx, nu=nu, use_ddp=kernel != "riccati_gauss_newton")
+        args = _random_riccati(np.random.default_rng(4), B, N, nx, nu, dev)
+        other = "warps" if nu == 4 else "thread"
+        by_variant = dict(riccati_backward.launches_by_variant)
+        planned = riccati_backward(*args, **kw)
+        forced = riccati_backward(*args, variant=other, **kw)
+        assert _launched(riccati_backward, by_variant) == {"warps": 1,
+                                                           "thread": 1}
+        if nu <= 2:   # the same compiled arithmetic: the same floats
+            assert all(bool((o == r).all()) for o, r in zip(planned, forced))
+    elif kernel.startswith("linesearch"):
         ocp = _ocp_variant("terminal", N, dev)
         args = (*_k2_inputs(dev, B, N, seed=5), tuple(0.4 ** i for i in range(8)))
         other = "lanes_reroll" if kernel == "linesearch_reroll" else "thread"
@@ -184,6 +212,20 @@ def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
         assert _rel_err(o, r) <= 1e-5
 
 
+def test_riccati_stage_clocks_times_the_warps_kernel(dev):
+    """The timing instantiation reports positive cycles for every block and
+    part, and is not counted as a launch of the solvers' kernel."""
+    B, N = 301, 12
+    args = _random_riccati(np.random.default_rng(5), B, N, 3, 2, dev)
+    before = riccati_backward.launches
+    clocks = riccati_stage_clocks(*args)
+    torch.cuda.synchronize()
+    blocks = -(-B // riccati_launch_plan(N, 3, 2, True, B, "warps").problems)
+    assert tuple(clocks.shape) == (blocks, len(CLOCK_PARTS))
+    assert clocks.dtype == torch.int64 and int(clocks.min()) > 0
+    assert riccati_backward.launches == before
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     d, dlb, dub, gN, HN, reg, ddp = _random_riccati(
         np.random.default_rng(0), 8, 4, 3, 2, dev)
@@ -198,6 +240,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         riccati_backward(d, dlb.cpu(), dub, gN, HN, reg, ddp, nx=3, nu=2)
     with pytest.raises(NotImplementedError):
         riccati_backward(d, dlb, dub, gN, HN, reg, ddp, nx=4, nu=2)
+    with pytest.raises(ValueError, match="unknown"):
+        riccati_backward(d, dlb, dub, gN, HN, reg, ddp, nx=3, nu=2,
+                         variant="lanes")
     ocp = bench_ocp(4, dev, torch.float32)
     z = lambda *s: torch.zeros(s, device=dev)
     with pytest.raises(ValueError, match="shape"):

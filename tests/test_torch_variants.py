@@ -1,7 +1,7 @@
 """The kernels' launch plans, and the tie rule every line-search variant keeps.
 
-``linesearch_launch_plan`` and ``fused_launch_plan`` choose a kernel variant,
-its block and its shared memory from the shape alone; they are plain Python
+``riccati_launch_plan``, ``linesearch_launch_plan`` and ``fused_launch_plan``
+choose a kernel variant, its block and its shared memory from the shape alone; they are plain Python
 and are held here against an independent count of the bytes each variant
 keeps in shared memory.  The plain PyTorch line search is held against the
 JAX materialising line search on inputs where every alpha ties and on an
@@ -20,6 +20,7 @@ from mpc_verde_tpu_torch.interop import bench_ocp
 from mpc_verde_tpu_torch.ops.cuda import rollout
 from mpc_verde_tpu_torch.ops.cuda.build import SMEM_MAX_BYTES
 from mpc_verde_tpu_torch.ops.cuda.fused import fused_launch_plan
+from mpc_verde_tpu_torch.ops.cuda.riccati import SUPPORTED, riccati_launch_plan
 from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward_torch,
                                                   linesearch_launch_plan)
 
@@ -28,6 +29,109 @@ NPAR = 3
 
 def test_shared_memory_limit_is_hoppers():
     assert SMEM_MAX_BYTES == 232_448        # 227 KB a block on sm_90
+
+
+def _riccati_entries(nx, nu, use_ddp):
+    """Floats a stage of the twelve inputs: fx fu lx lu lxx luu lux, the
+    second-order fxx fux fuu, dlb dub."""
+    first = [nx * nx, nx * nu, nx, nu, nx * nx, nu * nu, nu * nx]
+    second = [nx ** 3, nx * nu * nx, nx * nu * nu] if use_ddp else [0, 0, 0]
+    return first + second + [nu, nu]
+
+
+@pytest.mark.parametrize("B", [1, 1024, 16384])
+@pytest.mark.parametrize("N", [1, 10, 40, 600, 5000])
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("nx,nu", sorted(SUPPORTED))
+def test_riccati_launch_plan(nx, nu, use_ddp, N, B):
+    plan = riccati_launch_plan(N, nx, nu, use_ddp, B)
+    entries = _riccati_entries(nx, nu, use_ddp)
+    cand_warps = 3 if nu == 1 else 9
+    # floats one problem keeps in shared memory: its slabs, its kff and K,
+    # its rows of the two exchange areas; padding adds at most 31 floats a
+    # slab and one to each staging stride
+    kept = (N * (sum(entries) + nu + nu * nx) + nu + nu * nu
+            + cand_warps * (2 + nu))
+    slack = 31 * 12 + 2
+    assert plan.smem_bytes <= SMEM_MAX_BYTES and 1 <= plan.threads <= 1024
+    forced_thread = riccati_launch_plan(N, nx, nu, use_ddp, B, "thread")
+    assert forced_thread[:4] == ("thread", 64, 64, 0)
+    if 4 * kept > SMEM_MAX_BYTES:     # not one problem fits
+        assert plan == forced_thread
+        with pytest.raises(ValueError, match="shared memory"):
+            riccati_launch_plan(N, nx, nu, use_ddp, B, "warps")
+        return
+    # (no case here sits within the padding of the limit)
+    assert 4 * (kept + slack) <= SMEM_MAX_BYTES
+    forced = riccati_launch_plan(N, nx, nu, use_ddp, B, "warps")
+    pb = forced.problems
+    assert forced.variant == "warps" and forced.threads == 32 * (cand_warps + 1)
+    assert 4 * pb * kept <= forced.smem_bytes <= 4 * pb * (kept + slack)
+    # as many problems as fit, up to 8
+    assert pb == 8 or 4 * (pb + 1) * (kept + slack) > SMEM_MAX_BYTES
+    # "warps" unless the batch makes more than three blocks an SM or a
+    # candidate warp would have more than three patterns (nu = 4)
+    expected = "warps" if -(-B // pb) <= 3 * 132 and nu <= 3 else "thread"
+    assert plan == (forced if expected == "warps" else forced_thread)
+    # the layout the kernel is given: twelve slabs of pb chunks at strides
+    # that hold a chunk, 16-byte aligned and 4 modulo 32 floats; the staging
+    # areas at odd strides; the exchange areas; nothing overlaps
+    lay = forced.layout
+    offsets, strides = lay[:12], lay[12:24]
+    okff, oK, skff, sK, xu, xc, total = lay[24:]
+    end = 0
+    for off, stride, e in zip(offsets, strides, entries):
+        assert off % 4 == 0 and off >= end
+        if e:
+            assert stride >= N * e and stride % 32 == 4
+        end = off + pb * stride
+    assert okff >= end and skff >= N * nu and skff % 2 == 1
+    assert oK >= okff + pb * skff and sK >= N * nu * nx and sK % 2 == 1
+    assert xu >= oK + pb * sK
+    assert xc >= xu + pb * (nu + nu * nu)
+    assert total >= xc + pb * cand_warps * (2 + nu)
+    assert 4 * total == forced.smem_bytes
+
+
+def test_riccati_launch_plan_at_the_bench_and_fleet_shapes():
+    assert riccati_launch_plan(40, 3, 2, True, 1024)[:4] == (
+        "warps", 8, 320, 146_304)
+    assert riccati_launch_plan(40, 3, 2, False, 1024)[:3] == ("warps", 8, 320)
+    assert riccati_launch_plan(10, 3, 2, True, 1024)[:4] == (
+        "warps", 8, 320, 41_344)
+    assert riccati_launch_plan(40, 3, 2, True)[:2] == ("warps", 8)
+    assert riccati_launch_plan(40, 3, 1, True, 1024)[:3] == ("warps", 8, 128)
+    assert riccati_launch_plan(40, 4, 3, True, 1024)[:3] == ("warps", 5, 320)
+    # 81 patterns in nine rounds a warp lose to one thread a problem
+    assert riccati_launch_plan(40, 5, 4, True, 1024).variant == "thread"
+    assert riccati_launch_plan(40, 5, 4, True, 1024, "warps")[:2] == ("warps", 3)
+    # three problems a block still win at N = 160, one a block would not
+    assert riccati_launch_plan(160, 3, 2, True, 1024)[:2] == ("warps", 3)
+    assert riccati_launch_plan(300, 3, 2, True, 1024).variant == "thread"
+
+
+@pytest.mark.parametrize("N,B,expected", [
+    (40, 1000, "warps"), (40, 1024, "warps"), (40, 2048, "warps"),
+    (40, 3168, "warps"), (40, 3169, "thread"), (40, 4096, "thread"),
+    (40, 16384, "thread"), (10, 2048, "warps"), (10, 4096, "thread"),
+    (160, 1024, "warps"), (160, 2048, "thread")])
+def test_riccati_launch_plan_takes_the_batch(N, B, expected):
+    """More than three "warps" blocks an SM go to the "thread" kernel, as
+    measured on the card; the width the solvers run (1024) stays "warps",
+    and a forced variant ignores the batch."""
+    assert riccati_launch_plan(N, 3, 2, True, B).variant == expected
+    assert (riccati_launch_plan(N, 3, 2, True, B, "warps")
+            == riccati_launch_plan(N, 3, 2, True))
+    assert riccati_launch_plan(N, 3, 2, True, B, "thread").variant == "thread"
+
+
+def test_riccati_launch_plan_refuses():
+    with pytest.raises(ValueError, match="unknown"):
+        riccati_launch_plan(40, 3, 2, True, 1024, "staged")
+    with pytest.raises(ValueError, match="built for"):
+        riccati_launch_plan(40, 4, 2, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        riccati_launch_plan(5000, 3, 2, True, 1024, "warps")
 
 
 def _linesearch_floats(N, A_pad):
