@@ -36,13 +36,33 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   9. fleet:   the closed-loop fleet (scenarios/fleet.py SPEC: B=1024, N=10,
               Nsim=150, RK4 controller, Euler plant) on "cuda_fused", with
               the JAX package's own gates.
-Phases 5, 8 and 9 each set every kernel launch count to 0 just before and
-read it just after, and check that the launches were of the variants the
-launch plans choose for the shape.  Then one JSON line of kernel results
-(each kernel's time beside its roofline bound, computed from this run's
-shapes, and beside its one-thread-per-problem variant's time), the
-nvidia-smi name/power-limit line, and last the JSON status line.  Imports
-torch, numpy and mpc_verde_tpu_torch only.
+ 10. terms:   K2 and K3 vs their twins at B=1024, N=40 on the OCPs the
+              interior-point and state-bound solvers derive
+              (interop.derived_ocps): the streaming barrier at mu 1e-2, 1e-4
+              and 0 (npar 4), the batched barrier without a clip box, the AL
+              penalty with nonzero multipliers and states on both sides of
+              the box (npar 10), and barrier + AL (npar 11); random gains,
+              so that candidates clip onto the box (+inf) or leave it (NaN);
+              every variant; times and bounds at each npar.
+ 11. ipm:     make_streaming_barrier_solver on phase 5's queue on
+              "cuda_fused": cold (mu 1e-2, 1e-4, then the mu = 0 crossover,
+              inexact_kappa 10) and hybrid (warmstart="ddp", mu 1e-4); final
+              costs against phase 5's DDP answers; the cold path on "cuda"
+              (K1, K2, torch.func derivatives) on the first 2048 problems,
+              held against the fused run.
+ 12. al:      state bounds at full width: make_streaming_solver with
+              al_iters=6 on the bench OCP with the box y <= 5 (the target
+              lies at y = 10; without the box every problem's trajectory
+              passes y = 5), phase 5's queue on "cuda_fused", and the
+              streaming barrier + AL composition on its first 2048 problems;
+              the JAX tests' gate, max_violation < 1e-2.
+Phases 5, 8, 9, 11 and 12 each set every kernel launch count to 0 just
+before and read it just after, and check that the launches were of the
+variants the launch plans choose for the shape.  Then one JSON line of
+kernel results (each kernel's time beside its roofline bound, computed from
+this run's shapes, and beside its one-thread-per-problem variant's time),
+the nvidia-smi name/power-limit line, and last the JSON status line.
+Imports torch, numpy and mpc_verde_tpu_torch only.
 """
 from __future__ import annotations
 
@@ -74,10 +94,14 @@ JAX_BAND = {"converged_frac": 1.0, "mean_iterations": 15.14}
 # outside the tensor cores.
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # Operations per unit of work, counted from the kernels' arithmetic with a
-# full-precision sinf or cosf taken as 16: one clipped closed-loop RK4 step
-# with its stage cost (K2); one stage QP of the Riccati recursion, nx = 3,
-# nu = 2 (K1); the same plus the stage's dual-number derivatives (K3).
+# full-precision sinf, cosf or logf taken as 16: one clipped closed-loop RK4
+# step with its stage cost (K2); one stage QP of the Riccati recursion,
+# nx = 3, nu = 2 (K1); the same plus the stage's dual-number derivatives
+# (K3).  The optional terms add per step (K2) or stage (K3): the barrier's
+# four logs, 80 and on second-order duals over z = [x; u] (21 numbers) 400;
+# the AL penalty's six rows, 60 and 900.
 K2_STEP_FLOPS, K1_STAGE_FLOPS, K3_STAGE_FLOPS = 250, 1000, 4000
+TERM_FLOPS = {"barrier": (80, 400), "al": (60, 900)}   # (K2 step, K3 stage)
 # the variants the launch plans choose at the bench and the fleet shapes:
 # K1 at 1024, K2's line search and (without candidate slots) its pre-roll,
 # K3 at 1024
@@ -96,11 +120,11 @@ def _bound(n_bytes, flops):
             "library_ms": None}   # no single PyTorch call computes any of them
 
 
-def _opts():
+def _opts(**kw):
     from mpc_verde_tpu_torch import ILQROptions
 
     return ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
-                       n_alphas=8, alpha_decay=0.4)
+                       n_alphas=8, alpha_decay=0.4, **kw)
 
 
 def _queue(M, N, seed=0):
@@ -505,32 +529,57 @@ def _check_path(launches, twin_calls, path_kernels):
                 raise AssertionError(f"{k} left its planned variants: {launches}")
 
 
+def _streaming_path(tag, gpu, solve, queue, path_kernels, warm=WIDTH,
+                    check=None, note=""):
+    """Drive one streaming entry point over ``queue`` (60 iterations + 2
+    restarts) after a warm-up on its first ``warm`` problems, with the
+    path's checks; returns (launches, result)."""
+    x0q, psq, us0q = queue
+    M, N = x0q.shape[0], psq.shape[1] - 1
+    if warm:
+        solve(x0q[:warm], psq[:warm], us0q[:warm], max_iters=60, restarts_n=2)
+        torch.cuda.synchronize()
+    res, wall, launches, twin_calls = _drive(
+        lambda: solve(x0q, psq, us0q, max_iters=60, restarts_n=2))
+    _check_result(res, M, N)
+    conv = float(res.converged.float().mean())
+    print(f"[{tag}] {note}M={M} N={N}: {M / wall:.1f} solves/s ({wall:.3f} s), "
+          f"converged_frac {conv:.4f}, mean_iterations "
+          f"{float(res.iterations.double().mean()):.3f}, max_violation "
+          f"{float(res.max_violation.max()):.3e}, launches {launches}, twin "
+          f"calls on CUDA {twin_calls} | GPU {gpu}", flush=True)
+    if conv < 0.99:
+        raise AssertionError(f"{tag}: converged_frac {conv} < 0.99")
+    if check is not None:
+        check(res)
+    _check_path(launches, twin_calls, path_kernels)
+    return launches, res
+
+
+def _hold_paths(tag, res, ref):
+    """Two float32 paths' answers to one queue: converged agree >= 0.99,
+    cost rel err <= 1e-3 where both converged."""
+    agree = float((res.converged == ref.converged).float().mean())
+    both = res.converged & ref.converged
+    rel = float(((res.cost.double() - ref.cost.double()).abs()
+                 / ref.cost.double().abs())[both].max())
+    print(f"[{tag}] converged agree {agree:.4f}, cost rel err where both "
+          f"converged {rel:.2e}", flush=True)
+    if agree < 0.99 or rel > 1e-3:
+        raise AssertionError(f"{tag}: agree {agree}, rel {rel}")
+
+
 def _streaming(dev, gpu, backend, path_kernels, tag, M, W, N):
     """Phase 5's streaming solve of the bench queue on ``backend``."""
     from mpc_verde_tpu_torch import make_streaming_solver
     from mpc_verde_tpu_torch.interop import bench_ocp
 
-    ocp = bench_ocp(N, dev, torch.float32)
-    solve = make_streaming_solver(ocp, _opts(), backend=backend,
-                                  batch_width=W, restarts=2)
-    x0q, psq, us0q = _queue(M, N)
-    solve(x0q[:W], psq[:W], us0q[:W], max_iters=60, restarts_n=2)  # warm-up
-    torch.cuda.synchronize()
-    res, wall, launches, twin_calls = _drive(
-        lambda: solve(x0q, psq, us0q, max_iters=60, restarts_n=2))
-
-    _check_result(res, M, N)
-    conv = float(res.converged.float().mean())
-    mean_it = float(res.iterations.double().mean())
-    print(f"[{tag}] streaming backend={backend} W={W} M={M} N={N}: "
-          f"{M / wall:.1f} solves/s ({wall:.3f} s), converged_frac {conv:.4f}, "
-          f"mean_iterations {mean_it:.3f}, launches {launches}, twin calls "
-          f"on CUDA {twin_calls} | JAX band (TPU run) {JAX_BAND} | GPU {gpu}",
-          flush=True)
-    if conv < 0.99:
-        raise AssertionError(f"converged_frac {conv} < 0.99")
-    _check_path(launches, twin_calls, path_kernels)
-    return launches, res
+    solve = make_streaming_solver(bench_ocp(N, dev, torch.float32), _opts(),
+                                  backend=backend, batch_width=W, restarts=2)
+    return _streaming_path(
+        tag, gpu, solve, _queue(M, N), path_kernels, warm=W,
+        note=f"streaming backend={backend} W={W}, JAX band (TPU run) "
+        f"{JAX_BAND}: ")
 
 
 def phase_main(dev, gpu, M=QUEUE, W=WIDTH, N=BENCH_N):
@@ -546,14 +595,7 @@ def phase_main_fused(dev, gpu, ref, M=QUEUE, W=WIDTH, N=BENCH_N):
     launches, res = _streaming(dev, gpu, "cuda_fused",
                                ("fused_backward", "linesearch_forward"),
                                "main-fused", M, W, N)
-    agree = float((res.converged == ref.converged).float().mean())
-    both = res.converged & ref.converged
-    rel = float(((res.cost.double() - ref.cost.double()).abs()
-                 / ref.cost.double().abs())[both].max())
-    print(f"[main-fused] vs phase 5: converged agree {agree:.4f}, cost rel "
-          f"err where both converged {rel:.2e}", flush=True)
-    if agree < 0.99 or rel > 1e-3:
-        raise AssertionError(f"cuda_fused vs cuda: agree {agree}, rel {rel}")
+    _hold_paths("main-fused vs phase 5", res, ref)
     return launches
 
 
@@ -703,6 +745,269 @@ def phase_fleet(dev, gpu, B=None, n_steps=None):
     return launches
 
 
+# phase 10's state box: the starts lie in [-2, 2]^3, so the trajectories
+# run on both sides of x >= -1.5 and |y| <= 1
+TERM_BOX = ([-1.5, -1.0, -np.inf], [np.inf, 1.0, np.inf])
+# Phase 12's: the target (10, 10, 0) lies outside y <= 5, and without the
+# box every problem's trajectory passes y = 5, so the box binds for every
+# problem (the phase prints the share at the bound).  Six AL rounds, not the
+# JAX tests' three: their gate, max_violation < 1e-2, was set on a milder
+# problem (N = 12, target 1.1 beyond the box); on this one three rounds left
+# a largest violation of 0.115 on the H100 (box y <= 8); each round cuts the
+# largest violation several times, and the largest grows with the queue.
+AL_Y_MAX, AL_ITERS = 5.0, 6
+
+
+def _term_inputs(dev, B, N, seed=12):
+    """Phase 10's inputs: nominal trajectories of interior controls (us in
+    [-0.6, 0.6]^2 and xs their rollout), random gains as phase 4's, the
+    bench target, and AL multipliers (lam in [0, 2] on about half the rows,
+    mu_al one of 10, 100, 1000 a problem)."""
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    x0 = t(rng.uniform(-2, 2, (B, 3)))
+    us = t(rng.uniform(-0.6, 0.6, (B, N, 2)))
+    ps = t(np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy())
+    z = dict(dtype=torch.float32, device=dev)
+    xs, us, _, _ = linesearch_forward_torch(
+        x0, torch.zeros((B, N + 1, 3), **z), us, ps,
+        torch.zeros((B, N, 2), **z), torch.zeros((B, N, 2, 3), **z), (1.0,),
+        ocp=bench_ocp(N, dev))
+    lam = rng.uniform(0, 2, (B, N + 1, 6)) * (rng.uniform(size=(B, N + 1, 6)) < 0.5)
+    return (x0, xs, us, ps, t(0.3 * rng.normal(size=(B, N, 2))),
+            t(0.2 * rng.normal(size=(B, N, 2, 3))), t(lam),
+            t(rng.choice([10.0, 100.0, 1000.0], B)))
+
+
+def _term_cases(dev, N, inputs):
+    """(label, derived OCP, its params) of phase 10."""
+    from mpc_verde_tpu_torch.interop import (bench_ocp, derived_ocps,
+                                             derived_params)
+
+    ocps = derived_ocps(bench_ocp(N, dev, torch.float32, x_lb=TERM_BOX[0],
+                                  x_ub=TERM_BOX[1]))
+    ps, lam, mu_al = inputs[3], inputs[6], inputs[7]
+    cases = [(f"barrier mu={mu:g}", "barrier", dict(mu=mu))
+             for mu in (1e-2, 1e-4, 0.0)]
+    cases += [("barrier_batched mu=0.01", "barrier_batched", dict(mu=1e-2)),
+              ("al", "al", dict(lam=lam, mu_al=mu_al)),
+              ("barrier_al mu=0.01", "barrier_al",
+               dict(mu=1e-2, lam=lam, mu_al=mu_al))]
+    return [(label, ocps[name], derived_params(name, ps, **kw))
+            for label, name, kw in cases]
+
+
+def _k2_kernel_rule(data, alphas, ocp):
+    """The twin's candidates one alpha at a time, and the winner under the
+    kernel's rule (the Pallas kernel's): the first minimum among the costs
+    below FLT_MAX, else alpha 0.  A candidate the barrier prices +inf or NaN
+    loses to every finite one; the twin's own argmin (jnp.argmin's rule)
+    would pick a NaN.  Returns the winner's (index, xs, us, cost) and the
+    share of problems with a non-finite candidate."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
+
+    outs = [linesearch_forward_torch(*data, (a,), ocp=ocp) for a in alphas]
+    costs = torch.stack([o[2] for o in outs])                  # (A, B)
+    valid = costs < torch.finfo(costs.dtype).max
+    best = torch.where(valid, costs, torch.inf).argmin(0)      # first minimum
+    rows = torch.arange(costs.shape[1], device=costs.device)
+    pick = lambda i: torch.stack([o[i] for o in outs])[best, rows]
+    return (best.to(torch.int32), pick(0), pick(1), pick(2),
+            float((~valid).any(0).float().mean()))
+
+
+def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
+    """K2 and K3 against their twins on the barrier and AL terms."""
+    from mpc_verde_tpu_torch.ops.cuda.fused import (
+        fused_backward, fused_backward_torch, fused_launch_plan)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        LINESEARCH_VARIANTS, linesearch_forward, linesearch_forward_torch,
+        linesearch_launch_plan)
+
+    inputs = _term_inputs(dev, B, N)
+    x0, xs, us, _, kff, K = inputs[:6]
+    alphas = tuple(0.4 ** i for i in range(A))
+    f = dict(dtype=torch.float32, device=dev)
+    reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
+    err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
+    by_npar = {"linesearch_forward": {}, "fused_backward": {}}
+    for label, ocp, ps in _term_cases(dev, N, inputs):
+        npar = ps.shape[-1]
+        data = (x0, xs, us, ps, kff, K)
+        best, xs_r, us_r, c_r, nonfinite = _k2_kernel_rule(data, alphas, ocp)
+        twin_best = linesearch_forward_torch(*data, alphas, ocp=ocp)[3]
+        planned = linesearch_launch_plan(N, A, npar).variant
+        for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
+            used, (xs_k, us_k, c_k, b_k) = _variants_used(
+                linesearch_forward,
+                lambda: linesearch_forward(*data, alphas, ocp=ocp,
+                                           variant=variant))
+            same = b_k == best
+            fin = same & torch.isfinite(c_r)
+            cost_rel = float(((c_k - c_r).abs() / c_r.abs())[fin].max())
+            nonfin_ok = bool((~torch.isfinite(c_k[same & ~torch.isfinite(c_r)])
+                              ).all())
+            same_frac = float(same.float().mean())
+            traj = max(_rel_err(xs_k[same], xs_r[same]),
+                       _rel_err(us_k[same], us_r[same]))
+            print(f"[terms] K2 {label} npar={npar} variant {sorted(used)}: cost "
+                  f"rel err {cost_rel:.2e}, same alpha {same_frac:.4f}, traj err "
+                  f"{traj:.2e}; problems with a +inf/NaN candidate "
+                  f"{nonfinite:.4f}, twin argmin elsewhere "
+                  f"{float((twin_best != best).float().mean()):.4f}", flush=True)
+            if (not cost_rel <= 1e-5 or same_frac < 0.999 or not traj <= 1e-4
+                    or not nonfin_ok):
+                raise AssertionError(f"K2 {label} out of tolerance: cost rel "
+                                     f"{cost_rel}, same {same_frac}, traj {traj}, "
+                                     f"non-finite winners kept {nonfin_ok}")
+            if used != {variant or planned}:
+                raise AssertionError(f"K2 {label} ran variants {used}")
+            err["linesearch_forward"] = max(
+                err["linesearch_forward"], _abs_err(c_k[fin], c_r[fin]),
+                _abs_err(xs_k[same], xs_r[same]), _abs_err(us_k[same], us_r[same]))
+
+        # Without a clip box the stage QP is a plain Newton step, and with
+        # DDP these far-from-target trajectories make Quu indefinite: the
+        # recursion then amplifies float32 round-off along the horizon
+        # (kernel and twin differed by 1e2 relative at N = 40, as the bench
+        # OCP's DDP derivatives with infinite bounds turn NaN), so that case
+        # is held on Gauss-Newton only.  DDP and Gauss-Newton share the
+        # cost's derivatives, the barrier's among them.
+        for use_ddp in ((False,) if ocp.control_bounds is None
+                        else (True, False)):
+            args = (xs, us, ps, reg, ones)
+            ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+            for variant in (None, "thread"):
+                used, out = _variants_used(
+                    fused_backward,
+                    lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                           variant=variant))
+                if used != {variant or "staged"}:
+                    raise AssertionError(f"K3 {label} ran variants {used}")
+                err["fused_backward"] = max(err["fused_backward"], _hold(
+                    out, ref, "terms", f"K3 {label} npar={npar} DDP={use_ddp} "
+                    f"variant {sorted(used)}"))
+
+        if str(npar) not in by_npar["linesearch_forward"]:   # time each npar once
+            model = ocp.device_model
+            terms = [t for t, on in (("barrier", model.barrier is not None),
+                                     ("al", model.al)) if on]
+            k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
+            k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
+            out2, out3 = k2(), k3()
+            n2 = sum(a.numel() for a in data) + sum(o.numel() for o in out2)
+            n3 = xs.numel() + us.numel() + ps.numel() + 2 * B + sum(
+                o.numel() for o in out3)
+            flops2 = K2_STEP_FLOPS + sum(TERM_FLOPS[t][0] for t in terms)
+            flops3 = K3_STAGE_FLOPS + sum(TERM_FLOPS[t][1] for t in terms)
+            row2 = {"case": label, "ms": _time_ms(k2, reps=50),
+                    "plain_ms": _time_ms(
+                        lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
+                        reps=3, warmup=1, queued=False),
+                    "variant": linesearch_launch_plan(N, A, npar).variant,
+                    **_bound(4 * n2, B * A * N * flops2)}
+            row3 = {"case": label, "ms": _time_ms(k3, reps=50),
+                    "plain_ms": _time_ms(
+                        lambda: fused_backward_torch(xs, us, ps, reg, ones,
+                                                     ocp=ocp),
+                        reps=3, warmup=1, queued=False),
+                    "variant": fused_launch_plan(N, True, None, B).variant,
+                    **_bound(4 * n3, B * N * flops3)}
+            print(f"[terms] npar={npar} ({label}): K2 {row2['ms']:.4f} ms "
+                  f"(twin {row2['plain_ms']:.2f}, bound {row2['bound_ms']:.4f} "
+                  f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
+                  f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
+                  f"{row3['bound_by']}); plan K2 "
+                  f"{linesearch_launch_plan(N, A, npar)[:4]}", flush=True)
+            by_npar["linesearch_forward"][str(npar)] = row2
+            by_npar["fused_backward"][str(npar)] = row3
+    return {k: {"max_abs_err": err[k], "by_npar": by_npar[k]} for k in err}
+
+
+def _cost_gap(res, ref):
+    """(p50, p99, max of |relative cost gap|, share within 1e-4) of ``res``
+    against the DDP answers ``ref`` on the same problems."""
+    gap = ((res.cost.double() - ref.cost.double()) / ref.cost.double().abs()
+           ).abs().cpu().numpy()
+    return (float(np.percentile(gap, 50)), float(np.percentile(gap, 99)),
+            float(gap.max()), float((gap <= 1e-4).mean()))
+
+
+def phase_ipm(dev, gpu, ref, M=QUEUE, N=BENCH_N, M_cuda=2048):
+    """The streaming interior-point solver on phase 5's queue; ``ref`` is
+    phase 5's DDP result."""
+    from mpc_verde_tpu_torch import make_streaming_barrier_solver
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    ocp = bench_ocp(N, dev, torch.float32)
+    queue = _queue(M, N)
+    fused_path = ("fused_backward", "linesearch_forward")
+    by_path, results = {}, {}
+    for tag, kw in (("ipm_cold", {}),
+                    ("ipm_hybrid", dict(mu_schedule=(1e-4,), warmstart="ddp"))):
+        solve = make_streaming_barrier_solver(
+            ocp, _opts(), backend="cuda_fused", batch_width=WIDTH, restarts=2,
+            inexact_kappa=10.0, **kw)
+        by_path[tag], results[tag] = _streaming_path(tag, gpu, solve, queue,
+                                                     fused_path)
+        p50, p99, worst, share = _cost_gap(results[tag], ref)
+        print(f"[{tag}] cost vs phase 5's DDP answers: |relative gap| p50 "
+              f"{p50:.2e} p99 {p99:.2e} max {worst:.2e}, share within 1e-4 "
+              f"{share:.4f}", flush=True)
+        if not p50 <= 1e-4:
+            raise AssertionError(f"{tag}: median cost gap {p50} to DDP")
+    solve = make_streaming_barrier_solver(ocp, _opts(), backend="cuda",
+                                          batch_width=WIDTH, restarts=2,
+                                          inexact_kappa=10.0)
+    sub = tuple(a[:M_cuda] for a in queue)
+    by_path["ipm_cold_cuda"], res = _streaming_path(
+        "ipm_cold_cuda", gpu, solve, sub,
+        ("riccati_backward", "linesearch_forward"), warm=0)
+    cold = results["ipm_cold"]
+    _hold_paths("ipm_cold_cuda vs ipm_cold", res, type(cold)(**{
+        k: v[:M_cuda] for k, v in cold.__dict__.items()}))
+    return by_path
+
+
+def phase_al(dev, gpu, M=QUEUE, N=BENCH_N, M_ipm=2048):
+    """State bounds at full width: the box y <= 8 binds for every problem."""
+    from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
+                                     make_streaming_solver)
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    ocp = bench_ocp(N, dev, torch.float32, x_ub=[np.inf, AL_Y_MAX, np.inf])
+    queue = _queue(M, N)
+    fused_path = ("fused_backward", "linesearch_forward")
+
+    def gate(res):
+        viol = res.max_violation.double().cpu().numpy()
+        y_max = res.xs[..., 1].amax(-1)
+        bound = float((y_max >= AL_Y_MAX - 1e-2).float().mean())
+        print(f"[al] y max {float(y_max.max()):.4f} against the box's "
+              f"{AL_Y_MAX}, at the bound in {bound:.4f} of the problems; "
+              f"max_violation p50 {np.percentile(viol, 50):.3e} p99 "
+              f"{np.percentile(viol, 99):.3e} max {viol.max():.3e}", flush=True)
+        if not viol.max() < 1e-2:
+            raise AssertionError(f"max_violation {viol.max()} >= 1e-2")
+
+    by_path = {}
+    solve = make_streaming_solver(ocp, _opts(al_iters=AL_ITERS),
+                                  backend="cuda_fused", batch_width=WIDTH,
+                                  restarts=2)
+    by_path["al"], _ = _streaming_path("al", gpu, solve, queue, fused_path,
+                                       check=gate)
+    solve = make_streaming_barrier_solver(ocp, _opts(al_iters=AL_ITERS),
+                                          backend="cuda_fused",
+                                          batch_width=WIDTH, restarts=2)
+    by_path["barrier_al"], _ = _streaming_path(
+        "barrier_al", gpu, solve, tuple(a[:M_ipm] for a in queue), fused_path,
+        check=gate)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -740,6 +1045,11 @@ def main() -> int:
     meas["fused_backward"] = phase_k3(dev)
     by_path["main_fused"] = phase_main_fused(dev, gpu, res_main)
     by_path["fleet"] = phase_fleet(dev, gpu)
+    terms = phase_terms(dev)
+    for name, t in terms.items():
+        meas[name]["terms"] = t
+    by_path.update(phase_ipm(dev, gpu, res_main))
+    by_path.update(phase_al(dev, gpu))
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

@@ -7,11 +7,14 @@ derivatives, and two hand-written CUDA kernels for the H100 (``ops/cuda``:
 the Riccati backward pass and the fused line search / pre-roll).  The
 ``"cuda_fused"`` backend replaces the derivatives and the backward pass with
 a third kernel that computes both; the closed-loop driver (``runtime``) and
-the fleet scenario (``scenarios.fleet``) run on it.
+the fleet scenario (``scenarios.fleet``) run on it.  State bounds run the
+augmented-Lagrangian rounds, and the interior-point solvers
+(``solver.ipm``) the barrier continuation; the kernels evaluate both terms.
 """
 
 __version__ = "0.1.0"
 
 from .ocp import OCP, box_bounds
-from .solver import (ILQROptions, ILQRResult, make_batched_ilqr_solver,
-                     make_ilqr_solver, make_streaming_solver)
+from .solver import (ILQROptions, ILQRResult, make_barrier_solver,
+                     make_batched_ilqr_solver, make_ilqr_solver,
+                     make_streaming_barrier_solver, make_streaming_solver)

@@ -8,7 +8,9 @@
 // derivative in one pass: forward over forward, the order of the JAX fused
 // kernel's nested jacfwd (mpc_verde_tpu/ops/pallas/fused.py, dfun).  Only
 // what the unicycle device model (unicycle.cuh) needs is defined: + - *
-// between duals and with float constants, and sin / cos.
+// between duals and with float constants, / by a float constant, sin, cos
+// and log, and max with a constant that follows the value as jnp.maximum
+// does.
 //
 // Size: Dual<5, true> is 21 floats, and an RK4 step on three of them keeps
 // about 18 live; see fused.cu for what ptxas makes of that.
@@ -84,6 +86,27 @@ __device__ __forceinline__ Dual<NZ, H> operator-(const Dual<NZ, H>& a, float c) 
 }
 
 template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator+(const Dual<NZ, H>& a, float c) {
+  Dual<NZ, H> r = a;
+  r.v = a.v + c;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator+(float c, const Dual<NZ, H>& a) {
+  Dual<NZ, H> r = a;
+  r.v = c + a.v;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator-(float c, const Dual<NZ, H>& a) {
+  Dual<NZ, H> r = (-1.0f) * a;
+  r.v = c - a.v;
+  return r;
+}
+
+template <int NZ, bool H>
 __device__ __forceinline__ Dual<NZ, H> operator*(float c, const Dual<NZ, H>& a) {
   Dual<NZ, H> r;
   r.v = c * a.v;
@@ -99,6 +122,19 @@ __device__ __forceinline__ Dual<NZ, H> operator*(float c, const Dual<NZ, H>& a) 
 template <int NZ, bool H>
 __device__ __forceinline__ Dual<NZ, H> operator*(const Dual<NZ, H>& a, float c) {
   return c * a;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator/(const Dual<NZ, H>& a, float c) {
+  Dual<NZ, H> r;
+  r.v = a.v / c;
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) r.g[i] = a.g[i] / c;
+  if constexpr (H) {
+#pragma unroll
+    for (int e = 0; e < Dual<NZ, H>::kNH; ++e) r.h[e] = a.h[e] / c;
+  }
+  return r;
 }
 
 // (ab)'' = a'' b + a b'' + a' b'^T + b' a'^T
@@ -150,6 +186,31 @@ template <int NZ, bool H>
 __device__ __forceinline__ Dual<NZ, H> mv_cos(const Dual<NZ, H>& a) {
   const float s = sinf(a.v), c = cosf(a.v);
   return chain(a, c, -s, -c);
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_log(const Dual<NZ, H>& a) {
+  const float inv = 1.0f / a.v;
+  return chain(a, logf(a.v), inv, -(inv * inv));
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ float mv_value(const Dual<NZ, H>& a) {
+  return a.v;
+}
+
+// jnp.maximum(c, a) for a constant c, derivatives included: a's where
+// a > c (or a is NaN), none where a < c, and half of a's at a tie, as
+// jnp.maximum and torch.maximum differentiate it.
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_max(const Dual<NZ, H>& a, float c) {
+  if (a.v < c) return Dual<NZ, H>(c);
+  if (a.v == c) {
+    Dual<NZ, H> r = 0.5f * a;
+    r.v = a.v;
+    return r;
+  }
+  return a;
 }
 
 }  // namespace

@@ -9,8 +9,11 @@
 // evaluated once on the dual numbers of dual.cuh over z = [x; u]: the
 // dynamics on second-order duals with DDP and first-order ones without, the
 // cost always on second-order ones, as the JAX kernel's nested-jacfwd pyramid
-// does (fused.py:156-185).  The terminal value starts at
-// gN = (Qf + Qf')(x_N - p_N[:3]), HN = Qf + Qf' (zeros without Qf), the step
+// does (fused.py:156-185).  The stage cost carries the model's optional
+// barrier and AL terms (unicycle.cuh), so the derivative records hold
+// theirs; the barrier at mu = 0 adds exact zeros.  The terminal value starts
+// at gN = (Qf + Qf')(x_N - p_N[:3]), HN = Qf + Qf' (zeros without Qf), plus
+// the AL penalty's gradient and Hessian from duals over x_N; the step
 // bounds are lb - u_k and ub - u_k, and each stage then runs K1's
 // backward_stage (riccati.cuh), as the JAX kernels share
 // riccati._backward_stage.  The derivatives never reach device memory.
@@ -141,7 +144,9 @@ __device__ __forceinline__ void linearize_at(const FusedArgs& g, const UnicycleM
   linearize_stage<DDP>(m, x, u, g.ps + sx * g.npar, d);
 }
 
-// Terminal value of (x - p[:3])' Qf (x - p[:3]) at stage N of problem b.
+// Terminal value at stage N of problem b: the gradient and Hessian of
+// (x - p[:3])' Qf (x - p[:3]) in closed form, plus the AL penalty's from
+// one evaluation on second-order duals over x_N.
 __device__ __forceinline__ void terminal_value(const FusedArgs& g, const UnicycleModel& m, int b,
                                                float (&Vx)[kNX], float (&Vxx)[kNX][kNX]) {
   const int N = g.N;
@@ -158,6 +163,18 @@ __device__ __forceinline__ void terminal_value(const FusedArgs& g, const Unicycl
 #pragma unroll
     for (int j = 0; j < kNX; ++j) acc = acc + Vxx[i][j] * (xN[j] - pN[j]);
     Vx[i] = acc;
+  }
+  if (m.al) {
+    Dual<kNX, true> xz[kNX];
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) xz[i] = Dual<kNX, true>::var(xN[i], i);
+    const Dual<kNX, true> pen = al_penalty(m, xz, pN);
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) {
+      Vx[i] = Vx[i] + pen.g[i];
+#pragma unroll
+      for (int j = 0; j < kNX; ++j) Vxx[i][j] = Vxx[i][j] + pen.hess(i, j);
+    }
   }
 }
 
@@ -319,25 +336,25 @@ cudaError_t launch_staged(const FusedArgs& g, const UnicycleModel& m, const Stag
 // Plain C entry point (loaded with ctypes).  Tensor pointers are device
 // pointers to contiguous float32 tensors: xs (B,N+1,3), us (B,N,2),
 // ps (B,N+1,npar), reg (B,), ddp (B,); outputs kff (B,N,2), K (B,N,2,3),
-// dV1, dV2, gmax (B,).  `model` is the host array of unicycle.cuh's
-// unpack_model.  `variant` is 0 "thread" or 1 "staged"; for "staged",
+// dV1, dV2, gmax (B,).  `model` and `model_ints` are the host arrays of
+// unicycle.cuh's unpack_model.  `variant` is 0 "thread" or 1 "staged"; for "staged",
 // `problems` is the number of problems a block takes, `threads` its size and
 // `strides` a host array of StagedLayout's three per-problem strides, as
 // fused_launch_plan computes them; `clocks` is null, or (DDP only) a device
 // array of 3 int64 per block: the launch is then of the timing instantiation,
 // which writes there the block's cycles in phase 1, phase 2 and the
 // write-out.  Returns the CUDA error of setting the shared-memory size or of
-// the launch, or cudaErrorInvalidValue for npar < 3 or a bad plan.
+// the launch, or cudaErrorInvalidValue for a model that reads columns past
+// npar or a bad plan.
 extern "C" int mv_fused_backward(int use_ddp, int B, int N, int npar, float tol,
                                  const float* xs, const float* us, const float* ps,
                                  const float* reg, const float* ddp, const float* model,
-                                 int substeps, int euler, int has_terminal, float* kff,
-                                 float* K, float* dV1, float* dV2, float* gmax, int variant,
-                                 int problems, int threads, const int* strides, void* clocks,
-                                 void* stream) {
-  if (npar < kNX || variant < 0 || variant > 1) return cudaErrorInvalidValue;
+                                 const int* model_ints, float* kff, float* K, float* dV1,
+                                 float* dV2, float* gmax, int variant, int problems, int threads,
+                                 const int* strides, void* clocks, void* stream) {
+  const UnicycleModel m = unpack_model(model, model_ints);
+  if (!model_fits(m, npar) || variant < 0 || variant > 1) return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const UnicycleModel m = unpack_model(model, substeps, euler, has_terminal);
   const FusedArgs g{xs, us, ps, reg, ddp, kff, K, dV1, dV2, gmax, B, N, npar, tol};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0) {

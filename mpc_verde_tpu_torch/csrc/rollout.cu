@@ -26,7 +26,9 @@
 // one coalesced slab: no second roll.  Lanes past A and problems past B
 // carry no candidate.  The tie rule is the sequential one: the lowest alpha
 // index among the costs below FLT_MAX wins, a NaN cost never wins, and with
-// no such cost the index is 0.
+// no such cost the index is 0.  So a candidate that the barrier prices +inf
+// (the "streaming" rule, on or outside its box) or NaN (the "batched" rule,
+// outside it) loses to every finite one, as in the Pallas kernel.
 //
 // Variants, chosen by the caller from the shape (linesearch_launch_plan in
 // ops/cuda/rollout.py, which also computes the shared-memory layout):
@@ -44,7 +46,10 @@
 // would shorten it is a shorter step, not another launch shape.
 //
 // The model is the unicycle device model of unicycle.cuh, evaluated on
-// float (K3 evaluates the same definition on dual numbers).
+// float (K3 evaluates the same definition on dual numbers), with its
+// optional barrier and AL terms.  They read more columns of ps (npar 4, 10
+// or 11 in place of 3), which the slabs stage with the rest: at N = 40 and
+// npar = 11 a "lanes" block of 8 problems takes 84 KB of shared memory.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -116,7 +121,7 @@ __device__ float roll(const Problem& q, const UnicycleModel& m, int N, int npar,
 #pragma unroll
     for (int i = 0; i < kNX; ++i) xs_w[N * kNX + i] = x[i];
   }
-  if (m.has_terminal) cost = cost + state_quad(m.Qf, x, q.ps + N * npar);
+  if (has_terminal_cost(m)) cost = cost + terminal_cost(m, x, q.ps + N * npar);
   return cost;
 }
 
@@ -268,25 +273,25 @@ cudaError_t launch_lanes(const RolloutArgs& g, const UnicycleModel& m, const Alp
 // Plain C entry point (loaded with ctypes).  Tensor pointers are device
 // pointers to contiguous float32 tensors: x0 (B,3), xs (B,N+1,3), us (B,N,2),
 // ps (B,N+1,npar), kff (B,N,2), K (B,N,2,3); outputs xs_out, us_out,
-// cost_out (B,) and best_out (B,) int32.  `model` is a host array of
-// 3 + 9 + 4 + 9 + 2 + 2 floats: h, h/2, h/6, Q, R, Qf, lb, ub.  `alphas` is a
-// host array of n_alphas floats.  `variant` is 0 "thread", 1 "lanes" or
+// cost_out (B,) and best_out (B,) int32.  `model` and `model_ints` are the
+// host arrays of unicycle.cuh's unpack_model.  `alphas` is a host array of
+// n_alphas floats.  `variant` is 0 "thread", 1 "lanes" or
 // 2 "lanes_reroll"; for the lanes variants `problems` is the number of
 // problems a block takes and `layout` a host array of the 9 ints of
 // LanesLayout from `xs` on, as linesearch_launch_plan computes them.  Returns
 // the CUDA error of setting the shared-memory size or of the launch, or
-// cudaErrorInvalidValue for a bad alpha count, npar < 3 or a bad plan.
+// cudaErrorInvalidValue for a bad alpha count, a model that reads columns
+// past npar, or a bad plan.
 extern "C" int mv_linesearch_forward(int B, int N, int npar, const float* x0, const float* xs,
                                      const float* us, const float* ps, const float* kff,
-                                     const float* K, const float* model, int substeps,
-                                     int euler, int has_terminal, const float* alphas,
-                                     int n_alphas, float* xs_out, float* us_out,
-                                     float* cost_out, int* best_out, int variant,
+                                     const float* K, const float* model, const int* model_ints,
+                                     const float* alphas, int n_alphas, float* xs_out,
+                                     float* us_out, float* cost_out, int* best_out, int variant,
                                      int problems, const int* layout, void* stream) {
-  if (n_alphas < 1 || n_alphas > kMaxAlphas || npar < kNX) return cudaErrorInvalidValue;
+  const UnicycleModel m = unpack_model(model, model_ints);
+  if (n_alphas < 1 || n_alphas > kMaxAlphas || !model_fits(m, npar)) return cudaErrorInvalidValue;
   if (variant < 0 || variant > 2) return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const UnicycleModel m = unpack_model(model, substeps, euler, has_terminal);
   Alphas al;
   al.n = n_alphas;
   for (int i = 0; i < kMaxAlphas; ++i) al.a[i] = i < n_alphas ? alphas[i] : 0.0f;

@@ -7,12 +7,27 @@
 // (x - p[:3])' Q (x - p[:3]) + u' R u, an optional terminal weight Qf, and a
 // constant control box.  The step constants (h, h/2, h/6) arrive already
 // rounded to float from the host, as the PyTorch version computes them.
-// Built without fast math: sinf/cosf keep full precision.
+// Built without fast math: sinf/cosf/logf keep full precision.
 //
-// rhs / step / state_quad / stage_cost are templates on the scalar type T:
-// K2 evaluates them on float, K3 on the forward-mode numbers of dual.cuh,
-// so both kernels evaluate one definition.  T needs +, -, * with T and
-// float, construction from a float, and mv_sin / mv_cos overloads.
+// Two optional cost terms read their columns of p (UnicycleDeviceModel in
+// ops/cuda/rollout.py says which):
+//   * the log barrier of the interior-point solvers (solver/ipm.py) on its
+//     own box blb <= u <= bub, mu = p[barrier_mu], added to the stage cost.
+//     Rule 1 ("streaming", ipm._barrier_term): -mu sum(log(d)) over
+//     d = [u - blb, bub - u], +inf when some d <= 0 and mu > 0, exactly zero
+//     (value and derivatives) when mu = 0.  Rule 2 ("batched",
+//     make_barrier_solver): -mu (sum(log(u - blb)) + sum(log(bub - u))),
+//     NaN outside the box.
+//   * the PHR augmented-Lagrangian penalty of the state box xlb <= x <= xub
+//     (solver/batched._augment_ocp_al), lam = p[al_lam : al_lam + 6],
+//     mu = p[al_mu], on every stage and on the terminal state; an infinite
+//     bound is an inactive row (c = -1).
+//
+// rhs / step / state_quad / stage_cost / barrier_term / al_penalty are
+// templates on the scalar type T: K2 evaluates them on float, K3 on the
+// forward-mode numbers of dual.cuh, so both kernels evaluate one definition.
+// T needs +, -, * with T and float, / by a float, construction from a
+// float, and mv_sin / mv_cos / mv_log / mv_max / mv_value overloads.
 
 #pragma once
 
@@ -23,20 +38,30 @@ namespace {
 
 constexpr int kNX = 3;
 constexpr int kNU = 2;
+constexpr int kNC = 2 * kNX;  // AL rows: lower bounds, then upper bounds
+constexpr int kBarrierStreaming = 1, kBarrierBatched = 2;
+constexpr int kModelFloats = 39, kModelInts = 8;
 
 struct UnicycleModel {
   float h, h_half, h_sixth;  // RK4 substep constants (Euler uses h)
   int substeps;
   int euler;                 // 0: RK4, 1: explicit Euler
   int has_terminal;
+  int barrier;               // 0 none, kBarrierStreaming, kBarrierBatched
+  int barrier_mu;            // column of the barrier's mu in p
+  int al;                    // 1: the AL penalty of the state box
+  int al_lam, al_mu;         // columns of lam (kNC of them) and of its mu
   float Q[kNX * kNX], R[kNU * kNU], Qf[kNX * kNX];
-  float lb[kNU], ub[kNU];
+  float lb[kNU], ub[kNU];    // the clip box
+  float blb[kNU], bub[kNU];  // the barrier's box
+  float xlb[kNX], xub[kNX];  // the AL state box
 };
 
-// `model` is a host array of 3 + 9 + 4 + 9 + 2 + 2 floats: h, h/2, h/6, Q,
-// R, Qf, lb, ub (UnicycleDeviceModel.packed() in ops/cuda/rollout.py).
-inline UnicycleModel unpack_model(const float* model, int substeps, int euler,
-                                  int has_terminal) {
+// `model` is a host array of kModelFloats floats: h, h/2, h/6, Q, R, Qf, lb,
+// ub, blb, bub, xlb, xub (UnicycleDeviceModel.packed() in
+// ops/cuda/rollout.py); `ints` one of kModelInts ints: substeps, euler,
+// has_terminal, barrier, barrier_mu, al, al_lam, al_mu (packed_ints()).
+inline UnicycleModel unpack_model(const float* model, const int* ints) {
   UnicycleModel m;
   m.h = model[0];
   m.h_half = model[1];
@@ -46,14 +71,36 @@ inline UnicycleModel unpack_model(const float* model, int substeps, int euler,
   for (int i = 0; i < kNX * kNX; ++i) m.Qf[i] = model[16 + i];
   for (int i = 0; i < kNU; ++i) m.lb[i] = model[25 + i];
   for (int i = 0; i < kNU; ++i) m.ub[i] = model[27 + i];
-  m.substeps = substeps;
-  m.euler = euler;
-  m.has_terminal = has_terminal;
+  for (int i = 0; i < kNU; ++i) m.blb[i] = model[29 + i];
+  for (int i = 0; i < kNU; ++i) m.bub[i] = model[31 + i];
+  for (int i = 0; i < kNX; ++i) m.xlb[i] = model[33 + i];
+  for (int i = 0; i < kNX; ++i) m.xub[i] = model[36 + i];
+  m.substeps = ints[0];
+  m.euler = ints[1];
+  m.has_terminal = ints[2];
+  m.barrier = ints[3];
+  m.barrier_mu = ints[4];
+  m.al = ints[5];
+  m.al_lam = ints[6];
+  m.al_mu = ints[7];
   return m;
+}
+
+// The columns of p the model reads all lie below npar.
+inline bool model_fits(const UnicycleModel& m, int npar) {
+  if (npar < kNX || m.barrier < 0 || m.barrier > kBarrierBatched) return false;
+  if (m.barrier && (m.barrier_mu < 0 || m.barrier_mu >= npar)) return false;
+  if (m.al && (m.al_lam < 0 || m.al_lam + kNC > npar || m.al_mu < 0 || m.al_mu >= npar))
+    return false;
+  return true;
 }
 
 __device__ __forceinline__ float mv_sin(float a) { return sinf(a); }
 __device__ __forceinline__ float mv_cos(float a) { return cosf(a); }
+__device__ __forceinline__ float mv_log(float a) { return logf(a); }
+__device__ __forceinline__ float mv_value(float a) { return a; }
+// jnp.maximum(c, a): NaN propagates
+__device__ __forceinline__ float mv_max(float a, float c) { return a < c ? c : a; }
 
 template <class T>
 __device__ __forceinline__ void rhs(const T (&x)[kNX], const T (&u)[kNU], T (&f)[kNX]) {
@@ -104,6 +151,50 @@ __device__ __forceinline__ T state_quad(const float* W, const T (&x)[kNX], const
   return c;
 }
 
+// The barrier's stage term (m.barrier != 0)
+template <class T>
+__device__ __forceinline__ T barrier_term(const UnicycleModel& m, const T (&u)[kNU],
+                                          const float* p) {
+  const float mu = p[m.barrier_mu];
+  if (m.barrier == kBarrierBatched)
+    return (-mu) * ((mv_log(u[0] - m.blb[0]) + mv_log(u[1] - m.blb[1])) +
+                    (mv_log(m.bub[0] - u[0]) + mv_log(m.bub[1] - u[1])));
+  if (!(mu > 0.0f)) return T(0.0f);  // the crossover round: exact zeros
+  T pen = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 2 * kNU; ++r) {
+    const int a = r % kNU;
+    const T d = r < kNU ? u[a] - m.blb[a] : m.bub[a] - u[a];
+    // on or outside the box: -inf, so -mu * pen prices the point +inf
+    pen = pen + (mv_value(d) > 0.0f ? mv_log(mv_max(d, 1e-30f)) : T(-INFINITY));
+  }
+  return (-mu) * pen;
+}
+
+// The AL penalty of the state box (m.al != 0)
+template <class T>
+__device__ __forceinline__ T al_penalty(const UnicycleModel& m, const T (&x)[kNX],
+                                        const float* p) {
+  const float* lam = p + m.al_lam;
+  const float mu = p[m.al_mu];
+  T tt = 0.0f;
+  float ll = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kNC; ++r) {
+    const int j = r % kNX;
+    const float bound = r < kNX ? m.xlb[j] : m.xub[j];
+    T c = -1.0f;  // an inactive row
+    if (isfinite(bound)) {
+      const T cr = r < kNX ? bound - x[j] : x[j] - bound;
+      if (isfinite(mv_value(cr))) c = cr;
+    }
+    const T t = mv_max(lam[r] + mu * c, 0.0f);
+    tt = tt + t * t;
+    ll = ll + lam[r] * lam[r];
+  }
+  return (tt - ll) / (2.0f * mu);
+}
+
 template <class T>
 __device__ __forceinline__ T stage_cost(const UnicycleModel& m, const T (&x)[kNX],
                                         const T (&u)[kNU], const float* p) {
@@ -115,7 +206,23 @@ __device__ __forceinline__ T stage_cost(const UnicycleModel& m, const T (&x)[kNX
     for (int i = 0; i < kNU; ++i) uR = uR + u[i] * m.R[i * kNU + j];
     cu = cu + uR * u[j];
   }
-  return state_quad(m.Q, x, p) + cu;
+  T c = state_quad(m.Q, x, p) + cu;
+  if (m.barrier) c = c + barrier_term(m, u, p);
+  if (m.al) c = c + al_penalty(m, x, p);
+  return c;
+}
+
+// Whether the terminal cost is more than zero: a weight or the AL penalty.
+__host__ __device__ __forceinline__ bool has_terminal_cost(const UnicycleModel& m) {
+  return m.has_terminal || m.al;
+}
+
+template <class T>
+__device__ __forceinline__ T terminal_cost(const UnicycleModel& m, const T (&x)[kNX],
+                                           const float* p) {
+  T c = m.has_terminal ? state_quad(m.Qf, x, p) : T(0.0f);
+  if (m.al) c = c + al_penalty(m, x, p);
+  return c;
 }
 
 }  // namespace

@@ -3,9 +3,12 @@
 The JAX package (``mpc_verde_tpu``) is the reference; the port never imports
 it.  Data crosses as numpy arrays: ``from_numpy`` turns what the JAX side
 feeds or returns into tensors, ``result_to_numpy`` turns a port result back.
-``unicycle_ocp`` builds a unicycle OCP with its matching device model, and
+``unicycle_ocp`` builds a unicycle OCP with its matching device model,
 ``bench_ocp`` the diff-drive point-stabilization OCP that the JAX package's
-``bench.py`` headlines (``build_ocp``), constants included.
+``bench.py`` headlines (``build_ocp``), constants included, optionally with a
+state box, and ``derived_ocps`` the OCPs that the interior-point and
+state-bound solvers derive from it, each with its derived device model
+(``derived_params`` lays out their params).
 """
 from __future__ import annotations
 
@@ -108,10 +111,60 @@ def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
                device_model=model)
 
 
-def bench_ocp(N: int, device, dtype=torch.float32) -> OCP:
+def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,
+              x_ub=None) -> OCP:
     """The bench OCP: unicycle, RK4 at T = 0.2, Q = diag(1, 5, 0.1),
     R = diag(0.5, 0.05), target in p[:3], box v in [-1, 1] and
-    omega in [-pi/4, pi/4], no terminal cost (``unicycle_ocp``)."""
-    return unicycle_ocp(N, device, dtype, dt=BENCH_DT,
-                        Q=np.diag([1.0, 5.0, 0.1]), R=np.diag([0.5, 0.05]),
-                        lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4])
+    omega in [-pi/4, pi/4], no terminal cost (``unicycle_ocp``); with
+    ``x_lb`` / ``x_ub`` ((3,), +-inf for no bound) also the state box, which
+    the solvers enforce by their augmented Lagrangian."""
+    ocp = unicycle_ocp(N, device, dtype, dt=BENCH_DT,
+                       Q=np.diag([1.0, 5.0, 0.1]), R=np.diag([0.5, 0.05]),
+                       lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4])
+    if x_lb is None and x_ub is None:
+        return ocp
+    box = lambda b: None if b is None else torch.as_tensor(
+        np.asarray(b, np.float64), dtype=dtype, device=ocp.device)
+    return dataclasses.replace(ocp, x_lb=box(x_lb), x_ub=box(x_ub))
+
+
+def derived_ocps(ocp: OCP) -> dict:
+    """The OCPs that the solvers run in place of ``ocp`` (which needs a
+    constant control box), as they build them, device models included:
+    ``"barrier"`` (``make_streaming_barrier_solver``, params [p, mu]),
+    ``"barrier_batched"`` (``make_barrier_solver``, [p, mu], no clip box),
+    and where ``ocp`` has a state box ``"al"`` (the AL rounds, [p, lam (6),
+    mu_al]) and ``"barrier_al"`` (the streaming composition, [p, mu, lam,
+    mu_al])."""
+    from .solver.batched import _augment_ocp_al
+    from .solver.ipm import _barrier_ocp
+
+    plain = dataclasses.replace(ocp, x_lb=None, x_ub=None)
+    out = {"barrier": _barrier_ocp(plain, "streaming"),
+           "barrier_batched": _barrier_ocp(plain, "batched")}
+    if ocp.has_state_bounds:
+        out["al"] = _augment_ocp_al(ocp)
+        out["barrier_al"] = _augment_ocp_al(_barrier_ocp(ocp, "streaming"))
+    return out
+
+
+def derived_params(name: str, ps, *, mu=1e-2, lam=None, mu_al=10.0):
+    """Params of ``derived_ocps(...)[name]`` from the base params ``ps``
+    (..., N+1, npar): ``ps`` with the barrier's ``mu`` column, and for the AL
+    OCPs ``lam`` (..., N+1, 6) (zeros if None) and ``mu_al``.  ``mu`` and
+    ``mu_al`` are numbers or tensors of ``ps``'s leading shape without its
+    stage axis (one value a problem)."""
+    lead, stages = ps.shape[:-2], ps.shape[-2]
+
+    def col(v):
+        v = torch.as_tensor(v, dtype=ps.dtype, device=ps.device).expand(lead)
+        return v[..., None, None].expand(*lead, stages, 1)
+
+    cols = [ps]
+    if name.startswith("barrier"):
+        cols.append(col(mu))
+    if name.endswith("al"):
+        cols.append(torch.zeros((*ps.shape[:-1], 6), dtype=ps.dtype,
+                                device=ps.device) if lam is None else lam)
+        cols.append(col(mu_al))
+    return torch.cat(cols, dim=-1).contiguous()

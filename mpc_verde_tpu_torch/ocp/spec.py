@@ -54,8 +54,8 @@ class OCP:
       terminal_cost: ``lf(x, p) -> scalar`` at stage N (may be ``None``).
       N, nx, nu, npar: static sizes.
       control_bounds: ``(x, p, k) -> (lb, ub)``, each (nu,).
-      x_lb, x_ub: state box.  The augmented-Lagrangian path is not ported
-        yet, so the solvers raise ``NotImplementedError`` when either is set.
+      x_lb, x_ub: optional (nx,) state box, enforced by the solvers'
+        augmented Lagrangian (``options.al_iters`` rounds).
       device, dtype: where the callables' constants live.
       device_model: kernel-side description of the same problem
         (``ops.cuda.rollout.UnicycleDeviceModel``) or ``None``.
@@ -78,3 +78,15 @@ class OCP:
     @property
     def has_state_bounds(self) -> bool:
         return self.x_lb is not None or self.x_ub is not None
+
+    def state_box(self):
+        """State bounds as finite-or-inf (nx,) tensors on the OCP's device."""
+        z = dict(dtype=self.dtype, device=self.device)
+
+        def side(b, fill):
+            if b is None:
+                return torch.full((self.nx,), fill, **z)
+            return torch.as_tensor(b if torch.is_tensor(b) else np.asarray(b),
+                                   **z)
+
+        return side(self.x_lb, -torch.inf), side(self.x_ub, torch.inf)

@@ -143,8 +143,9 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
             "cannot differentiate Python callables)")
     B, N, nu = us.shape
     nx, npar = xs.shape[-1], ps.shape[-1]
-    if (nx, nu) != (3, 2) or npar < 3:
-        raise ValueError("the unicycle device model needs nx=3, nu=2, npar>=3")
+    if (nx, nu) != (3, 2) or npar < model.min_npar:
+        raise ValueError(f"the unicycle device model needs nx=3, nu=2, "
+                         f"npar>={model.min_npar}")
     if ddp_scale is None:
         ddp_scale = torch.ones((B,), dtype=torch.float32, device=xs.device)
     named = [("xs", xs, (B, N + 1, nx)), ("us", us, (B, N, nu)),
@@ -164,13 +165,13 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
         clocks = torch.zeros((-(-B // plan.problems), 3), dtype=torch.int64,
                              device=xs.device)
         out += (clocks,)
-    c_model, substeps, euler, has_terminal = model.kernel_args()
+    c_model, c_ints = model.kernel_args()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mv_fused_backward(
             int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), reg.data_ptr(), ddp_scale.data_ptr(),
-            c_model, substeps, euler, has_terminal, kff.data_ptr(),
+            c_model, c_ints, kff.data_ptr(),
             K.data_ptr(), dV1.data_ptr(), dV2.data_ptr(), gmax.data_ptr(),
             FUSED_VARIANTS.index(plan.variant), plan.problems, plan.threads,
             plan.c_layout(), None if clocks is None else clocks.data_ptr(),

@@ -122,6 +122,9 @@ def linesearch_launch_plan(N: int, A: int, npar: int,
     return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
+BARRIER_RULES = ("streaming", "batched")   # ids 1, 2 of the C entries (0: none)
+
+
 @dataclasses.dataclass(frozen=True)
 class UnicycleDeviceModel:
     """Kernel-side description of a unicycle OCP (nx = 3, nu = 2, npar >= 3).
@@ -131,6 +134,27 @@ class UnicycleDeviceModel:
     ``(x - p[:3])' Q (x - p[:3]) + u' R u``; terminal cost
     ``(x - p[:3])' Qf (x - p[:3])`` when ``Qf`` is given.  Control box
     ``lb <= u <= ub``, constant over the horizon.
+
+    Two optional cost terms, each reading its columns of ``p``:
+
+    * ``barrier``: the log barrier of the interior-point solvers
+      (``solver/ipm.py``) on its own constant box ``barrier_lb`` /
+      ``barrier_ub`` with ``mu = p[barrier_mu]``, added to the stage cost.
+      Rule ``"streaming"`` (``ipm._barrier_term``): ``-mu * sum(log(d))``
+      over ``d = [u - lb, ub - u]``, +inf when some ``d <= 0`` and mu > 0,
+      exactly 0 (value and derivatives) when mu = 0.  Rule ``"batched"``
+      (``make_barrier_solver``): ``- mu * (sum(log(u - lb)) + sum(log(ub -
+      u)))``, NaN outside the box.
+    * ``al``: the PHR augmented-Lagrangian penalty of the state box
+      ``x_lb <= x <= x_ub`` (``solver/batched._augment_ocp_al``) with the
+      multipliers ``lam = p[al_lam : al_lam + 6]`` and ``mu = p[al_lam +
+      6]``, added to every stage cost and to the terminal cost.  Infinite
+      bounds are inactive rows.
+
+    The solvers derive these models (``with_barrier``, ``with_al``) with
+    the OCPs they derive; ``None`` where no model can be derived.  The
+    boxes keep the OCP's numbers; the kernels take them rounded to float32,
+    as a float32 OCP holds them.
     """
 
     dt: float
@@ -141,18 +165,72 @@ class UnicycleDeviceModel:
     Qf: Optional[np.ndarray] = None
     substeps: int = 1
     integrator: str = "rk4"
+    barrier: Optional[str] = None
+    barrier_lb: Optional[np.ndarray] = None
+    barrier_ub: Optional[np.ndarray] = None
+    barrier_mu: int = 0
+    al: bool = False
+    x_lb: Optional[np.ndarray] = None
+    x_ub: Optional[np.ndarray] = None
+    al_lam: int = 0
 
     def __post_init__(self):
         if self.integrator not in ("rk4", "euler"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
         if self.integrator == "euler" and self.substeps != 1:
             raise ValueError("the euler device model takes one step")
+        if self.barrier not in (None, *BARRIER_RULES):
+            raise ValueError(f"unknown barrier rule {self.barrier!r}")
         shapes = {"Q": (3, 3), "R": (2, 2), "lb": (2,), "ub": (2,)}
         if self.Qf is not None:
             shapes["Qf"] = (3, 3)
+        if self.barrier is not None:
+            shapes.update(barrier_lb=(2,), barrier_ub=(2,))
+        if self.al:
+            shapes.update(x_lb=(3,), x_ub=(3,))
         for name, shape in shapes.items():
             if np.shape(getattr(self, name)) != shape:
                 raise ValueError(f"{name} must have shape {shape}")
+
+    @property
+    def al_mu(self) -> int:
+        return self.al_lam + 6
+
+    @property
+    def min_npar(self) -> int:
+        """The fewest parameter columns the model reads."""
+        cols = [3]
+        if self.barrier is not None:
+            cols.append(self.barrier_mu + 1)
+        if self.al:
+            cols.append(self.al_mu + 1)
+        return max(cols)
+
+    def with_barrier(self, lb, ub, mu_col: int, rule: str,
+                     clip: bool = True) -> Optional["UnicycleDeviceModel"]:
+        """This model plus the log barrier on the box [lb, ub] with mu in
+        column ``mu_col``; ``clip=False`` also drops the clip box, as
+        ``make_barrier_solver`` drops the OCP's control bounds.  None if
+        the model already has a barrier or an AL term (the kernels take one
+        of each, the barrier's columns before the AL's)."""
+        if self.barrier is not None or self.al:
+            return None
+        unbounded = np.full(2, np.inf, np.float32)
+        return dataclasses.replace(
+            self, barrier=rule, barrier_lb=np.asarray(lb, np.float64),
+            barrier_ub=np.asarray(ub, np.float64), barrier_mu=int(mu_col),
+            **({} if clip else dict(lb=-unbounded, ub=unbounded)))
+
+    def with_al(self, x_lb, x_ub, lam_col: int) -> Optional["UnicycleDeviceModel"]:
+        """This model plus the AL penalty of the state box [x_lb, x_ub]
+        (infinite entries inactive), lam in columns ``lam_col`` to
+        ``lam_col + 5`` and its mu in ``lam_col + 6``.  None if the model
+        already has an AL term."""
+        if self.al:
+            return None
+        return dataclasses.replace(
+            self, al=True, x_lb=np.asarray(x_lb, np.float64),
+            x_ub=np.asarray(x_ub, np.float64), al_lam=int(lam_col))
 
     def _consts(self):
         """(h, h/2, h/6), computed in double as the torch integrator does."""
@@ -160,21 +238,30 @@ class UnicycleDeviceModel:
         return h, 0.5 * h, h / 6.0
 
     def packed(self) -> np.ndarray:
-        """float32 [h, h/2, h/6, Q, R, Qf, lb, ub], the kernel's layout."""
+        """float32 [h, h/2, h/6, Q, R, Qf, lb, ub, barrier_lb, barrier_ub,
+        x_lb, x_ub], the kernels' layout (zeros for an absent term)."""
+        z = lambda a, n: np.zeros(n) if a is None else np.ravel(a)
         Qf = np.zeros((3, 3)) if self.Qf is None else self.Qf
         return np.concatenate([
             np.asarray(self._consts()), np.ravel(self.Q), np.ravel(self.R),
             np.ravel(Qf), np.ravel(self.lb), np.ravel(self.ub),
+            z(self.barrier_lb, 2), z(self.barrier_ub, 2), z(self.x_lb, 3),
+            z(self.x_ub, 3),
         ]).astype(np.float32)
+
+    def packed_ints(self) -> np.ndarray:
+        """int32 [substeps, euler, has_terminal, barrier rule (0 none,
+        1 streaming, 2 batched), barrier_mu, al, al_lam, al_mu]."""
+        rule = 0 if self.barrier is None else 1 + BARRIER_RULES.index(self.barrier)
+        return np.array([self.substeps, int(self.integrator == "euler"),
+                         int(self.Qf is not None), rule, self.barrier_mu,
+                         int(self.al), self.al_lam, self.al_mu], np.int32)
 
     def kernel_args(self):
         """The model as the kernels' C entry points take it: (packed floats,
-        substeps, euler flag, terminal flag).  The pointer keeps the packed
-        array alive."""
-        packed = self.packed()
-        return (packed.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                self.substeps, int(self.integrator == "euler"),
-                int(self.Qf is not None))
+        packed ints).  The pointers keep the packed arrays alive."""
+        return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
 
     # --- the kernel's formulas in PyTorch (batched over leading dims) -------
     def _t(self, a, like):
@@ -202,22 +289,73 @@ class UnicycleDeviceModel:
     def _quad(self, W, v):
         return ((v[..., :, None] * self._t(W, v)).sum(-2) * v).sum(-1)
 
+    def barrier_term(self, u, p):
+        """The barrier's stage term (zeros without a barrier)."""
+        if self.barrier is None:
+            return torch.zeros(u.shape[:-1], dtype=u.dtype, device=u.device)
+        mu = p[..., self.barrier_mu]
+        lb, ub = self._t(self.barrier_lb, u), self._t(self.barrier_ub, u)
+        if self.barrier == "batched":
+            return -mu * (torch.log(u - lb).sum(-1) + torch.log(ub - u).sum(-1))
+        d = torch.cat([u - lb, ub - u], dim=-1)
+        logs = torch.where(d > 0, torch.log(torch.maximum(
+            d, torch.full_like(d, 1e-30))), -torch.inf)
+        return torch.where(mu > 0, -mu * logs.sum(-1), 0.0)
+
+    def _al_rows(self, x, p):
+        """(y = lam + mu c, lam, mu, dc): the PHR rows, c(x) with inactive
+        rows at -1, and dc/dx of each row's state (0 where inactive)."""
+        lo, hi = self._t(self.x_lb, x), self._t(self.x_ub, x)
+        c = torch.cat([torch.where(torch.isfinite(lo), lo - x, -torch.inf),
+                       torch.where(torch.isfinite(hi), x - hi, -torch.inf)], -1)
+        active = torch.isfinite(c)
+        c = torch.where(active, c, -1.0)
+        lam = p[..., self.al_lam:self.al_lam + 6]
+        mu = p[..., self.al_mu]
+        dc = torch.cat([-torch.ones_like(x), torch.ones_like(x)], -1) * active
+        return lam + mu[..., None] * c, lam, mu, dc
+
+    def al_penalty(self, x, p):
+        """The AL penalty of the state box (zeros without one)."""
+        if not self.al:
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        y, lam, mu, _ = self._al_rows(x, p)
+        t = torch.maximum(torch.zeros_like(y), y)
+        return ((t * t).sum(-1) - (lam * lam).sum(-1)) / (2.0 * mu)
+
     def stage_cost(self, x, u, p):
-        return self._quad(self.Q, x - p[..., :3]) + self._quad(self.R, u)
+        c = self._quad(self.Q, x - p[..., :3]) + self._quad(self.R, u)
+        if self.barrier is not None:
+            c = c + self.barrier_term(u, p)
+        if self.al:
+            c = c + self.al_penalty(x, p)
+        return c
 
     def terminal_cost(self, x, p):
         if self.Qf is None:
-            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
-        return self._quad(self.Qf, x - p[..., :3])
+            c = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        else:
+            c = self._quad(self.Qf, x - p[..., :3])
+        return c + self.al_penalty(x, p) if self.al else c
 
     def terminal_grad_hess(self, x, p):
-        """Gradient and Hessian of ``terminal_cost`` in x, in the fused
-        kernel's closed form: ``(Qf + Qf')(x - p[:3])`` and ``Qf + Qf'``
-        (zeros without ``Qf``)."""
+        """Gradient and Hessian of ``terminal_cost`` in x: the weight's
+        closed form ``(Qf + Qf')(x - p[:3])`` and ``Qf + Qf'`` (zeros without
+        ``Qf``), plus the AL penalty's, ``t s dc`` and ``mu s^2`` on the
+        diagonal, s the slope of max(0, y) (1, 0 or at y = 0 one half, as
+        jnp.maximum and torch.maximum differentiate it)."""
         Qf = np.zeros((3, 3)) if self.Qf is None else np.asarray(self.Qf)
         W = self._t(Qf + Qf.T, x)
         H = W.expand(x.shape[:-1] + (3, 3))
-        return (H * (x - p[..., :3])[..., None, :]).sum(-1), H
+        g = (H * (x - p[..., :3])[..., None, :]).sum(-1)
+        if self.al:
+            y, _, mu, dc = self._al_rows(x, p)
+            s = (y > 0).to(x.dtype) + 0.5 * (y == 0).to(x.dtype)
+            t = torch.maximum(torch.zeros_like(y), y)
+            g = g + (t * s * dc)[..., :3] + (t * s * dc)[..., 3:]
+            h = mu[..., None] * (s * dc) ** 2
+            H = H + torch.diag_embed(h[..., :3] + h[..., 3:])
+        return g, H
 
 
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
@@ -298,8 +436,9 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     B, N, nu = us.shape
     nx, npar = x0.shape[-1], ps.shape[-1]
     A = len(alphas)
-    if (nx, nu) != (3, 2) or npar < 3:
-        raise ValueError("the unicycle device model needs nx=3, nu=2, npar>=3")
+    if (nx, nu) != (3, 2) or npar < model.min_npar:
+        raise ValueError(f"the unicycle device model needs nx=3, nu=2, "
+                         f"npar>={model.min_npar}")
     plan = linesearch_launch_plan(N, A, npar, variant)
     named = [("x0", x0, (B, nx)), ("xs", xs, (B, N + 1, nx)),
              ("us", us, (B, N, nu)), ("ps", ps, (B, N + 1, npar)),
@@ -312,14 +451,14 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     us_o = torch.empty((B, N, nu), **opts)
     cost = torch.empty((B,), **opts)
     best = torch.empty((B,), dtype=torch.int32, device=x0.device)
-    c_model, substeps, euler, has_terminal = model.kernel_args()
+    c_model, c_ints = model.kernel_args()
     c_alphas = (ctypes.c_float * A)(*map(float, alphas))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mv_linesearch_forward(
             B, N, npar, x0.data_ptr(), xs.data_ptr(), us.data_ptr(),
-            ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(), c_model,
-            substeps, euler, has_terminal, c_alphas, A, xs_o.data_ptr(),
+            ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(), c_model, c_ints,
+            c_alphas, A, xs_o.data_ptr(),
             us_o.data_ptr(), cost.data_ptr(), best.data_ptr(),
             LINESEARCH_VARIANTS.index(plan.variant), plan.problems,
             plan.c_layout(), stream)

@@ -25,8 +25,12 @@ Backends:
 On CPU tensors every kernel wrapper runs its twin, so ``"cuda"`` and
 ``"cuda_fused"`` on the CPU give the ``"torch"`` results.
 
-Not ported yet: state bounds (the augmented-Lagrangian outer loop) and
-``backend="scan"``.
+State box bounds (``ocp.x_lb`` / ``x_ub``) run the augmented-Lagrangian
+outer loop (``options.al_iters`` PHR rounds): the multipliers ride the
+per-stage param tensor of a derived OCP (``_augment_ocp_al``), so every
+inner round is the unmodified iteration, kernels included.
+
+Not ported yet: ``backend="scan"``.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from ..ocp.spec import OCP
 from ..ops.cuda.fused import fused_backward
@@ -63,9 +68,6 @@ class _Parts:
 def _check_ocp(ocp: OCP, backend: str):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
-    if ocp.has_state_bounds:
-        raise NotImplementedError(
-            "state bounds need the augmented-Lagrangian loop, not ported yet")
     if ocp.nu > 4:
         raise NotImplementedError(
             "the stage box QP enumerates 3^nu patterns; nu <= 4")
@@ -132,6 +134,85 @@ def _search_direction(parts: _Parts, xs, us, ps, reg, ddp_scale):
     return parts.backward(d, gN, HN, dlb, dub, reg, ddp_scale)
 
 
+def _al_cvals(ocp: OCP):
+    """Signed state-box constraint values ``(..., nx) -> (..., 2 nx)``,
+    lower rows then upper rows; c(x) > 0 means violated, -inf marks an
+    infinite bound."""
+    x_low, x_high = ocp.state_box()
+
+    def cvals(x):
+        lo = torch.where(torch.isfinite(x_low), x_low - x, -torch.inf)
+        hi = torch.where(torch.isfinite(x_high), x - x_high, -torch.inf)
+        return torch.cat([lo, hi], dim=-1)
+
+    return cvals
+
+
+def _active_c(c):
+    """Constraint values with the inactive (non-finite) rows at -1."""
+    return torch.where(torch.isfinite(c), c, -1.0)
+
+
+def _lam_update(lam, mu, c):
+    """The PHR multiplier update ``max(0, lam + mu c)`` on the constraint
+    values ``c`` (inactive rows at -1); ``mu`` broadcasts against ``lam``."""
+    return (lam + mu * _active_c(c)).clamp(min=0.0)
+
+
+def _violation(c):
+    """max over every row and stage of max(0, c), non-finite rows 0: (B,)."""
+    c = torch.where(torch.isfinite(c), c, 0.0).clamp(min=0.0)
+    return c.reshape(c.shape[0], -1).amax(-1)
+
+
+def _augment_ocp_al(ocp: OCP) -> OCP:
+    """Rewrite a state-bounded OCP so the AL multipliers ride the params.
+
+    The derived problem has ``npar + 2 nx + 1`` per-stage parameters laid
+    out ``[p, lam (2 nx), mu]`` and no state bounds; its stage and terminal
+    costs add the PHR augmented-Lagrangian penalty.  Its ``device_model``
+    is the base one plus the same penalty (``with_al``), or None where the
+    base has none or cannot take it.
+    """
+    npar = max(ocp.npar, 1)
+    nlam = 2 * ocp.nx
+    cvals = _al_cvals(ocp)
+    l, lf, F, cb = (ocp.stage_cost, ocp.terminal_cost, ocp.dynamics,
+                    ocp.control_bounds)
+
+    def penalty(x, lam, mu):
+        t = torch.maximum(torch.zeros_like(lam), lam + mu * _active_c(cvals(x)))
+        return ((t * t).sum(-1) - (lam * lam).sum(-1)) / (2.0 * mu)
+
+    def sc(x, u, p):
+        return l(x, u, p[:npar]) + penalty(x, p[npar:npar + nlam], p[-1])
+
+    def tc(x, p):
+        pen = penalty(x, p[npar:npar + nlam], p[-1])
+        return pen if lf is None else lf(x, p[:npar]) + pen
+
+    model = ocp.device_model
+    if model is not None:
+        lo, hi = (b.detach().cpu().numpy() for b in ocp.state_box())
+        model = model.with_al(lo, hi, lam_col=npar)
+    return dataclasses.replace(
+        ocp, dynamics=lambda x, u, p: F(x, u, p[:npar]), stage_cost=sc,
+        terminal_cost=tc,
+        control_bounds=None if cb is None else (
+            lambda x, p, k: cb(x, p[:npar], k)),
+        npar=npar + nlam + 1, x_lb=None, x_ub=None, device_model=model)
+
+
+def _trajectory_cost(ocp: OCP, xs, us, ps):
+    """Cost of (B) trajectories under ``ocp``'s callables, elementwise over
+    the stages: sum of the stage costs plus the terminal cost."""
+    N = ocp.N
+    c = vmap(vmap(ocp.stage_cost))(xs[:, :N], us, ps[:, :N]).sum(-1)
+    if ocp.terminal_cost is not None:
+        c = c + vmap(ocp.terminal_cost)(xs[:, N], ps[:, N])
+    return c
+
+
 def _as_tensor(a, z):
     """Tensor on the OCP's device and dtype; numpy input is copied (it may
     be a read-only broadcast view)."""
@@ -157,29 +238,33 @@ def _bcast(mask, like):
     return mask.reshape(mask.shape + (1,) * (like.ndim - mask.ndim))
 
 
-def _accept_and_update(opt: ILQROptions, carry, gmax, xs_b, us_b, new_cost):
+def _accept_and_update(opt: ILQROptions, carry, gmax, xs_b, us_b, new_cost,
+                       tol_scale=None):
     """Per-iteration acceptance / convergence / freeze logic.
 
     ``carry`` is the 10-tuple (xs, us, cost, reg, it, done, gnorm, stall,
     fail, ddp_on), every entry with a leading batch axis.  Frozen (done)
-    problems keep their state.
+    problems keep their state.  ``tol_scale`` (optional (B,) >= 1) scales
+    ``tol_grad`` and ``tol_cost`` per problem, so that a continuation solver
+    solves its early rounds inexactly; None is the strict test.
     """
     xs, us, cost, reg, it, done, gnorm, stall, fail, ddp_on = carry
+    tsc = 1.0 if tol_scale is None else tol_scale
     improved = new_cost < cost - 1e-12
     small_step = ((cost - new_cost).abs()
-                  < opt.tol_cost * (1.0 + cost.abs()))
+                  < tsc * opt.tol_cost * (1.0 + cost.abs()))
     stall_n = torch.where(improved, 0, stall + 1)
     stalled = stall_n >= opt.stall_iters
     # DDP -> Gauss-Newton fallback on a stalled line search
     ddp_off_now = (stalled & ddp_on
-                   & (gmax > opt.tol_grad * opt.ddp_fallback_factor))
+                   & (gmax > tsc * opt.tol_grad * opt.ddp_fallback_factor))
     ddp_on_n = ddp_on & ~ddp_off_now
     stall_n = torch.where(ddp_off_now, 0, stall_n)
     # reg exhaustion is a failure only while the gradient is still large
     new_fail = (((~improved) & (reg >= opt.reg_max) & ~ddp_off_now
-                 & (gmax > opt.tol_grad * opt.ddp_fallback_factor))
+                 & (gmax > tsc * opt.tol_grad * opt.ddp_fallback_factor))
                 | ~torch.isfinite(cost))
-    new_done = ((gmax < opt.tol_grad)
+    new_done = ((gmax < tsc * opt.tol_grad)
                 | (improved & small_step)
                 | (stalled & ~ddp_off_now)
                 | new_fail)
@@ -213,22 +298,33 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);
     they are cast to the OCP's device and dtype.  The loop runs on the host
     and reads one flag from the device per iteration.
+
+    With state bounds, ``options.al_iters`` (>= 1) PHR rounds run in turn,
+    each a full solve at fixed multipliers from the last one's controls:
+    lam starts at 0 and mu at ``al_mu0``, and after a round
+    ``lam <- max(0, lam + mu c(x))``, ``mu <- mu * al_mu_factor``.  The
+    result holds the true (penalty-free) cost, the state-box violation in
+    ``max_violation``, the iterations of all rounds, and the last round's
+    ``converged`` and ``grad_norm``.
     """
-    N, nu = ocp.N, ocp.nu
+    N, nx, nu = ocp.N, ocp.nx, ocp.nu
     opt = options
+    has_xb = ocp.has_state_bounds
+    if has_xb and opt.al_iters < 1:
+        raise ValueError(
+            "batched solver with state bounds needs options.al_iters >= 1")
+    ocp_in = ocp
+    if has_xb:
+        cvals = _al_cvals(ocp)
+        ocp = _augment_ocp_al(ocp)
     parts = _make_parts(ocp, opt, backend)
     z = dict(dtype=ocp.dtype, device=ocp.device)
+    dev = ocp.device
 
-    def solve(x0s, params=None, us_init=None):
-        x0s = _as_tensor(x0s, z).contiguous()
+    def _inner(x0s, ps, us_init):
+        """One full batched DDP solve at fixed params."""
         B = x0s.shape[0]
-        ps = _broadcast_params(ocp, params, B)
-        if us_init is None:
-            us_init = torch.zeros((B, N, nu), **z)
-        us_init = _as_tensor(us_init, z).contiguous()
-
         xs0, us0, cost0 = parts.rollout(x0s, us_init, ps)
-        dev = ocp.device
         carry = (xs0, us0, cost0, torch.full((B,), opt.reg_init, **z),
                  torch.zeros((B,), dtype=torch.int32, device=dev),
                  torch.zeros((B,), dtype=torch.bool, device=dev),
@@ -253,9 +349,35 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             carry = _accept_and_update(opt, carry, gmax, xs_b, us_b, new_cost)
 
         xs, us, cost, _, it, done, gnorm, _, fail, _ = carry
+        return xs, us, cost, it, gnorm, done & ~fail & torch.isfinite(cost)
+
+    def solve(x0s, params=None, us_init=None):
+        x0s = _as_tensor(x0s, z).contiguous()
+        B = x0s.shape[0]
+        ps = _broadcast_params(ocp_in, params, B)
+        if us_init is None:
+            us_init = torch.zeros((B, N, nu), **z)
+        us = _as_tensor(us_init, z).contiguous()
+
+        if not has_xb:
+            xs, us, cost, it, gnorm, conv = _inner(x0s, ps, us)
+            return ILQRResult(xs=xs, us=us, cost=cost, grad_norm=gnorm,
+                              iterations=it, converged=conv,
+                              max_violation=torch.zeros((B,), **z))
+
+        lam = torch.zeros((B, N + 1, 2 * nx), **z)
+        mu = torch.full((B,), opt.al_mu0, **z)
+        its = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for _ in range(opt.al_iters):
+            ps_aug = torch.cat([ps, lam, mu[:, None, None].expand(B, N + 1, 1)],
+                               dim=-1)
+            xs, us, _, it, gnorm, conv = _inner(x0s, ps_aug, us)
+            its = its + it
+            lam = _lam_update(lam, mu[:, None, None], cvals(xs))
+            mu = mu * opt.al_mu_factor
         return ILQRResult(
-            xs=xs, us=us, cost=cost, grad_norm=gnorm, iterations=it,
-            converged=done & ~fail & torch.isfinite(cost),
-            max_violation=torch.zeros((B,), **z))
+            xs=xs, us=us, cost=_trajectory_cost(ocp_in, xs, us, ps),
+            grad_norm=gnorm, iterations=its, converged=conv,
+            max_violation=_violation(cvals(xs)))
 
     return solve

@@ -19,6 +19,11 @@ As in the JAX solver:
   regularization, stall counters and DDP mode, warm-started at its best
   iterate) up to ``restarts`` times before it is reported unconverged.
 
+* continuation rounds (``rounds=``, and the augmented-Lagrangian loop that
+  state bounds install) run in place: a slot that finishes a round below the
+  last gets its params advanced and restarts fresh, its cost re-based to the
+  new params without a re-roll.
+
 The JAX device-side ``lax.while_loop`` becomes a host loop over one refill
 and ``refill_every`` compute iterations; it reads one flag from the device
 per loop turn.
@@ -28,8 +33,10 @@ from __future__ import annotations
 import torch
 
 from ..ocp.spec import OCP
-from .batched import (_accept_and_update, _as_tensor, _broadcast_params,
-                      _make_parts, _search_direction)
+from .batched import (_accept_and_update, _al_cvals, _as_tensor,
+                      _augment_ocp_al, _broadcast_params, _lam_update,
+                      _make_parts, _search_direction, _trajectory_cost,
+                      _violation)
 from .ilqr import ILQROptions, ILQRResult
 
 
@@ -49,20 +56,65 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     Results come back in queue order.
 
     ``batch_width`` is the number of resident slots.  ``restarts``: how many
-    times a failed or budget-capped problem restarts in place.
-    ``refill_every``: run the refill once per this many solver iterations; a
-    finished slot then idles at most ``refill_every - 1`` iterations.
-    ``rounds`` and ``tol_scale_fn`` (continuation solvers) are not ported yet.
+    times a failed or budget-capped problem restarts in place; with rounds,
+    each round has its own budget.  ``refill_every``: run the refill once
+    per this many solver iterations; a finished slot then idles at most
+    ``refill_every - 1`` iterations.
+
+    ``rounds``: optional ``(n_rounds, advance)`` continuation.  A slot whose
+    inner solve ends (converged, failed or capped) at round r < n_rounds - 1
+    gets its params rewritten by ``advance(ps, xs, r) -> ps_new`` ((B, N+1,
+    npar), (B, N+1, nx), (B,) int32) and restarts fresh in place.  Its
+    (xs, us) stay and its cost is re-based to the new params by evaluating
+    the cost elementwise, without a re-roll: so ``advance`` may rewrite only
+    params that the cost reads.  One that rewrites params the dynamics read
+    leaves xs that are no longer the rollout of us, and the re-based cost is
+    then wrong (the JAX solver has the same limit).  State bounds install
+    the augmented-Lagrangian rounds themselves (``options.al_iters``) and
+    cannot be combined with ``rounds``.
+
+    ``tol_scale_fn``: optional ``ps (B, N+1, npar) -> (B,)`` multiplier
+    (>= 1) of ``tol_grad`` and ``tol_cost``, evaluated every iteration on
+    the slots' current params, so that early rounds are solved inexactly;
+    the last round's params must map to 1.
+
+    With state bounds the result holds the true (penalty-free) cost and the
+    state-box violation in ``max_violation``.
     """
-    if rounds is not None or tol_scale_fn is not None:
-        raise NotImplementedError(
-            "rounds= / tol_scale_fn= continuation is not ported yet")
     N, nx, nu = ocp.N, ocp.nx, ocp.nu
     opt = options
     B = int(batch_width)
     R = int(refill_every)
     if R < 1:
         raise ValueError("refill_every must be >= 1")
+    has_xb = ocp.has_state_bounds
+    if has_xb and opt.al_iters < 1:
+        raise ValueError(
+            "streaming solver with state bounds needs options.al_iters >= 1")
+    if has_xb and rounds is not None:
+        raise ValueError("rounds= cannot be combined with state bounds "
+                         "(state bounds install the AL continuation)")
+    ocp_in = ocp
+    npar = max(ocp_in.npar, 1)
+    if has_xb:
+        # the PHR multipliers [lam (2 nx), mu] ride the slot params, and the
+        # AL outer loop is the round machinery
+        cvals = _al_cvals(ocp)
+        ocp = _augment_ocp_al(ocp)
+        nlam = 2 * nx
+
+        def _al_advance(ps, xs, alr):
+            lam, mu = ps[..., npar:npar + nlam], ps[..., npar + nlam:]
+            return torch.cat([ps[..., :npar], _lam_update(lam, mu, cvals(xs)),
+                              mu * opt.al_mu_factor], dim=-1)
+
+        n_rounds, advance = opt.al_iters, _al_advance
+    elif rounds is not None:
+        n_rounds, advance = int(rounds[0]), rounds[1]
+        if n_rounds < 1:
+            raise ValueError("rounds[0] must be >= 1")
+    else:
+        n_rounds, advance = 1, None
     parts = _make_parts(ocp, opt, backend)
     z = dict(dtype=ocp.dtype, device=ocp.device)
     dev = ocp.device
@@ -73,13 +125,17 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         rs = restarts if restarts_n is None else int(restarts_n)
         x0q = _as_tensor(x0q, z).contiguous()
         M = x0q.shape[0]
-        psq = _broadcast_params(ocp, params, M)
+        psq_in = _broadcast_params(ocp_in, params, M)
+        psq = psq_in
+        if has_xb:   # every problem starts with lam = 0, mu = al_mu0
+            psq = torch.cat([psq, torch.zeros((M, N + 1, nlam), **z),
+                             torch.full((M, N + 1, 1), opt.al_mu0, **z)], -1)
         if us_init is None:
             us_init = torch.zeros((M, N, nu), **z)
         us0q = _as_tensor(us_init, z).contiguous()
 
-        npar = psq.shape[-1]
-        sx, su, sp = (N + 1) * nx, N * nu, (N + 1) * npar
+        npar_q = psq.shape[-1]
+        sx, su, sp = (N + 1) * nx, N * nu, (N + 1) * npar_q
         # pre-roll the whole queue, then pack [x0 | ps | us0 | xs0 | cost0]
         xs0q, usc0q, c0q = parts.rollout(x0q, us0q, psq)
         qpk = torch.cat([x0q, psq.reshape(M, sp), usc0q.reshape(M, su),
@@ -105,6 +161,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         capped = torch.zeros((B,), dtype=torch.bool, device=dev)
         rst = torch.zeros((B,), **i32)
         iacc = torch.zeros((B,), **i32)
+        alr = torch.zeros((B,), **i32)     # the slot's round
         nq = torch.tensor(n0, **i32)
         out = torch.zeros((M + 1, sx + su + 4), **z)
 
@@ -125,7 +182,8 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             qrow = qpk[cand.clamp(0, M - 1)]
             h2, h3 = has[:, None], has[:, None, None]
             x0s = torch.where(h2, qrow[:, :nx], x0s)
-            ps = torch.where(h3, qrow[:, nx:nx + sp].reshape(B, N + 1, npar), ps)
+            ps = torch.where(h3, qrow[:, nx:nx + sp].reshape(B, N + 1, npar_q),
+                             ps)
             us = torch.where(
                 h3, qrow[:, nx + sp:nx + sp + su].reshape(B, N, nu), us)
             xs = torch.where(
@@ -143,6 +201,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             prob = torch.where(has, cand, torch.where(fin, M, prob))
             rst = torch.where(has, 0, rst)
             iacc = torch.where(has, 0, iacc)
+            alr = torch.where(has, 0, alr)
             nq = nq + has.sum(dtype=torch.int32)
             x0s, ps = x0s.contiguous(), ps.contiguous()
 
@@ -155,7 +214,9 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                 (xs, us, cost, reg, it, done, gnorm, stall, fail,
                  ddp_on) = _accept_and_update(
                     opt, (xs, us, cost, reg, it, done, gnorm, stall, fail,
-                          ddp_on), gmax, xs_b, us_b, new_cost)
+                          ddp_on), gmax, xs_b, us_b, new_cost,
+                    tol_scale=None if tol_scale_fn is None
+                    else tol_scale_fn(ps))
 
                 # per-slot iteration budget, then in-place restarts of
                 # budget-capped or failed problems, warm-started at the
@@ -176,13 +237,40 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                 done = done | newly_capped
                 capped = capped | newly_capped
 
+                if n_rounds > 1:
+                    # the continuation in place: a slot whose round ended
+                    # below the last advances its params and starts the next
+                    # round fresh, with its cost re-based (no re-roll) and a
+                    # full restart budget
+                    adv = done & (prob < M) & (alr < n_rounds - 1)
+                    a3 = adv[:, None, None]
+                    ps = torch.where(a3, advance(ps, xs, alr), ps).contiguous()
+                    alr = alr + adv.to(torch.int32)
+                    iacc = torch.where(adv, iacc + it.clamp(min=0), iacc)
+                    cost = torch.where(adv, _trajectory_cost(ocp, xs, us, ps),
+                                       cost)
+                    reg = torch.where(adv, opt.reg_init, reg)
+                    it = torch.where(adv, 0, it)
+                    stall = torch.where(adv, 0, stall)
+                    gnorm = torch.where(adv, torch.inf, gnorm)
+                    fail = fail & ~adv
+                    ddp_on = torch.where(adv, bool(opt.use_ddp), ddp_on)
+                    capped = capped & ~adv
+                    rst = torch.where(adv, 0, rst)
+                    done = done & ~adv
+
         o = out[:M]
+        xs_q = o[:, :sx].reshape(M, N + 1, nx)
+        us_q = o[:, sx:sx + su].reshape(M, N, nu)
+        cost_q = o[:, sx + su]
+        viol_q = torch.zeros((M,), **z)
+        if has_xb:
+            # the loop's cost is the augmented one at the last multipliers
+            cost_q = _trajectory_cost(ocp_in, xs_q, us_q, psq_in)
+            viol_q = _violation(cvals(xs_q))
         return ILQRResult(
-            xs=o[:, :sx].reshape(M, N + 1, nx),
-            us=o[:, sx:sx + su].reshape(M, N, nu),
-            cost=o[:, sx + su], grad_norm=o[:, sx + su + 1],
+            xs=xs_q, us=us_q, cost=cost_q, grad_norm=o[:, sx + su + 1],
             iterations=o[:, sx + su + 2].to(torch.int32),
-            converged=o[:, sx + su + 3] > 0.5,
-            max_violation=torch.zeros((M,), **z))
+            converged=o[:, sx + su + 3] > 0.5, max_violation=viol_q)
 
     return solve

@@ -1,6 +1,6 @@
-"""Where the device time of the port's two driven paths goes.
+"""Where the device time of the port's driven paths goes.
 
-    python -m mpc_verde_tpu_torch.utils.profile_paths [--backend NAME] [--fleet] [--out FILE]
+    python -m mpc_verde_tpu_torch.utils.profile_paths [--backend NAME] [--fleet] [--ipm] [--out FILE]
 
 Runs the streaming solve of the bench queue (16384 problems, N = 40, 1024
 slots, ``backend="cuda_fused"`` or with ``--backend cuda`` the eager
@@ -9,8 +9,10 @@ unprofiled for its wall time, then once under ``torch.profiler``, and prints
 the number of device kernels, their summed time, the device's busy share of
 the unprofiled wall, and the time and launches of the hand-written kernels
 by name.  With ``--fleet`` it does the same for the closed-loop fleet at
-``scenarios.fleet.SPEC``.  Needs a CUDA device; one JSON line per path, also
-appended to ``--out`` when given.
+``scenarios.fleet.SPEC``, with ``--ipm`` for the streaming interior-point
+solver (cold: mu 1e-2, 1e-4 and the crossover, ``inexact_kappa`` 10) on the
+same queue.  Needs a CUDA device; one JSON line per path, also appended to
+``--out`` when given.
 """
 from __future__ import annotations
 
@@ -72,12 +74,14 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="cuda_fused",
                     choices=("cuda", "cuda_fused"))
     ap.add_argument("--fleet", action="store_true")
+    ap.add_argument("--ipm", action="store_true")
     ap.add_argument("--out")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_paths: no CUDA device", file=sys.stderr)
         return 1
-    from .. import ILQROptions, make_streaming_solver
+    from .. import (ILQROptions, make_streaming_barrier_solver,
+                    make_streaming_solver)
     from ..interop import bench_ocp
     from ..ops.cuda import fused_backward, linesearch_forward, riccati_backward
     from ..scenarios import build_fleet, run_fleet
@@ -91,13 +95,18 @@ def main(argv=None) -> int:
     psq = np.broadcast_to(np.array([10.0, 10.0, 0.0], np.float32),
                           (M, N + 1, 3)).copy()
     us0q = np.zeros((M, N, 2), np.float32)
-    solve = make_streaming_solver(
-        bench_ocp(N, dev, torch.float32),
-        ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6, n_alphas=8,
-                    alpha_decay=0.4),
-        backend=ns.backend, batch_width=W, restarts=2)
+    opts = ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                       n_alphas=8, alpha_decay=0.4)
+    ocp = bench_ocp(N, dev, torch.float32)
+    solve = make_streaming_solver(ocp, opts, backend=ns.backend,
+                                  batch_width=W, restarts=2)
     paths = [(f"streaming 16384 x N=40 {ns.backend}", lambda: solve(
         x0q, psq, us0q, max_iters=60, restarts_n=2))]
+    if ns.ipm:
+        ipm = make_streaming_barrier_solver(ocp, opts, backend=ns.backend,
+                                            batch_width=W, restarts=2)
+        paths.append((f"streaming IPM cold 16384 x N=40 {ns.backend}",
+                      lambda: ipm(x0q, psq, us0q, max_iters=60, restarts_n=2)))
     if ns.fleet:
         built = build_fleet(device=dev, backend=ns.backend)
         paths.append((f"fleet SPEC {ns.backend}", lambda: run_fleet(built)))

@@ -1,6 +1,6 @@
 """Time the three kernels under other launch plans.
 
-    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE] [--only K1,K2,K3]
+    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE] [--only K1,K2,K3] [--terms]
 
 The launch plans (``riccati_launch_plan``, ``linesearch_launch_plan``,
 ``fused_launch_plan``) hold a few constants: the problems of a Riccati
@@ -16,6 +16,10 @@ on a measurement.  K1 is timed on the bench OCP's derivatives for (nx, nu) =
 (3, 2), at N = 10 / 40 / 160 / 600, with the cycles of its ``"warps"``
 variant's parts, and on random problems at the bench shape for the other
 instantiated sizes.
+With ``--terms`` it times instead K2's and K3's variants on the OCPs that
+the interior-point and state-bound solvers derive (the barrier, npar 4; AL,
+npar 10; both, npar 11), whose params the line search stages with its
+slabs, at the bench shape and the pre-roll's.
 Times are CUDA events over back-to-back launches (``device_time_ms``).
 Needs a CUDA device; prints one JSON line per case, also appended to
 ``--out`` when given.
@@ -83,11 +87,49 @@ def _k1_random_args(dev, B, N, nx, nu, seed=8):
             t(np.ones((B,))))
 
 
+def _time_terms(dev, emit, device_time_ms):
+    """K2's and K3's variants on the derived OCPs at npar 4, 10 and 11."""
+    from ..interop import bench_ocp, derived_ocps, derived_params
+    from ..ops.cuda import fused, rollout
+
+    box = dict(x_lb=[-1.5, -1.0, -np.inf], x_ub=[np.inf, 1.0, np.inf])
+    for B, N, A in ((1024, 40, 8), (16384, 40, 1), (1024, 10, 12)):
+        ocps = derived_ocps(bench_ocp(N, dev, torch.float32, **box))
+        x0, xs, us, ps, kff, K, alphas = _k2_args(dev, B, N, A)
+        lam = torch.full((B, N + 1, 6), 0.5, device=dev)
+        for name in ("barrier", "al", "barrier_al"):
+            ocp = ocps[name]
+            p = derived_params(name, ps, lam=lam)
+            npar = p.shape[-1]
+            for variant in rollout.LINESEARCH_VARIANTS:
+                try:
+                    plan = rollout.linesearch_launch_plan(N, A, npar, variant)
+                except ValueError:
+                    continue
+                ms = device_time_ms(lambda: rollout.linesearch_forward(
+                    x0, xs, us, p, kff, K, alphas, ocp=ocp, variant=variant), 20)
+                emit(kernel="K2", case=name, npar=npar, B=B, N=N, A=A,
+                     variant=variant, ms=ms, plan=plan[:4],
+                     planned=rollout.linesearch_launch_plan(N, A, npar)[0])
+            if A == 1:
+                continue
+            xs3, us3, _, reg, ddp = _k3_args(dev, bench_ocp(N, dev), B, N)
+            args = (xs3, us3, p, reg, ddp)
+            for variant in fused.FUSED_VARIANTS:
+                ms = device_time_ms(lambda: fused.fused_backward(
+                    *args, ocp=ocp, variant=variant), 20)
+                emit(kernel="K3", case=name, npar=npar, B=B, N=N,
+                     variant=variant, ms=ms,
+                     planned=fused.fused_launch_plan(N, True, None, B)[0])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out")
     ap.add_argument("--only", default="K1,K2,K3",
                     help="kernels to time, e.g. K1 or K2,K3")
+    ap.add_argument("--terms", action="store_true",
+                    help="K2 and K3 on the barrier and AL OCPs only")
     ns = ap.parse_args(argv)
     only = set(ns.only.split(","))
     if not torch.cuda.is_available():
@@ -133,6 +175,10 @@ def main(argv=None) -> int:
         plan = riccati.riccati_launch_plan(N, nx, nu, True, B, kw.get("variant"))
         return {"kernel": "K1", "B": B, "N": N, "nx": nx, "nu": nu, "ms": ms,
                 "plan": plan[:4]}
+
+    if ns.terms:
+        _time_terms(dev, emit, device_time_ms)
+        return 0
 
     if "K1" in only:
         # problems a block and padded strides, with the cycles of the parts

@@ -18,11 +18,13 @@ import pytest
 import torch
 
 import mpc_verde_tpu_torch as mt
-from chip_smoke import _k2_inputs, _random_riccati, _rel_err
+from chip_smoke import (_k2_inputs, _k2_kernel_rule, _random_riccati,
+                        _rel_err, _term_cases, _term_inputs)
 from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
 from mpc_verde_tpu_torch.models import unicycle
 from mpc_verde_tpu_torch.ops import euler_step, rk4_step
-from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
+from mpc_verde_tpu_torch.ops.cuda.fused import (FUSED_VARIANTS,
+                                                fused_backward,
                                                 fused_backward_torch,
                                                 fused_launch_plan,
                                                 fused_phase_clocks)
@@ -31,7 +33,8 @@ from mpc_verde_tpu_torch.ops.cuda.riccati import (CLOCK_PARTS, SUPPORTED,
                                                   riccati_backward_torch,
                                                   riccati_launch_plan,
                                                   riccati_stage_clocks)
-from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward,
+from mpc_verde_tpu_torch.ops.cuda.rollout import (LINESEARCH_VARIANTS,
+                                                  linesearch_forward,
                                                   linesearch_forward_torch,
                                                   linesearch_launch_plan)
 from mpc_verde_tpu_torch.scenarios import build_fleet
@@ -412,3 +415,115 @@ def test_batched_cuda_fused_matches_cuda(dev):
     assert float(both.float().mean()) >= 0.9
     rel = (rf.cost - rc.cost).abs() / rc.cost.abs()
     assert float(rel[both].max()) <= 1e-3
+
+
+# chip_smoke.py phase 10's cases: the streaming barrier (npar 4) at three mu,
+# the batched barrier without a clip box, AL (npar 10), barrier + AL (11)
+TERM_CASES = ["barrier mu=0.01", "barrier mu=0.0001", "barrier mu=0",
+              "barrier_batched mu=0.01", "al", "barrier_al mu=0.01"]
+
+
+def _term_case(dev, label, B=300, N=12):
+    inputs = _term_inputs(dev, B, N)
+    for name, ocp, ps in _term_cases(dev, N, inputs):
+        if name == label:
+            return inputs, ocp, ps
+    raise KeyError(label)
+
+
+@pytest.mark.parametrize("variant", LINESEARCH_VARIANTS)
+@pytest.mark.parametrize("case", TERM_CASES)
+def test_linesearch_kernel_on_barrier_and_al_terms(dev, case, variant):
+    """Each variant against the twin's candidates under the kernel's winner
+    rule (a +inf or NaN candidate loses to every finite one), at the
+    tolerances of chip_smoke.py phase 4; B = 300 leaves a block ragged."""
+    inputs, ocp, ps = _term_case(dev, case)
+    data = (*inputs[:3], ps, *inputs[4:6])
+    alphas = tuple(0.4 ** i for i in range(8))
+    best, xs_r, us_r, c_r, nonfinite = _k2_kernel_rule(data, alphas, ocp)
+    by_variant = dict(linesearch_forward.launches_by_variant)
+    xs_k, us_k, c_k, b_k = linesearch_forward(*data, alphas, ocp=ocp,
+                                              variant=variant)
+    torch.cuda.synchronize()
+    assert _launched(linesearch_forward, by_variant) == {variant: 1}
+    if case.startswith("barrier") and case != "barrier mu=0":
+        assert nonfinite > 0   # some candidate leaves or touches the box
+    same = b_k == best
+    assert float(same.float().mean()) >= 0.99
+    fin = same & torch.isfinite(c_r)
+    assert float(((c_k - c_r).abs() / c_r.abs())[fin].max()) <= 1e-5
+    assert not torch.isfinite(c_k[same & ~torch.isfinite(c_r)]).any()
+    assert _rel_err(xs_k[same], xs_r[same]) <= 1e-4
+    assert _rel_err(us_k[same], us_r[same]) <= 1e-4
+
+
+@pytest.mark.parametrize("variant", FUSED_VARIANTS)
+@pytest.mark.parametrize("case,use_ddp", [
+    (case, use_ddp) for case in TERM_CASES for use_ddp in (True, False)
+    if not (case.startswith("barrier_batched") and use_ddp)])
+def test_fused_kernel_on_barrier_and_al_terms(dev, case, use_ddp, variant):
+    """Each variant against the twin at the Riccati tolerances, finite
+    everywhere; on the AL cases the terminal penalty is active.  The batched
+    barrier (no clip box) runs Gauss-Newton only, as chip_smoke.py phase 10
+    says why: with DDP its Quu is indefinite on these trajectories."""
+    inputs, ocp, ps = _term_case(dev, case)
+    xs, us = inputs[1], inputs[2]
+    B = xs.shape[0]
+    args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
+            torch.ones((B,), device=dev))
+    if case.startswith(("al", "barrier_al")):
+        gN, _ = ocp.device_model.terminal_grad_hess(xs[:, -1], ps[:, -1])
+        assert bool((gN != 0).any())
+    by_variant = dict(fused_backward.launches_by_variant)
+    out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp, variant=variant)
+    torch.cuda.synchronize()
+    assert _launched(fused_backward, by_variant) == {variant: 1}
+    ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+    for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
+        assert bool(torch.isfinite(o).all()), name
+        assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+def test_wrappers_refuse_params_the_model_reads_past(dev):
+    """A derived model reads columns past the base params: the wrappers
+    refuse params without them rather than read out of bounds."""
+    inputs, ocp, ps = _term_case(dev, "barrier_al mu=0.01", B=8)
+    short = ps[..., :10].contiguous()
+    with pytest.raises(ValueError, match="npar>=11"):
+        linesearch_forward(*inputs[:3], short, *inputs[4:6], (1.0, 0.5),
+                           ocp=ocp)
+    with pytest.raises(ValueError, match="npar>=11"):
+        fused_backward(inputs[1], inputs[2], short,
+                       torch.ones((8,), device=dev), ocp=ocp)
+
+
+@pytest.mark.parametrize("path", ["ipm", "al"])
+def test_ipm_and_al_cuda_fused_match_torch_float64(dev, path):
+    """The streaming barrier solver and the streaming AL solver on
+    "cuda_fused" in float32 against "torch" in float64 on the card."""
+    N, M, W = 20, 48, 16
+    x0 = np.random.default_rng(4).uniform(-2.0, 2.0, (M, 3))
+    target = np.array([10.0, 10.0, 0.0])
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4, al_iters=5)
+    box = dict(x_ub=[np.inf, 3.0, np.inf]) if path == "al" else {}
+    make = (mt.make_streaming_barrier_solver if path == "ipm"
+            else mt.make_streaming_solver)
+    solve = lambda backend, dtype: make(
+        bench_ocp(N, dev, dtype, **box), opts, backend=backend,
+        batch_width=W, restarts=2)(x0, target)
+    fused_backward_torch.cuda_calls = 0
+    linesearch_forward_torch.cuda_calls = 0
+    k2, k3 = linesearch_forward.launches, fused_backward.launches
+    rk = solve("cuda_fused", torch.float32)
+    assert fused_backward.launches > k3 and linesearch_forward.launches > k2
+    assert fused_backward_torch.cuda_calls == 0
+    assert linesearch_forward_torch.cuda_calls == 0
+    rt = solve("torch", torch.float64)
+    assert float((rk.converged == rt.converged).float().mean()) >= 0.95
+    both = rk.converged & rt.converged
+    assert float(both.float().mean()) >= 0.9
+    rel = (rk.cost.double() - rt.cost).abs() / rt.cost.abs()
+    assert float(rel[both].max()) <= 1e-3
+    if path == "al":   # five rounds: with three the float64 solve leaves 0.13
+        assert float(rk.max_violation.max()) < 1e-2

@@ -125,4 +125,4 @@ def test_device_model_formulas_match_ocp_callables(integrator):
     np.testing.assert_array_equal(lb.numpy(), model.lb)
     np.testing.assert_array_equal(ub.numpy(), model.ub)
     packed = model.packed()
-    assert packed.dtype == np.float32 and packed.shape == (29,)
+    assert packed.dtype == np.float32 and packed.shape == (39,)

@@ -90,13 +90,14 @@ def test_cuda_backend_on_cpu_runs_the_twins():
 
 
 def test_unported_options_raise():
+    """What the solvers refuse: rounds= together with state bounds, state
+    bounds without AL rounds, and a float64 OCP on the kernels."""
     ocp = bench_ocp(N, "cpu", torch.float64)
-    with pytest.raises(NotImplementedError):
-        mt.make_streaming_solver(ocp, rounds=(2, lambda ps, xs, r: ps))
-    with pytest.raises(NotImplementedError):
-        mt.make_streaming_solver(ocp, tol_scale_fn=lambda ps: ps[:, 0, 0])
     bounded = mt.OCP(**{**ocp.__dict__, "x_lb": torch.zeros(3)})
-    with pytest.raises(NotImplementedError):
-        mt.make_batched_ilqr_solver(bounded)
+    with pytest.raises(ValueError):
+        mt.make_streaming_solver(bounded, mt.ILQROptions(al_iters=1),
+                                 rounds=(2, lambda ps, xs, r: ps))
+    with pytest.raises(ValueError):
+        mt.make_batched_ilqr_solver(bounded)   # al_iters = 0
     with pytest.raises(TypeError):
         mt.make_batched_ilqr_solver(ocp, backend="cuda")   # float64 OCP
