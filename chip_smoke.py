@@ -43,7 +43,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               penalty with nonzero multipliers and states on both sides of
               the box (npar 10), and barrier + AL (npar 11); random gains,
               so that candidates clip onto the box (+inf) or leave it (NaN);
-              every variant; times and bounds at each npar.
+              and the terms of the circular-track and diff-drive families:
+              the control reference (the circular track's OCP, npar 5), the
+              circular track's derived AL OCP (npar 12), the RK4 quadrature
+              cost at M = 1 and M = 4 under RK4 and under Euler dynamics;
+              every variant; each case's times and bounds.
  11. ipm:     make_streaming_barrier_solver on phase 5's queue on
               "cuda_fused": cold (mu 1e-2, 1e-4, then the mu = 0 crossover,
               inexact_kappa 10) and hybrid (warmstart="ddp", mu 1e-4); final
@@ -56,7 +60,19 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               passes y = 5), phase 5's queue on "cuda_fused", and the
               streaming barrier + AL composition on its first 2048 problems;
               the JAX tests' gate, max_violation < 1e-2.
-Phases 5, 8, 9, 11 and 12 each set every kernel launch count to 0 just
+ 13. circular: the circular track (scenarios/circular.py SPEC: N=10, 500
+              MPC steps at B=1, two AL rounds a step over the state box, the
+              control reference in the params, a 10-substep RK4 plant)
+              through make_ilqr_solver on its default backend, "cuda_fused";
+              gates converged_frac >= 0.99 and rmse_xy < 0.2; its first 60
+              steps held against the float64 "torch" run on the CPU and
+              against the same 60 steps on "cuda" (K1 at B=1).
+ 14. diffdrive: the diff-drive family (scenarios/diffdrive.py: B=1, 100
+              steps) on "cuda_fused" in three variants, RK4 + discrete cost,
+              Euler + discrete, RK4 quadrature cost (M=4) with an RK4 plant;
+              gates steps_to_target in 1..84 and ss_error < 0.1; then
+              compare_diffdrive_methods (Euler against RK4, 90 steps).
+Phases 5, 8, 9 and 11 to 14 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape.  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
@@ -66,6 +82,7 @@ Imports torch, numpy and mpc_verde_tpu_torch only.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -101,7 +118,13 @@ HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # four logs, 80 and on second-order duals over z = [x; u] (21 numbers) 400;
 # the AL penalty's six rows, 60 and 900.
 K2_STEP_FLOPS, K1_STAGE_FLOPS, K3_STAGE_FLOPS = 250, 1000, 4000
-TERM_FLOPS = {"barrier": (80, 400), "al": (60, 900)}   # (K2 step, K3 stage)
+# The circular track's control reference adds 2 subtractions (on duals,
+# value only).  The quadrature cost adds per RK4 substep 4 unicycle
+# right-hand sides (a sinf and a cosf each) and 4 running costs, 300 on
+# floats and on second-order duals 7,500 (a dual product is about 120
+# operations, a sum 21).
+TERM_FLOPS = {"barrier": (80, 400), "al": (60, 900), "u_ref": (2, 2),
+              "quadrature_substep": (300, 7500)}   # (K2 step, K3 stage)
 # the variants the launch plans choose at the bench and the fleet shapes:
 # K1 at 1024, K2's line search and (without candidate slots) its pre-roll,
 # K3 at 1024
@@ -783,9 +806,14 @@ def _term_inputs(dev, B, N, seed=12):
 
 
 def _term_cases(dev, N, inputs):
-    """(label, derived OCP, its params) of phase 10."""
+    """(label, OCP, its params) of phase 10: the OCPs the interior-point and
+    state-bound solvers derive from the bench OCP, then the circular track's
+    OCP (the control reference in p[3:5], random around the circle's
+    (1, 1)) and its derived AL OCP, and the diff-drive quadrature OCPs."""
     from mpc_verde_tpu_torch.interop import (bench_ocp, derived_ocps,
                                              derived_params)
+    from mpc_verde_tpu_torch.scenarios.circular import circular_ocp
+    from mpc_verde_tpu_torch.scenarios.diffdrive import diffdrive_ocp
 
     ocps = derived_ocps(bench_ocp(N, dev, torch.float32, x_lb=TERM_BOX[0],
                                   x_ub=TERM_BOX[1]))
@@ -796,8 +824,20 @@ def _term_cases(dev, N, inputs):
               ("al", "al", dict(lam=lam, mu_al=mu_al)),
               ("barrier_al mu=0.01", "barrier_al",
                dict(mu=1e-2, lam=lam, mu_al=mu_al))]
-    return [(label, ocps[name], derived_params(name, ps, **kw))
-            for label, name, kw in cases]
+    out = [(label, ocps[name], derived_params(name, ps, **kw))
+           for label, name, kw in cases]
+    u_ref = torch.as_tensor(
+        np.random.default_rng(13).uniform(0.5, 1.5, (*ps.shape[:2], 2)),
+        dtype=torch.float32, device=dev)
+    ps_c = torch.cat([ps, u_ref], dim=-1).contiguous()
+    circ = circular_ocp(N, dev)
+    out += [("u_ref", dataclasses.replace(circ, x_lb=None, x_ub=None), ps_c),
+            ("circular_al", derived_ocps(circ)["al"],
+             derived_params("al", ps_c, lam=lam, mu_al=mu_al))]
+    out += [(f"quadrature M={M} {integ}",
+             diffdrive_ocp(N, dev, integrator=integ, cost="quadrature", M=M), ps)
+            for integ in ("rk4", "euler") for M in (1, 4)]
+    return out
 
 
 def _k2_kernel_rule(data, alphas, ocp):
@@ -833,7 +873,7 @@ def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
     f = dict(dtype=torch.float32, device=dev)
     reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
     err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
-    by_npar = {"linesearch_forward": {}, "fused_backward": {}}
+    by_case = {"linesearch_forward": {}, "fused_backward": {}}
     for label, ocp, ps in _term_cases(dev, N, inputs):
         npar = ps.shape[-1]
         data = (x0, xs, us, ps, kff, K)
@@ -891,40 +931,43 @@ def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
                     out, ref, "terms", f"K3 {label} npar={npar} DDP={use_ddp} "
                     f"variant {sorted(used)}"))
 
-        if str(npar) not in by_npar["linesearch_forward"]:   # time each npar once
-            model = ocp.device_model
-            terms = [t for t, on in (("barrier", model.barrier is not None),
-                                     ("al", model.al)) if on]
-            k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
-            k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
-            out2, out3 = k2(), k3()
-            n2 = sum(a.numel() for a in data) + sum(o.numel() for o in out2)
-            n3 = xs.numel() + us.numel() + ps.numel() + 2 * B + sum(
-                o.numel() for o in out3)
-            flops2 = K2_STEP_FLOPS + sum(TERM_FLOPS[t][0] for t in terms)
-            flops3 = K3_STAGE_FLOPS + sum(TERM_FLOPS[t][1] for t in terms)
-            row2 = {"case": label, "ms": _time_ms(k2, reps=50),
-                    "plain_ms": _time_ms(
-                        lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
-                        reps=3, warmup=1, queued=False),
-                    "variant": linesearch_launch_plan(N, A, npar).variant,
-                    **_bound(4 * n2, B * A * N * flops2)}
-            row3 = {"case": label, "ms": _time_ms(k3, reps=50),
-                    "plain_ms": _time_ms(
-                        lambda: fused_backward_torch(xs, us, ps, reg, ones,
-                                                     ocp=ocp),
-                        reps=3, warmup=1, queued=False),
-                    "variant": fused_launch_plan(N, True, None, B).variant,
-                    **_bound(4 * n3, B * N * flops3)}
-            print(f"[terms] npar={npar} ({label}): K2 {row2['ms']:.4f} ms "
-                  f"(twin {row2['plain_ms']:.2f}, bound {row2['bound_ms']:.4f} "
-                  f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
-                  f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
-                  f"{row3['bound_by']}); plan K2 "
-                  f"{linesearch_launch_plan(N, A, npar)[:4]}", flush=True)
-            by_npar["linesearch_forward"][str(npar)] = row2
-            by_npar["fused_backward"][str(npar)] = row3
-    return {k: {"max_abs_err": err[k], "by_npar": by_npar[k]} for k in err}
+        # every case's times and bounds
+        model = ocp.device_model
+        terms = [t for t, on in (("barrier", model.barrier is not None),
+                                 ("al", model.al),
+                                 ("u_ref", model.u_ref is not None)) if on]
+        terms += (["quadrature_substep"] * model.quad_substeps
+                  if model.cost == "quadrature" else [])
+        k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
+        k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
+        out2, out3 = k2(), k3()
+        n2 = sum(a.numel() for a in data) + sum(o.numel() for o in out2)
+        n3 = xs.numel() + us.numel() + ps.numel() + 2 * B + sum(
+            o.numel() for o in out3)
+        flops2 = K2_STEP_FLOPS + sum(TERM_FLOPS[t][0] for t in terms)
+        flops3 = K3_STAGE_FLOPS + sum(TERM_FLOPS[t][1] for t in terms)
+        row2 = {"case": label, "ms": _time_ms(k2, reps=50),
+                "plain_ms": _time_ms(
+                    lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
+                    reps=3, warmup=1, queued=False),
+                "variant": linesearch_launch_plan(N, A, npar).variant,
+                **_bound(4 * n2, B * A * N * flops2)}
+        row3 = {"case": label, "ms": _time_ms(k3, reps=50),
+                "plain_ms": _time_ms(
+                    lambda: fused_backward_torch(xs, us, ps, reg, ones,
+                                                 ocp=ocp),
+                    reps=3, warmup=1, queued=False),
+                "variant": fused_launch_plan(N, True, None, B).variant,
+                **_bound(4 * n3, B * N * flops3)}
+        print(f"[terms] {label} npar={npar}: K2 {row2['ms']:.4f} ms "
+              f"(twin {row2['plain_ms']:.2f}, bound {row2['bound_ms']:.4f} "
+              f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
+              f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
+              f"{row3['bound_by']}); plan K2 "
+              f"{linesearch_launch_plan(N, A, npar)[:4]}", flush=True)
+        by_case["linesearch_forward"][label] = row2
+        by_case["fused_backward"][label] = row3
+    return {k: {"max_abs_err": err[k], "by_case": by_case[k]} for k in err}
 
 
 def _cost_gap(res, ref):
@@ -1008,6 +1051,114 @@ def phase_al(dev, gpu, M=QUEUE, N=BENCH_N, M_ipm=2048):
     return by_path
 
 
+# Phase 13's hold of the card's float32 closed loop against the float64 CPU
+# run and against the "cuda" path, max |x difference| over the first
+# CIRC_HOLD_STEPS steps.  A float32 solve stops where its line search stalls,
+# not at tol_grad = 1e-7 (JAX float32 takes 4x float64's iterations on this
+# track), so each applied control carries that solve's stopping error; the
+# tracking loop is stable and does not let it grow.
+CIRC_HOLD_STEPS, CIRC_STATE_TOL = 60, 1e-2
+# JAX float32's share of converged steps on the diff-drive variants (CPU,
+# committed tree): its float64 gate converged_all does not hold in float32.
+DIFFDRIVE_JAX_F32_CONVERGED = {"rk4": 0.94, "euler": 0.85, "quadrature_m4": 0.87}
+DIFFDRIVE_VARIANTS = {"rk4": {}, "euler": dict(integrator="euler"),
+                      "quadrature_m4": dict(cost="quadrature", M=4, plant="rk4")}
+FUSED_PATH = ("fused_backward", "linesearch_forward")
+
+
+def _closed_loop(tag, gpu, run, n_steps, path_kernels):
+    """Drive one closed loop with the path's counts; returns (metrics,
+    wall s, launches)."""
+    m, wall, launches, twin_calls = _drive(run)
+    res = m["result"]
+    if tuple(res.xs.shape) != (n_steps + 1, 3) or not bool(
+            torch.isfinite(res.xs).all()):
+        raise AssertionError(f"{tag}: xs shape {tuple(res.xs.shape)} or "
+                             "non-finite values")
+    iters = res.iterations.double()
+    print(f"[{tag}] {n_steps} steps: {1e3 * wall / n_steps:.2f} ms a step "
+          f"({wall:.3f} s), mean iterations {float(iters.mean()):.3f} (max "
+          f"{int(iters.max())}), "
+          + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in m.items() if k != "result")
+          + f", launches {launches}, twin calls on CUDA {twin_calls} | GPU "
+          f"{gpu}", flush=True)
+    _check_path(launches, twin_calls, path_kernels)
+    return m, wall, launches
+
+
+def phase_circular(dev, gpu, n_steps=None, hold=CIRC_HOLD_STEPS):
+    """The circular track at B = 1 on make_ilqr_solver's default backend."""
+    from mpc_verde_tpu_torch.scenarios import (build_circular_tracking,
+                                               run_circular_tracking)
+
+    run_circular_tracking(build_circular_tracking(n_steps=10, device=dev))
+    built = build_circular_tracking(n_steps=n_steps, device=dev)
+    Nsim = built["spec"]["n_steps"]
+    m, _, launches = _closed_loop(
+        "circular", gpu, lambda: run_circular_tracking(built), Nsim,
+        FUSED_PATH)
+    print("[circular] JAX reference (CPU, SPEC): rmse_xy 0.08211, max_err_xy "
+          "0.11612, converged_frac 1.0, mean iterations 5.17 (float64) / "
+          "20.88 (float32)", flush=True)
+    if not (m["converged_frac"] >= 0.99 and m["rmse_xy"] < 0.2):
+        raise AssertionError(f"circular gates failed: converged_frac "
+                             f"{m['converged_frac']}, rmse_xy {m['rmse_xy']}")
+    xs = m["result"].xs[:hold + 1].double().cpu()
+    us = m["result"].us[:hold].double().cpu()
+
+    built_c = build_circular_tracking(n_steps=hold, device=dev, backend="cuda")
+    m_c, _, launches_c = _closed_loop(
+        "circular_cuda", gpu, lambda: run_circular_tracking(built_c), hold,
+        ("riccati_backward", "linesearch_forward"))
+    t0 = time.perf_counter()
+    m_64 = run_circular_tracking(build_circular_tracking(
+        n_steps=hold, device="cpu", dtype=torch.float64))
+    print(f"[circular] float64 \"torch\" on the CPU, {hold} steps: "
+          f"{time.perf_counter() - t0:.1f} s, mean iterations "
+          f"{float(m_64['result'].iterations.double().mean()):.3f}", flush=True)
+    for label, other in (("CPU float64", m_64), ('"cuda"', m_c)):
+        dx = float((xs - other["result"].xs.double().cpu()).abs().max())
+        du = float((us - other["result"].us.double().cpu()).abs().max())
+        print(f"[circular] first {hold} steps, \"cuda_fused\" against "
+              f"{label}: max |x diff| {dx:.3e} (tolerance {CIRC_STATE_TOL}), "
+              f"max |u diff| {du:.3e}", flush=True)
+        if not dx <= CIRC_STATE_TOL:
+            raise AssertionError(f"circular against {label}: {dx}")
+    return {"circular": launches, "circular_cuda": launches_c}
+
+
+def phase_diffdrive(dev, gpu, n_steps=100, compare_steps=90):
+    """The diff-drive family at B = 1 on "cuda_fused" (the default)."""
+    from mpc_verde_tpu_torch.scenarios import (build_diffdrive,
+                                               compare_diffdrive_methods,
+                                               run_diffdrive)
+
+    by_path = {}
+    for name, kw in DIFFDRIVE_VARIANTS.items():
+        built = build_diffdrive(n_steps=n_steps, device=dev, **kw)
+        m, _, by_path[f"diffdrive_{name}"] = _closed_loop(
+            f"diffdrive_{name}", gpu, lambda: run_diffdrive(built), n_steps,
+            FUSED_PATH)
+        print(f"[diffdrive_{name}] converged_frac {m['converged_frac']:.4f} "
+              f"against JAX float32's {DIFFDRIVE_JAX_F32_CONVERGED[name]} "
+              "(JAX float64: 1.0); reference steps_to_target 84", flush=True)
+        if not (1 <= m["steps_to_target"] <= 84 and m["ss_error"] < 0.1):
+            raise AssertionError(
+                f"diffdrive {name} gates failed: steps_to_target "
+                f"{m['steps_to_target']}, ss_error {m['ss_error']}")
+    out, wall, launches, twin_calls = _drive(
+        lambda: compare_diffdrive_methods(n_steps=compare_steps, device=dev))
+    print(f"[diffdrive] compare_diffdrive_methods({compare_steps} steps, "
+          f"{wall:.3f} s): runs {out['runs']}, deltas {out['deltas']}",
+          flush=True)
+    _check_path(launches, twin_calls, FUSED_PATH)
+    if any(r["steps_to_target"] < 1 for r in out["runs"].values()):
+        raise AssertionError(f"compare: a method missed the target: {out}")
+    by_path["diffdrive_compare"] = launches
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1050,6 +1201,8 @@ def main() -> int:
         meas[name]["terms"] = t
     by_path.update(phase_ipm(dev, gpu, res_main))
     by_path.update(phase_al(dev, gpu))
+    by_path.update(phase_circular(dev, gpu))
+    by_path.update(phase_diffdrive(dev, gpu))
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

@@ -3,11 +3,16 @@
 //
 // The Pallas kernels inline the OCP's jaxprs; CUDA cannot inline a Python
 // callable, so the model is a fixed device model passed by value: unicycle
-// kinematics with an RK4 or Euler step of M substeps, the stage cost
-// (x - p[:3])' Q (x - p[:3]) + u' R u, an optional terminal weight Qf, and a
-// constant control box.  The step constants (h, h/2, h/6) arrive already
-// rounded to float from the host, as the PyTorch version computes them.
-// Built without fast math: sinf/cosf/logf keep full precision.
+// kinematics with an RK4 or Euler step of M substeps, the running cost
+// L = (x - p[:3])' Q (x - p[:3]) + (u - r)' R (u - r) with the control
+// reference r = p[u_ref : u_ref + 2] (r = 0 without one), an optional
+// terminal weight Qf, and a constant control box.  The stage cost is L
+// itself, or (quad_substeps > 0) the RK4 quadrature of L over dt with its own
+// chain of quad_substeps unicycle substeps (rk4_step_with_quadrature),
+// whatever integrator steps the state.  The step constants (h, h/2, h/6) of
+// the dynamics and of the quadrature arrive already rounded to float from
+// the host, as the PyTorch version computes them.  Built without fast math:
+// sinf/cosf/logf keep full precision.
 //
 // Two optional cost terms read their columns of p (UnicycleDeviceModel in
 // ops/cuda/rollout.py says which):
@@ -23,7 +28,8 @@
 //     mu = p[al_mu], on every stage and on the terminal state; an infinite
 //     bound is an inactive row (c = -1).
 //
-// rhs / step / state_quad / stage_cost / barrier_term / al_penalty are
+// rhs / step / state_quad / running_cost / quadrature_cost / stage_cost /
+// barrier_term / al_penalty are
 // templates on the scalar type T: K2 evaluates them on float, K3 on the
 // forward-mode numbers of dual.cuh, so both kernels evaluate one definition.
 // T needs +, -, * with T and float, / by a float, construction from a
@@ -40,7 +46,7 @@ constexpr int kNX = 3;
 constexpr int kNU = 2;
 constexpr int kNC = 2 * kNX;  // AL rows: lower bounds, then upper bounds
 constexpr int kBarrierStreaming = 1, kBarrierBatched = 2;
-constexpr int kModelFloats = 39, kModelInts = 8;
+constexpr int kModelFloats = 42, kModelInts = 10;
 
 struct UnicycleModel {
   float h, h_half, h_sixth;  // RK4 substep constants (Euler uses h)
@@ -51,6 +57,9 @@ struct UnicycleModel {
   int barrier_mu;            // column of the barrier's mu in p
   int al;                    // 1: the AL penalty of the state box
   int al_lam, al_mu;         // columns of lam (kNC of them) and of its mu
+  int u_ref;                 // first of the 2 columns of the control reference, or -1
+  int quad_substeps;         // 0: discrete stage cost; else the quadrature's substeps
+  float qh, qh_half, qh_sixth;  // the quadrature's RK4 substep constants
   float Q[kNX * kNX], R[kNU * kNU], Qf[kNX * kNX];
   float lb[kNU], ub[kNU];    // the clip box
   float blb[kNU], bub[kNU];  // the barrier's box
@@ -58,9 +67,10 @@ struct UnicycleModel {
 };
 
 // `model` is a host array of kModelFloats floats: h, h/2, h/6, Q, R, Qf, lb,
-// ub, blb, bub, xlb, xub (UnicycleDeviceModel.packed() in
+// ub, blb, bub, xlb, xub, qh, qh/2, qh/6 (UnicycleDeviceModel.packed() in
 // ops/cuda/rollout.py); `ints` one of kModelInts ints: substeps, euler,
-// has_terminal, barrier, barrier_mu, al, al_lam, al_mu (packed_ints()).
+// has_terminal, barrier, barrier_mu, al, al_lam, al_mu, u_ref,
+// quad_substeps (packed_ints()).
 inline UnicycleModel unpack_model(const float* model, const int* ints) {
   UnicycleModel m;
   m.h = model[0];
@@ -75,6 +85,9 @@ inline UnicycleModel unpack_model(const float* model, const int* ints) {
   for (int i = 0; i < kNU; ++i) m.bub[i] = model[31 + i];
   for (int i = 0; i < kNX; ++i) m.xlb[i] = model[33 + i];
   for (int i = 0; i < kNX; ++i) m.xub[i] = model[36 + i];
+  m.qh = model[39];
+  m.qh_half = model[40];
+  m.qh_sixth = model[41];
   m.substeps = ints[0];
   m.euler = ints[1];
   m.has_terminal = ints[2];
@@ -83,6 +96,8 @@ inline UnicycleModel unpack_model(const float* model, const int* ints) {
   m.al = ints[5];
   m.al_lam = ints[6];
   m.al_mu = ints[7];
+  m.u_ref = ints[8];
+  m.quad_substeps = ints[9];
   return m;
 }
 
@@ -92,6 +107,7 @@ inline bool model_fits(const UnicycleModel& m, int npar) {
   if (m.barrier && (m.barrier_mu < 0 || m.barrier_mu >= npar)) return false;
   if (m.al && (m.al_lam < 0 || m.al_lam + kNC > npar || m.al_mu < 0 || m.al_mu >= npar))
     return false;
+  if (m.u_ref < -1 || m.u_ref + kNU > npar || m.quad_substeps < 0) return false;
   return true;
 }
 
@@ -195,18 +211,64 @@ __device__ __forceinline__ T al_penalty(const UnicycleModel& m, const T (&x)[kNX
   return (tt - ll) / (2.0f * mu);
 }
 
+// L = e' Q e + du' R du, du = u - p[u_ref : u_ref + 2] (u without a reference)
 template <class T>
-__device__ __forceinline__ T stage_cost(const UnicycleModel& m, const T (&x)[kNX],
-                                        const T (&u)[kNU], const float* p) {
+__device__ __forceinline__ T running_cost(const UnicycleModel& m, const T (&x)[kNX],
+                                          const T (&u)[kNU], const float* p) {
+  T du[kNU];
+#pragma unroll
+  for (int j = 0; j < kNU; ++j) du[j] = m.u_ref >= 0 ? u[j] - p[m.u_ref + j] : u[j];
   T cu = 0.0f;
 #pragma unroll
   for (int j = 0; j < kNU; ++j) {
     T uR = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kNU; ++i) uR = uR + u[i] * m.R[i * kNU + j];
-    cu = cu + uR * u[j];
+    for (int i = 0; i < kNU; ++i) uR = uR + du[i] * m.R[i * kNU + j];
+    cu = cu + uR * du[j];
   }
-  T c = state_quad(m.Q, x, p) + cu;
+  return state_quad(m.Q, x, p) + cu;
+}
+
+// The RK4 quadrature of L over dt along the model's own RK4 chain of
+// quad_substeps substeps from x (rk4_step_with_quadrature): per substep
+// q += h/6 (((L1 + 2 L2) + 2 L3) + L4) and x += h/6 (((k1 + 2 k2) + 2 k3) + k4).
+// Both sums are kept running, left to right, which is the same floats and
+// keeps one stage's k live, not four.
+template <class T>
+__device__ __forceinline__ T quadrature_cost(const UnicycleModel& m, const T (&x0)[kNX],
+                                             const T (&u)[kNU], const float* p) {
+  T x[kNX], t[kNX], k[kNX], ks[kNX];
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) x[i] = x0[i];
+  T q = 0.0f;
+#pragma unroll 1
+  for (int s = 0; s < m.quad_substeps; ++s) {
+    rhs(x, u, k);
+    T lq = running_cost(m, x, u, p);
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) ks[i] = k[i];
+#pragma unroll
+    for (int r = 1; r < 4; ++r) {
+      const float c = r == 3 ? m.qh : m.qh_half;
+      const float w = r == 3 ? 1.0f : 2.0f;
+#pragma unroll
+      for (int i = 0; i < kNX; ++i) t[i] = x[i] + c * k[i];
+      rhs(t, u, k);
+      lq = lq + w * running_cost(m, t, u, p);
+#pragma unroll
+      for (int i = 0; i < kNX; ++i) ks[i] = ks[i] + w * k[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) x[i] = x[i] + m.qh_sixth * ks[i];
+    q = q + m.qh_sixth * lq;
+  }
+  return q;
+}
+
+template <class T>
+__device__ __forceinline__ T stage_cost(const UnicycleModel& m, const T (&x)[kNX],
+                                        const T (&u)[kNU], const float* p) {
+  T c = m.quad_substeps > 0 ? quadrature_cost(m, x, u, p) : running_cost(m, x, u, p);
   if (m.barrier) c = c + barrier_term(m, u, p);
   if (m.al) c = c + al_penalty(m, x, p);
   return c;

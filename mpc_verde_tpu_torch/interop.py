@@ -19,7 +19,7 @@ import torch
 
 from .models import unicycle
 from .ocp import OCP, box_bounds
-from .ops import rk4_step
+from .ops import discretize, rk4_step_with_quadrature
 from .ops.cuda.rollout import UnicycleDeviceModel
 from .runtime import ClosedLoopResult
 from .solver.ilqr import ILQRResult
@@ -68,31 +68,53 @@ def result_to_numpy(res):
 
 
 def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
-                 lb=None, ub=None, Qf=None) -> OCP:
-    """A unicycle OCP with RK4 at ``dt``: stage cost (x - p[:3])' Q (x - p[:3])
-    + u' R u, target in p[:3], npar = 3, terminal cost (x - p[:3])' Qf
-    (x - p[:3]) when ``Qf`` is given, and the control box [lb, ub] (none when
-    both are None).
+                 lb=None, ub=None, Qf=None, u_ref=None, cost="discrete",
+                 quad_substeps: int = 1, integrator="rk4",
+                 substeps: int = 1) -> OCP:
+    """A unicycle OCP stepped by ``integrator`` at ``dt`` (``discretize``:
+    "rk4" with ``substeps`` substeps, or one "euler" step), target in
+    p[:3], control reference in p[u_ref : u_ref + 2] when ``u_ref`` is given
+    (npar = max(3, u_ref + 2)), running cost L = (x - p[:3])' Q (x - p[:3])
+    + (u - r)' R (u - r) (r = 0 without a reference), stage cost L
+    (``cost="discrete"``) or its RK4 quadrature over ``dt`` with
+    ``quad_substeps`` substeps (``cost="quadrature"``,
+    ``rk4_step_with_quadrature``), terminal cost (x - p[:3])' Qf (x - p[:3])
+    when ``Qf`` is given, and the control box [lb, ub] (none when both are
+    None).
 
-    The weights and bounds are taken as float32 numbers, as the JAX package's
-    unicycle problems write them, so a float64 build of the OCP equals the
-    JAX one under x64.  The OCP carries the matching ``UnicycleDeviceModel``
-    (an unbounded OCP's has infinite bounds) for the CUDA kernels.
+    The weights and bounds keep the values the caller gives (float32 arrays
+    stay float32-rounded values), so a float64 build of the OCP equals the
+    JAX one under x64: the JAX package's bench and fleet write them as
+    float32 arrays, its scenario families as float64 numbers.  The OCP
+    carries the matching ``UnicycleDeviceModel`` (an unbounded OCP's has
+    infinite bounds) for the CUDA kernels, which take every number rounded
+    to float32.
     """
     device = torch.device(device)
-    f32 = lambda a: np.asarray(a, dtype=np.float32)
-    Qn, Rn = f32(Q), f32(R)
+    num = lambda a: np.asarray(a, dtype=np.float64)
+    Qn, Rn = num(Q), num(R)
     Qt = torch.as_tensor(Qn, dtype=dtype, device=device)
     Rt = torch.as_tensor(Rn, dtype=dtype, device=device)
-    F = rk4_step(unicycle.f, dt)
+    F = discretize(unicycle, dt, method=integrator, M=substeps)
 
-    def l(x, u, p):
+    def L(x, u, p):
         e = x - p[:3]
-        return e @ Qt @ e + u @ Rt @ u
+        du = u if u_ref is None else u - p[u_ref:u_ref + 2]
+        return e @ Qt @ e + du @ Rt @ du
+
+    if cost == "discrete":
+        l = L
+    elif cost == "quadrature":
+        quad = rk4_step_with_quadrature(unicycle.f, L, dt, M=quad_substeps)
+
+        def l(x, u, p):
+            return quad(x, u, p)[1]
+    else:
+        raise ValueError(f"unknown stage cost {cost!r}")
 
     lf = None
     if Qf is not None:
-        Qf = f32(Qf)
+        Qf = num(Qf)
         Qft = torch.as_tensor(Qf, dtype=dtype, device=device)
 
         def lf(x, p):
@@ -101,14 +123,17 @@ def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
 
     cb = None
     if lb is None and ub is None:
-        lb, ub = np.full(2, -np.inf, np.float32), np.full(2, np.inf, np.float32)
+        lb, ub = np.full(2, -np.inf), np.full(2, np.inf)
     else:
-        lb, ub = f32(lb), f32(ub)
+        lb, ub = num(lb), num(ub)
         cb = box_bounds(lb, ub, device=device, dtype=dtype)
-    model = UnicycleDeviceModel(dt=dt, Q=Qn, R=Rn, lb=lb, ub=ub, Qf=Qf)
+    model = UnicycleDeviceModel(
+        dt=dt, Q=Qn, R=Rn, lb=lb, ub=ub, Qf=Qf, integrator=integrator,
+        substeps=substeps if integrator == "rk4" else 1, u_ref=u_ref,
+        cost=cost, quad_substeps=quad_substeps)
     return OCP(dynamics=F, stage_cost=l, terminal_cost=lf, N=N, nx=3, nu=2,
-               npar=3, control_bounds=cb, device=device, dtype=dtype,
-               device_model=model)
+               npar=model.min_npar, control_bounds=cb, device=device,
+               dtype=dtype, device_model=model)
 
 
 def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,
@@ -118,9 +143,11 @@ def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,
     omega in [-pi/4, pi/4], no terminal cost (``unicycle_ocp``); with
     ``x_lb`` / ``x_ub`` ((3,), +-inf for no bound) also the state box, which
     the solvers enforce by their augmented Lagrangian."""
+    f32 = lambda a: np.array(a, dtype=np.float32)
     ocp = unicycle_ocp(N, device, dtype, dt=BENCH_DT,
-                       Q=np.diag([1.0, 5.0, 0.1]), R=np.diag([0.5, 0.05]),
-                       lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4])
+                       Q=np.diag(f32([1.0, 5.0, 0.1])),
+                       R=np.diag(f32([0.5, 0.05])),
+                       lb=f32([-1.0, -np.pi / 4]), ub=f32([1.0, np.pi / 4]))
     if x_lb is None and x_ub is None:
         return ocp
     box = lambda b: None if b is None else torch.as_tensor(

@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 # Continuous-time RHS: (x, u, p) -> dx/dt.  `p` may be ignored.
@@ -35,3 +36,25 @@ class Model:
 
     def __call__(self, x, u, p=None):
         return self.f(x, u, p)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearModel(Model):
+    """LTI model ``xdot = Ac x + Bc u`` with its matrices kept for ``c2d``."""
+
+    Ac: Optional[torch.Tensor] = None
+    Bc: Optional[torch.Tensor] = None
+
+
+def linear_model(Ac, Bc, name: str = "linear", *, device,
+                 dtype=torch.float32) -> LinearModel:
+    """A ``LinearModel`` whose matrices are tensors on ``device`` in
+    ``dtype`` (the JAX package takes float64 under x64, else float32)."""
+    Ac = torch.as_tensor(np.asarray(Ac), dtype=dtype, device=device)
+    Bc = torch.as_tensor(np.asarray(Bc), dtype=dtype, device=device)
+    nx, nu = Bc.shape
+
+    def f(x, u, p=None):
+        return Ac @ x + Bc @ u
+
+    return LinearModel(f=f, nx=nx, nu=nu, np=0, name=name, Ac=Ac, Bc=Bc)

@@ -123,6 +123,7 @@ def linesearch_launch_plan(N: int, A: int, npar: int,
 
 
 BARRIER_RULES = ("streaming", "batched")   # ids 1, 2 of the C entries (0: none)
+STAGE_COSTS = ("discrete", "quadrature")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +131,13 @@ class UnicycleDeviceModel:
     """Kernel-side description of a unicycle OCP (nx = 3, nu = 2, npar >= 3).
 
     Dynamics: unicycle kinematics, ``integrator`` "rk4" (``substeps`` equal
-    substeps over ``dt``) or "euler" (one step).  Stage cost
-    ``(x - p[:3])' Q (x - p[:3]) + u' R u``; terminal cost
+    substeps over ``dt``) or "euler" (one step).  Running cost
+    ``L = (x - p[:3])' Q (x - p[:3]) + (u - r)' R (u - r)`` with the control
+    reference ``r = p[u_ref : u_ref + 2]``, or ``r = 0`` when ``u_ref`` is
+    None.  Stage cost ``L`` itself (``cost="discrete"``), or
+    (``cost="quadrature"``) the integral of ``L`` over ``dt`` by
+    ``rk4_step_with_quadrature`` with ``quad_substeps`` RK4 substeps of the
+    unicycle, whatever ``integrator`` steps the state.  Terminal cost
     ``(x - p[:3])' Qf (x - p[:3])`` when ``Qf`` is given.  Control box
     ``lb <= u <= ub``, constant over the horizon.
 
@@ -173,10 +179,19 @@ class UnicycleDeviceModel:
     x_lb: Optional[np.ndarray] = None
     x_ub: Optional[np.ndarray] = None
     al_lam: int = 0
+    u_ref: Optional[int] = None
+    cost: str = "discrete"
+    quad_substeps: int = 1
 
     def __post_init__(self):
         if self.integrator not in ("rk4", "euler"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
+        if self.cost not in STAGE_COSTS:
+            raise ValueError(f"unknown stage cost {self.cost!r}")
+        if self.quad_substeps < 1:
+            raise ValueError("quad_substeps must be >= 1")
+        if self.u_ref is not None and self.u_ref < 0:
+            raise ValueError("u_ref must be a column index >= 0")
         if self.integrator == "euler" and self.substeps != 1:
             raise ValueError("the euler device model takes one step")
         if self.barrier not in (None, *BARRIER_RULES):
@@ -200,6 +215,8 @@ class UnicycleDeviceModel:
     def min_npar(self) -> int:
         """The fewest parameter columns the model reads."""
         cols = [3]
+        if self.u_ref is not None:
+            cols.append(self.u_ref + 2)
         if self.barrier is not None:
             cols.append(self.barrier_mu + 1)
         if self.al:
@@ -232,30 +249,36 @@ class UnicycleDeviceModel:
             self, al=True, x_lb=np.asarray(x_lb, np.float64),
             x_ub=np.asarray(x_ub, np.float64), al_lam=int(lam_col))
 
-    def _consts(self):
-        """(h, h/2, h/6), computed in double as the torch integrator does."""
-        h = self.dt / self.substeps
+    def _consts(self, substeps=None):
+        """(h, h/2, h/6) of ``substeps`` (the dynamics' by default) equal
+        substeps over dt, computed in double as the torch integrators do."""
+        h = self.dt / (self.substeps if substeps is None else substeps)
         return h, 0.5 * h, h / 6.0
 
     def packed(self) -> np.ndarray:
         """float32 [h, h/2, h/6, Q, R, Qf, lb, ub, barrier_lb, barrier_ub,
-        x_lb, x_ub], the kernels' layout (zeros for an absent term)."""
+        x_lb, x_ub, then the quadrature's h, h/2, h/6], the kernels' layout
+        (zeros for an absent term)."""
         z = lambda a, n: np.zeros(n) if a is None else np.ravel(a)
         Qf = np.zeros((3, 3)) if self.Qf is None else self.Qf
         return np.concatenate([
             np.asarray(self._consts()), np.ravel(self.Q), np.ravel(self.R),
             np.ravel(Qf), np.ravel(self.lb), np.ravel(self.ub),
             z(self.barrier_lb, 2), z(self.barrier_ub, 2), z(self.x_lb, 3),
-            z(self.x_ub, 3),
+            z(self.x_ub, 3), np.asarray(self._consts(self.quad_substeps)),
         ]).astype(np.float32)
 
     def packed_ints(self) -> np.ndarray:
         """int32 [substeps, euler, has_terminal, barrier rule (0 none,
-        1 streaming, 2 batched), barrier_mu, al, al_lam, al_mu]."""
+        1 streaming, 2 batched), barrier_mu, al, al_lam, al_mu, u_ref (-1
+        none), quadrature substeps (0 for the discrete cost)]."""
         rule = 0 if self.barrier is None else 1 + BARRIER_RULES.index(self.barrier)
         return np.array([self.substeps, int(self.integrator == "euler"),
                          int(self.Qf is not None), rule, self.barrier_mu,
-                         int(self.al), self.al_lam, self.al_mu], np.int32)
+                         int(self.al), self.al_lam, self.al_mu,
+                         -1 if self.u_ref is None else self.u_ref,
+                         self.quad_substeps if self.cost == "quadrature"
+                         else 0], np.int32)
 
     def kernel_args(self):
         """The model as the kernels' C entry points take it: (packed floats,
@@ -268,26 +291,48 @@ class UnicycleDeviceModel:
         return torch.as_tensor(np.asarray(a), dtype=like.dtype,
                                device=like.device)
 
+    @staticmethod
+    def _rhs(x, u):
+        return torch.stack([u[..., 0] * torch.cos(x[..., 2]),
+                            u[..., 0] * torch.sin(x[..., 2]),
+                            u[..., 1]], dim=-1)
+
     def step(self, x, u):
         h, hh, h6 = self._consts()
-
-        def rhs(x):
-            return torch.stack([u[..., 0] * torch.cos(x[..., 2]),
-                                u[..., 0] * torch.sin(x[..., 2]),
-                                u[..., 1]], dim=-1)
-
         if self.integrator == "euler":
-            return x + h * rhs(x)
+            return x + h * self._rhs(x, u)
         for _ in range(self.substeps):
-            k1 = rhs(x)
-            k2 = rhs(x + hh * k1)
-            k3 = rhs(x + hh * k2)
-            k4 = rhs(x + h * k3)
+            k1 = self._rhs(x, u)
+            k2 = self._rhs(x + hh * k1, u)
+            k3 = self._rhs(x + hh * k2, u)
+            k4 = self._rhs(x + h * k3, u)
             x = x + h6 * (((k1 + 2.0 * k2) + 2.0 * k3) + k4)
         return x
 
     def _quad(self, W, v):
         return ((v[..., :, None] * self._t(W, v)).sum(-2) * v).sum(-1)
+
+    def running_cost(self, x, u, p):
+        """``L(x, u, p)``: the tracking terms, without the barrier and AL."""
+        du = u if self.u_ref is None else u - p[..., self.u_ref:self.u_ref + 2]
+        return self._quad(self.Q, x - p[..., :3]) + self._quad(self.R, du)
+
+    def quadrature_cost(self, x, u, p):
+        """The RK4 quadrature of ``L`` over dt (``quad_substeps`` substeps),
+        in ``rk4_step_with_quadrature``'s order of operations."""
+        h, hh, h6 = self._consts(self.quad_substeps)
+        q = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for _ in range(self.quad_substeps):
+            k1, k1_q = self._rhs(x, u), self.running_cost(x, u, p)
+            t = x + hh * k1
+            k2, k2_q = self._rhs(t, u), self.running_cost(t, u, p)
+            t = x + hh * k2
+            k3, k3_q = self._rhs(t, u), self.running_cost(t, u, p)
+            t = x + h * k3
+            k4, k4_q = self._rhs(t, u), self.running_cost(t, u, p)
+            x = x + h6 * (((k1 + 2.0 * k2) + 2.0 * k3) + k4)
+            q = q + h6 * (((k1_q + 2.0 * k2_q) + 2.0 * k3_q) + k4_q)
+        return q
 
     def barrier_term(self, u, p):
         """The barrier's stage term (zeros without a barrier)."""
@@ -324,7 +369,8 @@ class UnicycleDeviceModel:
         return ((t * t).sum(-1) - (lam * lam).sum(-1)) / (2.0 * mu)
 
     def stage_cost(self, x, u, p):
-        c = self._quad(self.Q, x - p[..., :3]) + self._quad(self.R, u)
+        c = (self.quadrature_cost(x, u, p) if self.cost == "quadrature"
+             else self.running_cost(x, u, p))
         if self.barrier is not None:
             c = c + self.barrier_term(u, p)
         if self.al:

@@ -108,7 +108,9 @@ def trajectory_derivatives(ocp, xs, us, ps, second_order: bool):
         HN = torch.zeros((B, nx, nx), dtype=xs.dtype, device=xs.device)
     else:
         gN = vmap(grad(lf))(xs[:, N], ps[:, N])
-        HN = vmap(jacfwd(grad(lf)))(xs[:, N], ps[:, N])
+        # jacfwd lays the Hessian out transposed; the kernels take it
+        # contiguous
+        HN = vmap(jacfwd(grad(lf)))(xs[:, N], ps[:, N]).contiguous()
     if cb is None:
         lbs = torch.full_like(us, -torch.inf)
         ubs = torch.full_like(us, torch.inf)

@@ -22,6 +22,7 @@ from ..models import unicycle
 from ..ops import euler_step
 from ..runtime import make_batched_receding_horizon
 from ..solver import ILQROptions, make_batched_ilqr_solver
+from ..utils import scenario_device
 
 SPEC = dict(T=0.2, N=10, Nsim=150, B=1024, target=(10.0, 10.0, 0.0),
             v_max=1.0, omega_max=np.pi / 4,
@@ -44,20 +45,14 @@ def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
         s["B"] = B
     if n_steps is not None:
         s["Nsim"] = n_steps
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "build_fleet runs on the CUDA device by default and none is "
-                'available; pass device="cpu" to run the fleet on the CPU')
-        device = "cuda"
-    device = torch.device(device)
-    if backend is None:
-        backend = "cuda_fused" if device.type == "cuda" else "torch"
+    device = scenario_device(device, "build_fleet")
 
     T, N = s["T"], s["N"]
-    ocp = unicycle_ocp(N, device, dtype, dt=T, Q=np.diag(s["Q"]),
-                       R=np.diag(s["R"]), lb=[-s["v_max"], -s["omega_max"]],
-                       ub=[s["v_max"], s["omega_max"]])
+    f32 = lambda a: np.array(a, dtype=np.float32)   # as the JAX fleet writes them
+    ocp = unicycle_ocp(N, device, dtype, dt=T, Q=np.diag(f32(s["Q"])),
+                       R=np.diag(f32(s["R"])),
+                       lb=f32([-s["v_max"], -s["omega_max"]]),
+                       ub=f32([s["v_max"], s["omega_max"]]))
     solve = make_batched_ilqr_solver(ocp, ILQROptions(max_iters=max_iters),
                                      backend=backend)
     plant = euler_step(unicycle.f, T)

@@ -25,6 +25,10 @@ Backends:
 On CPU tensors every kernel wrapper runs its twin, so ``"cuda"`` and
 ``"cuda_fused"`` on the CPU give the ``"torch"`` results.
 
+``backend=None``, the default of the solver factories that reach a kernel
+in the JAX package (there ``"pallas_bw"``), resolves by ``resolve_backend``:
+``"cuda_fused"`` for an OCP on a CUDA device, ``"torch"`` elsewhere.
+
 State box bounds (``ocp.x_lb`` / ``x_ub``) run the augmented-Lagrangian
 outer loop (``options.al_iters`` PHR rounds): the multipliers ride the
 per-stage param tensor of a derived OCP (``_augment_ocp_al``), so every
@@ -65,12 +69,29 @@ class _Parts:
     fused: Optional[Callable] = None
 
 
+def resolve_backend(ocp: OCP, backend: Optional[str]) -> str:
+    """The backend a solver factory runs: ``backend`` itself when given;
+    for None, ``"cuda_fused"`` when the OCP lives on a CUDA device and
+    ``"torch"`` elsewhere.  A CUDA OCP without a ``device_model`` raises:
+    the kernels cannot run it, and the plain twins run only when asked for
+    with ``backend="torch"``."""
+    if backend is not None:
+        return backend
+    if ocp.device.type != "cuda":
+        return "torch"
+    if ocp.device_model is None:
+        raise NotImplementedError(
+            "this OCP lies on a CUDA device but has no device_model, which "
+            "the kernel backends need; pass backend=\"torch\" to run the "
+            "plain PyTorch versions on the card")
+    return "cuda_fused"
+
+
 def _check_ocp(ocp: OCP, backend: str):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
-    if ocp.nu > 4:
-        raise NotImplementedError(
-            "the stage box QP enumerates 3^nu patterns; nu <= 4")
+    # "torch" enumerates the 3^nu box-QP patterns for any nu; the kernels
+    # are built for the (nx, nu) of SUPPORTED, nu <= 4
     if backend in ("cuda", "cuda_fused"):
         if ocp.device_model is None:
             raise NotImplementedError(
@@ -78,7 +99,8 @@ def _check_ocp(ocp: OCP, backend: str):
                 "cannot evaluate Python callables")
         if ocp.dtype != torch.float32:
             raise TypeError(f"backend={backend!r} runs float32 kernels; build "
-                            f"the OCP in float32, not {ocp.dtype}")
+                            f"the OCP in float32, not {ocp.dtype}, or pass "
+                            f'backend="torch"')
         if (ocp.nx, ocp.nu) not in SUPPORTED:
             raise NotImplementedError(
                 f"no Riccati kernel for (nx, nu) = ({ocp.nx}, {ocp.nu})")
@@ -291,8 +313,12 @@ def _accept_and_update(opt: ILQROptions, carry, gmax, xs_b, us_b, new_cost,
 
 
 def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
-                             backend: str = "torch"):
+                             backend: Optional[str] = None):
     """Build ``solve(x0s, params, us_init) -> ILQRResult`` over a batch.
+
+    ``backend``: one of ``BACKENDS``; None (the default) is ``"cuda_fused"``
+    for an OCP on a CUDA device and ``"torch"`` elsewhere
+    (``resolve_backend``).
 
     Args of ``solve`` have a leading batch axis: x0s (B, nx), params
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);
@@ -314,6 +340,7 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         raise ValueError(
             "batched solver with state bounds needs options.al_iters >= 1")
     ocp_in = ocp
+    backend = resolve_backend(ocp, backend)
     if has_xb:
         cvals = _al_cvals(ocp)
         ocp = _augment_ocp_al(ocp)

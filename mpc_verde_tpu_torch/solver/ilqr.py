@@ -65,17 +65,23 @@ def _stage_boxqp_with_gain(Quu, Qu, Qux, lb, ub, tol):
     return k_ff, K, m
 
 
-def make_ilqr_solver(ocp, options: ILQROptions = ILQROptions()):
+def make_ilqr_solver(ocp, options: ILQROptions = ILQROptions(),
+                     backend=None):
     """Build ``solve(x0, params, us_init) -> ILQRResult`` for one problem.
 
     Args of ``solve``: x0 (nx,); params (N+1, npar) or (npar,) or None;
     us_init (N, nu) or None.  The result has no batch axis: xs (N+1, nx),
     us (N, nu), and 0-d cost, grad_norm, iterations, converged and
     max_violation, as the JAX solver returns them.
+
+    ``backend`` is the port's one addition to the JAX signature (whose
+    single-problem solver has no kernel path): it is passed to
+    ``make_batched_ilqr_solver``, so None runs ``"cuda_fused"`` for an OCP
+    on a CUDA device and ``"torch"`` elsewhere.
     """
     from .batched import _as_tensor, make_batched_ilqr_solver
 
-    solve_b = make_batched_ilqr_solver(ocp, options)
+    solve_b = make_batched_ilqr_solver(ocp, options, backend=backend)
     z = dict(dtype=ocp.dtype, device=ocp.device)
 
     def solve(x0, params=None, us_init=None):

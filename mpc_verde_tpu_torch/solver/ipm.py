@@ -36,7 +36,7 @@ from torch.func import vmap
 from ..ocp.spec import OCP
 from .batched import (_al_cvals, _as_tensor, _augment_ocp_al,
                       _broadcast_params, _lam_update, _trajectory_cost,
-                      _violation, make_batched_ilqr_solver)
+                      _violation, make_batched_ilqr_solver, resolve_backend)
 from .ilqr import ILQROptions, ILQRResult
 from .streaming import make_streaming_solver
 
@@ -138,6 +138,9 @@ def make_barrier_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     ``crossover=True`` finishes with exact box-QP DDP iterations from the
     barrier point, which pins active bounds exactly (nu <= 4 only; beyond
     that the pure barrier answer is returned, with a warning).
+
+    ``backend`` is ``"torch"`` unless a kernel backend is named, as the
+    JAX solver's default is ``"xla"``.
     """
     lb, ub = _constant_box(ocp)
     N, nu = ocp.N, ocp.nu
@@ -206,7 +209,7 @@ def _barrier_term(u, lb, ub, mu):
 
 def make_streaming_barrier_solver(
         ocp: OCP, options: ILQROptions = ILQROptions(),
-        backend: str = "torch",
+        backend: Optional[str] = None,
         mu_schedule: Sequence[float] = (1e-2, 1e-4),
         interior_margin: float = 1e-3,
         batch_width: int = 2048,
@@ -240,9 +243,13 @@ def make_streaming_barrier_solver(
     and start the continuation from its controls, pulled ``interior_margin``
     inside the box; the reported iterations include that phase's.
 
+    ``backend``: as in ``make_streaming_solver``; None (the default) is
+    ``"cuda_fused"`` for an OCP on a CUDA device and ``"torch"`` elsewhere.
+
     Returns ``solve(x0s, params, us_init, max_iters=None, restarts_n=None)``
     with the streaming solver's calling convention.
     """
+    backend = resolve_backend(ocp, backend)
     lb, ub = _constant_box(ocp)
     npar = max(ocp.npar, 1)
     N, nx, nu = ocp.N, ocp.nx, ocp.nu

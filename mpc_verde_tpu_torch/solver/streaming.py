@@ -30,18 +30,20 @@ per loop turn.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ocp.spec import OCP
 from .batched import (_accept_and_update, _al_cvals, _as_tensor,
                       _augment_ocp_al, _broadcast_params, _lam_update,
                       _make_parts, _search_direction, _trajectory_cost,
-                      _violation)
+                      _violation, resolve_backend)
 from .ilqr import ILQROptions, ILQRResult
 
 
 def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
-                          backend: str = "torch",
+                          backend: Optional[str] = None,
                           batch_width: int = 2048,
                           restarts: int = 0,
                           refill_every: int = 1,
@@ -55,6 +57,8 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     per-problem iteration budget and in-place restart budget for one call.
     Results come back in queue order.
 
+    ``backend``: as in ``make_batched_ilqr_solver``; None (the default) is
+    ``"cuda_fused"`` for an OCP on a CUDA device and ``"torch"`` elsewhere.
     ``batch_width`` is the number of resident slots.  ``restarts``: how many
     times a failed or budget-capped problem restarts in place; with rounds,
     each round has its own budget.  ``refill_every``: run the refill once
@@ -95,6 +99,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         raise ValueError("rounds= cannot be combined with state bounds "
                          "(state bounds install the AL continuation)")
     ocp_in = ocp
+    backend = resolve_backend(ocp, backend)
     npar = max(ocp_in.npar, 1)
     if has_xb:
         # the PHR multipliers [lam (2 nx), mu] ride the slot params, and the

@@ -1,4 +1,5 @@
-"""What the GPU host offers: card, power limit and toolchain."""
+"""What the GPU host offers: card, power limit and toolchain; where the
+scenarios run."""
 from __future__ import annotations
 
 import subprocess
@@ -22,3 +23,16 @@ def gpu_info() -> dict:
                           text=True, check=True).stdout.strip()
     return {"nvidia_smi": smi, "torch_cuda": torch.version.cuda,
             "nvcc": nvcc.splitlines()[-1]}
+
+
+def scenario_device(device, entry: str) -> torch.device:
+    """The device a scenario entry point runs on: ``device`` when given,
+    else the CUDA device.  Without one it raises and names ``device="cpu"``:
+    a scenario runs on the CPU only when asked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{entry} runs on the CUDA device by default and none is "
+                'available; pass device="cpu" to run it on the CPU')
+        device = "cuda"
+    return torch.device(device)

@@ -527,3 +527,104 @@ def test_ipm_and_al_cuda_fused_match_torch_float64(dev, path):
     assert float(rel[both].max()) <= 1e-3
     if path == "al":   # five rounds: with three the float64 solve leaves 0.13
         assert float(rk.max_violation.max()) < 1e-2
+
+
+# chip_smoke.py phase 10's cases of the circular-track and diff-drive
+# families: the control reference (npar 5), the circular track's derived AL
+# OCP (npar 12), the quadrature cost at M = 1 and 4 under RK4 and Euler
+NEW_TERM_CASES = ["u_ref", "circular_al", "quadrature M=1 rk4",
+                  "quadrature M=4 rk4", "quadrature M=1 euler",
+                  "quadrature M=4 euler"]
+
+
+@pytest.mark.parametrize("B", [1, 8, 301])
+@pytest.mark.parametrize("case", NEW_TERM_CASES)
+def test_linesearch_kernel_on_new_terms(dev, case, B):
+    """The planned variant against the twin at chip_smoke.py phase 4's
+    tolerances; B = 1 is one problem in a block of eight, B = 301 leaves the
+    last block ragged."""
+    inputs, ocp, ps = _term_case(dev, case, B=B)
+    data = (*inputs[:3], ps, *inputs[4:6])
+    alphas = tuple(0.4 ** i for i in range(8))
+    best, xs_r, us_r, c_r, _ = _k2_kernel_rule(data, alphas, ocp)
+    by_variant = dict(linesearch_forward.launches_by_variant)
+    xs_k, us_k, c_k, b_k = linesearch_forward(*data, alphas, ocp=ocp)
+    torch.cuda.synchronize()
+    assert _launched(linesearch_forward, by_variant) == {"lanes": 1}
+    # the winner's cost is the minimum over alphas, so it agrees even where
+    # a near-tie picks another alpha; trajectories where the alpha is the same
+    assert float(((c_k - c_r).abs() / c_r.abs()).max()) <= 1e-5
+    same = b_k == best
+    if B > 8:
+        assert float(same.float().mean()) >= 0.99
+    if bool(same.any()):
+        assert _rel_err(xs_k[same], xs_r[same]) <= 1e-4
+        assert _rel_err(us_k[same], us_r[same]) <= 1e-4
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("B", [1, 8, 301])
+@pytest.mark.parametrize("case", NEW_TERM_CASES)
+def test_fused_kernel_on_new_terms(dev, case, B, use_ddp):
+    """The planned variant ("staged", also at B = 1) against the twin at the
+    Riccati tolerances, finite everywhere."""
+    inputs, ocp, ps = _term_case(dev, case, B=B)
+    xs, us = inputs[1], inputs[2]
+    args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
+            torch.ones((B,), device=dev))
+    by_variant = dict(fused_backward.launches_by_variant)
+    out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp)
+    torch.cuda.synchronize()
+    assert _launched(fused_backward, by_variant) == {"staged": 1}
+    ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+    for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
+        assert bool(torch.isfinite(o).all()), name
+        assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+@pytest.mark.parametrize("backend", [None, "cuda"])
+def test_ilqr_solver_at_b1_matches_twin(dev, backend):
+    """make_ilqr_solver on the card: the default backend is "cuda_fused"
+    (K3 and K2), "cuda" runs K1 and K2, each at B = 1; against the plain
+    "torch" twin on the same float32 OCP."""
+    N = 20
+    ocp = bench_ocp(N, dev, torch.float32)
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    x0, target = np.array([0.5, -1.0, 0.3]), np.array([10.0, 10.0, 0.0])
+    counts = {f: f.launches for f in (riccati_backward, linesearch_forward,
+                                      fused_backward)}
+    for twin in (riccati_backward_torch, linesearch_forward_torch,
+                 fused_backward_torch):
+        twin.cuda_calls = 0
+    rk = mt.make_ilqr_solver(ocp, opts, backend=backend)(x0, target)
+    torch.cuda.synchronize()
+    ran = {f.__name__ for f, n in counts.items() if f.launches > n}
+    assert ran == ({"riccati_backward", "linesearch_forward"} if backend
+                   else {"fused_backward", "linesearch_forward"})
+    assert riccati_backward_torch.cuda_calls == 0
+    assert fused_backward_torch.cuda_calls == 0
+    assert linesearch_forward_torch.cuda_calls == 0
+    rt = mt.make_ilqr_solver(ocp, opts, backend="torch")(x0, target)
+    assert rk.xs.shape == (N + 1, 3) and bool(rk.converged) and bool(rt.converged)
+    assert float((rk.cost - rt.cost).abs() / rt.cost.abs()) <= 1e-3
+
+
+@pytest.mark.parametrize("scenario", ["circular", "diffdrive"])
+def test_scenario_20_steps_on_the_card(dev, scenario):
+    """20 closed-loop steps at B = 1 on the default device and backend
+    ("cuda_fused"), against the float64 "torch" run on the CPU within
+    chip_smoke.py's CIRC_STATE_TOL."""
+    from chip_smoke import CIRC_STATE_TOL
+    from mpc_verde_tpu_torch import scenarios as sc
+
+    build, run = {"circular": (sc.build_circular_tracking,
+                               sc.run_circular_tracking),
+                  "diffdrive": (sc.build_diffdrive, sc.run_diffdrive)}[scenario]
+    k2, k3 = linesearch_forward.launches, fused_backward.launches
+    m = run(build(n_steps=20))
+    assert fused_backward.launches > k3 and linesearch_forward.launches > k2
+    assert m["result"].xs.is_cuda
+    m64 = run(build(n_steps=20, device="cpu", dtype=torch.float64))
+    dx = (m["result"].xs.double().cpu() - m64["result"].xs).abs().max()
+    assert float(dx) <= CIRC_STATE_TOL

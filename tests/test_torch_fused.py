@@ -25,9 +25,10 @@ from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
                                                 fused_backward_torch)
 from test_pallas_fused import B, N, NPAR, NU, NX, T
 from test_pallas_fused import _ocp as j_ocp
+from test_torch_rollout import TERM_CASES, term_case_ocps, term_case_params
 
-Q = np.diag([1.0, 5.0, 0.1])
-R = np.diag([0.5, 0.05])
+Q = np.diag(np.array([1.0, 5.0, 0.1], np.float32))   # as test_pallas_fused
+R = np.diag(np.array([0.5, 0.05], np.float32))
 FORMS = [  # (bounded, use_ddp, use_terminal), as tests/test_pallas_fused.py
     (True, True, True),
     (True, False, True),
@@ -38,7 +39,8 @@ FORMS = [  # (bounded, use_ddp, use_terminal), as tests/test_pallas_fused.py
 def t_ocp(bounded, use_terminal, dtype=torch.float64):
     """The port's counterpart of ``test_pallas_fused._ocp``: its terminal cost
     2 e'Qe is the weight Qf = 2Q."""
-    box = dict(lb=[-1.0, -np.pi / 4], ub=[1.0, np.pi / 4]) if bounded else {}
+    box = dict(lb=np.array([-1.0, -np.pi / 4], np.float32),
+               ub=np.array([1.0, np.pi / 4], np.float32)) if bounded else {}
     return unicycle_ocp(N, "cpu", dtype, dt=T, Q=Q, R=R,
                         Qf=2.0 * Q if use_terminal else None, **box)
 
@@ -136,3 +138,58 @@ def test_fused_parts_on_cpu_are_the_twins():
     direct = fused_backward_torch(xs, us, ps, reg, ddp, ocp=ocp)
     for f, s, d in zip(fused, split, direct):
         assert torch.equal(f, s) and torch.equal(f, d)
+
+
+@pytest.mark.parametrize("case,use_ddp", [
+    ("u_ref", True), ("u_ref_al", True), ("u_ref_al", False), ("quad_m1", True),
+    ("quad_m4", True), ("quad_m2_euler", False)])
+def test_fused_twin_on_new_terms_matches_jax(case, use_ddp):
+    """The fused twin (K3's reference) on the control-reference and
+    quadrature terms against the JAX "xla" derivs -> backward, float64,
+    along rolled-out trajectories of random controls (Gauss-Newton on two
+    cases: it shares the cost's derivatives with DDP)."""
+    j_ocp, t_ocp = term_case_ocps(case)
+    NL, BL = 10, 6
+    rng = np.random.default_rng(16)
+    ps = term_case_params(t_ocp, BL, NL, rng)
+    opt = mv.ILQROptions(use_ddp=use_ddp)
+    xs, us, _ = jax.jit(j_make_parts(j_ocp, opt, "xla", "materialize").rollout)(
+        rng.uniform(-1.5, 1.5, (BL, NX)), 0.4 * rng.standard_normal((BL, NL, NU)),
+        ps)
+    ddp = np.ones((BL,))
+    ddp[1] = 0.0
+    data = (np.array(xs), np.array(us), ps, np.full((BL,), 1e-5), ddp)
+    xla = j_make_parts(j_ocp, opt, "xla", "materialize")
+    ref = jax.jit(xla.backward)(*jax.jit(xla.derivs)(*data[:3]), *data[3:])
+    out = fused_backward_torch(*(torch.as_tensor(a) for a in data), ocp=t_ocp,
+                               use_ddp=use_ddp, tol=opt.boxqp_tol)
+    for name, o, r in zip(("kff", "K", "dV1", "dV2", "gmax"), out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-9,
+                                   atol=1e-9, err_msg=name)
+
+
+@pytest.mark.parametrize("case", TERM_CASES)
+def test_device_model_new_terms_derivatives_match_ocp_callables(case):
+    """What K3 differentiates on the new terms: the device model's stage
+    cost and dynamics, first and second derivatives, against torch.func on
+    the port OCP's callables."""
+    _, ocp = term_case_ocps(case)
+    model = ocp.device_model
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.uniform(-2, 2, (16, NX)))
+    u = torch.as_tensor(rng.uniform(-1, 1, (16, NU)))
+    p = torch.as_tensor(term_case_params(ocp, 16, 0, rng)[:, 0])
+    close = lambda a, b: np.testing.assert_allclose(
+        a.detach().numpy(), b.detach().numpy(), rtol=1e-12, atol=1e-12)
+    step = lambda x, u, p: model.step(x, u)
+    for argnums in (0, 1):
+        close(vmap(jacfwd(jacfwd(step, argnums), argnums))(x, u, p),
+              vmap(jacfwd(jacfwd(ocp.dynamics, argnums), argnums))(x, u, p))
+        close(vmap(hessian(model.stage_cost, argnums))(x, u, p),
+              vmap(hessian(ocp.stage_cost, argnums))(x, u, p))
+    close(vmap(jacfwd(grad(model.stage_cost, 1), 0))(x, u, p),
+          vmap(jacfwd(grad(ocp.stage_cost, 1), 0))(x, u, p))
+    if ocp.terminal_cost is not None:
+        gN, HN = model.terminal_grad_hess(x, p)
+        close(gN, vmap(grad(ocp.terminal_cost))(x, p))
+        close(HN, vmap(hessian(ocp.terminal_cost))(x, p))

@@ -71,3 +71,7 @@ def test_solver_derivs_match_jax():
         assert np.abs(np.asarray(b)).max() > 0, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-10,
                                    err_msg=name)
+    # the kernel wrappers take contiguous tensors only: jacfwd's transposed
+    # terminal Hessian made the "cuda" backend refuse every terminal cost
+    assert all(v.is_contiguous() for v in d_t.values())
+    assert all(a.is_contiguous() for a in rest_t)
