@@ -47,7 +47,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               the control reference (the circular track's OCP, npar 5), the
               circular track's derived AL OCP (npar 12), the RK4 quadrature
               cost at M = 1 and M = 4 under RK4 and under Euler dynamics;
-              every variant; each case's times and bounds.
+              every variant; each case's times and bounds.  Then the linear
+              rate-form model (K1, K2 and K3, held to the float64 twin): the
+              lane change's v1 shape (nx 4, N 20, move blocking after Ntu 3,
+              npar 4), LTV (N 5, npar 16), the dynamic bicycle (nx 5, N 10,
+              npar 25) and the pendulum (N 50, npar 0 and padded to 1).
  11. ipm:     make_streaming_barrier_solver on phase 5's queue on
               "cuda_fused": cold (mu 1e-2, 1e-4, then the mu = 0 crossover,
               inexact_kappa 10) and hybrid (warmstart="ddp", mu 1e-4); final
@@ -72,7 +76,18 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               Euler + discrete, RK4 quadrature cost (M=4) with an RK4 plant;
               gates steps_to_target in 1..84 and ss_error < 0.1; then
               compare_diffdrive_methods (Euler against RK4, 90 steps).
-Phases 5, 8, 9 and 11 to 14 each set every kernel launch count to 0 just
+ 15. lanechange: the lane-change families at B=1 on "cuda_fused" with the
+              JAX tests' gates: LTI 250 steps, v1 (N=20, Ntu=3) 300 steps,
+              LTV and leitura 250 steps; the exact pin of move blocking in
+              v1's open-loop plan at B=1 and over 301 problems; 60 steps of
+              the maneuver held against the float64 "torch" run on the CPU
+              and against "cuda" (K1 at (4, 1)).
+ 16. pendulum + dynamic: the cart pendulum at its SPEC (1000 steps, N=50,
+              npar 0) with max_angle < 1.2 and final_pos_error < 0.25, its
+              first 20 steps held against CPU float64 and "cuda" (K1 at
+              (5, 1)); the dynamic bicycle 200 steps (mse_y within 1% of
+              JAX's 15.85) and corrected=True 300 steps.
+Phases 5, 8, 9 and 11 to 16 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape.  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
@@ -95,9 +110,9 @@ import torch
 SOURCES = {
     "riccati_backward": ("mpc_verde_tpu_torch/csrc/riccati.cuh",
                          "mpc_verde_tpu/ops/pallas/riccati.py:336"),
-    "linesearch_forward": ("mpc_verde_tpu_torch/csrc/rollout.cu",
+    "linesearch_forward": ("mpc_verde_tpu_torch/csrc/rollout.cuh",
                            "mpc_verde_tpu/ops/pallas/rollout.py:351"),
-    "fused_backward": ("mpc_verde_tpu_torch/csrc/fused.cu",
+    "fused_backward": ("mpc_verde_tpu_torch/csrc/fused.cuh",
                        "mpc_verde_tpu/ops/pallas/fused.py:135"),
 }
 BENCH_N, WIDTH, QUEUE, CROSS = 40, 1024, 16384, 256
@@ -159,8 +174,31 @@ def _queue(M, N, seed=0):
     return x0q, psq, np.zeros((M, N, 2), np.float32)
 
 
-def _ptxas_summary(log, sources=("riccati_warps_3x2.cu", "rollout.cu",
-                                 "fused.cu")):
+PTXAS_SOURCES = ("riccati_warps_3x2.cu", "riccati_warps_4x1.cu",
+                 "riccati_warps_5x1.cu", "rollout.cu", "rollout_linear.cu",
+                 "fused.cu", "fused_linear.cu")
+
+
+def _kernel_name(mangled):
+    """kernel<args> from a kernel template's mangled name: the model (the
+    unicycle, or the linear model with its (nx0, nu)) and the int and bool
+    arguments; the mangled name where it does not parse."""
+    t = re.search(r"\d([a-z_]+_kernel)I(.+)", mangled)
+    if not t:
+        return mangled
+    targs = t.group(2).split("Ev")[0]
+    args = []
+    model = re.search(r"(UnicycleModel|LinearRateModel)(?:ILi(\d+)ELi(\d+)E)?",
+                      targs)
+    if model:
+        args.append(model.group(1) + (f"<{model.group(2)},{model.group(3)}>"
+                                      if model.group(2) else ""))
+        targs = targs.replace(model.group(0), "")
+    args += re.findall(r"L[ib](\d+)E", targs)
+    return f"{t.group(1)}<{','.join(args)}>"
+
+
+def _ptxas_summary(log, sources=PTXAS_SOURCES):
     """Registers, stack and spills of each kernel of `sources`, from the
     build's `ptxas -v` output (build.py's log, one "== file" part a source)."""
     lines = []
@@ -172,12 +210,9 @@ def _ptxas_summary(log, sources=("riccati_warps_3x2.cu", "rollout.cu",
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?"
                 r"Used (\d+) registers", part, re.S):
             name, stack, st, ld, regs = m.groups()
-            t = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]\d+E)+)", name)
-            if t:   # a template's mangled name: kernel<args>
-                name = (t.group(1) + "<"
-                        + ",".join(re.findall(r"L[ib](\d+)E", t.group(2))) + ">")
-            lines.append(f"{part.split()[0]} {name}: {regs} registers, stack "
-                         f"{stack} B, spill stores {st} B, loads {ld} B")
+            lines.append(f"{part.split()[0]} {_kernel_name(name)}: {regs} "
+                         f"registers, stack {stack} B, spill stores {st} B, "
+                         f"loads {ld} B")
     return lines
 
 
@@ -859,115 +894,421 @@ def _k2_kernel_rule(data, alphas, ocp):
             float((~valid).any(0).float().mean()))
 
 
-def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
-    """K2 and K3 against their twins on the barrier and AL terms."""
+def _linear_flops(nx0, nu):
+    """(K2 step, K3 stage) operations of the linear rate-form model, counted
+    from its formulas: on floats the step 2 nx0 (nx0 + nu), the cost's three
+    quadratic forms 2 (nx0^2 + 2 nu^2) plus the differences, the box and the
+    clip, about 8 nu; on second-order duals over nz = nx0 + 2 nu numbers (d =
+    1 + nz + nz (nz + 1) / 2 a dual), 2 d a multiply-add by a constant and
+    about 3 d a product of two duals, plus the stage QP (K1_STAGE_FLOPS)."""
+    nz = nx0 + 2 * nu
+    d = 1 + nz + nz * (nz + 1) // 2
+    step = 2 * nx0 * (nx0 + nu)
+    cost = 2 * (nx0 * nx0 + 2 * nu * nu) + 2 * (nx0 + 2 * nu)
+    k2 = step + cost + 8 * nu
+    k3 = K1_STAGE_FLOPS + 2 * d * (step // 2 + nx0 * nx0 + 2 * nu * nu) + (
+        3 * d * (nx0 + 2 * nu))
+    return k2, k3
+
+
+# Phase 10's linear cases: (label, builder, its keywords, state scale, rate
+# scale): the lane change's v1 shape (N 20, move blocking after Ntu 3, npar
+# 4), LTV (N 5, npar 16), the dynamic bicycle (N 10, npar 25, nx 5) and the
+# pendulum (N 50, Ntu 5, npar 0 and padded to 1).
+LINEAR_CASES = [
+    ("lti N=20 Ntu=3", "build_lane_change_lti", dict(N=20, Ntu=3, n_steps=300),
+     0.5, 0.35),
+    ("ltv", "build_lane_change_ltv", dict(n_steps=500), 0.5, 0.35),
+    ("dynamic", "build_dynamic_bicycle", dict(n_steps=500), 0.5, 0.35),
+    ("pendulum", "build_pendulum", dict(n_steps=1), 1.0, 60.0),
+    ("pendulum padded", "build_pendulum", dict(n_steps=1), 1.0, 60.0),
+]
+
+
+def _linear_inputs(ocp, table, B, x_scale, u_scale, dev, seed=31, npar=None):
+    """Inputs of one linear case: starts z0 with u_prev on both sides of
+    the control box (|u_prev| up to 1.3 times the rate scale, past the lane
+    change's steering limit), nominal rates, xs their rollout by the twin,
+    random gains that clip candidates, and params drawn from the scenario's
+    own table (zeros of width ``npar`` for a model that reads none)."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
+
+    rng = np.random.default_rng(seed)
+    N, nx, nu = ocp.N, ocp.nx, ocp.nu
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    z0 = rng.uniform(-x_scale, x_scale, (B, nx))
+    z0[:, -nu:] = rng.uniform(-1.3 * u_scale, 1.3 * u_scale, (B, nu))
+    if table is None:
+        ps = np.zeros((B, N + 1, ocp.npar if npar is None else npar))
+    else:
+        ps = np.asarray(table)[rng.integers(0, len(table), B)]
+    z = dict(dtype=torch.float32, device=dev)
+    x0, ps = t(z0), t(ps)
+    xs, us, _, _ = linesearch_forward_torch(
+        x0, torch.zeros((B, N + 1, nx), **z),
+        t(rng.uniform(-u_scale, u_scale, (B, N, nu))), ps,
+        torch.zeros((B, N, nu), **z), torch.zeros((B, N, nu, nx), **z), (1.0,),
+        ocp=ocp)
+    kff = t(0.5 * u_scale * rng.normal(size=(B, N, nu)))
+    K = t(0.3 * u_scale / x_scale * rng.normal(size=(B, N, nu, nx)))
+    return (x0, xs, us, kff, K), ps
+
+
+def _linear_ocp(dev, label, dtype=torch.float32):
+    """The OCP of phase 10's linear case ``label`` and its params table; in
+    float64 (on "torch": the kernels take float32) for the reference."""
+    from mpc_verde_tpu_torch import scenarios
+
+    _, builder, kw, _, _ = next(c for c in LINEAR_CASES if c[0] == label)
+    built = getattr(scenarios, builder)(
+        device=dev, dtype=dtype,
+        backend=None if dtype == torch.float32 else "torch", **kw)
+    return built["ocp"], built.get("params_seq")
+
+
+def _linear_case(dev, B, label, seed=31):
+    """(OCP, its float64 twin, (x0, xs, us, kff, K), ps) of phase 10's
+    linear case ``label``, float32 on ``dev``."""
+    _, _, _, x_scale, u_scale = next(c for c in LINEAR_CASES if c[0] == label)
+    ocp, table = _linear_ocp(dev, label)
+    npar = 1 if label.endswith("padded") else None
+    data, ps = _linear_inputs(ocp, table, B, x_scale, u_scale, dev, seed=seed,
+                              npar=npar)
+    return ocp, _linear_ocp(dev, label, torch.float64)[0], data, ps
+
+
+def _linear_cases(dev, B):
+    """(label, OCP, float64 OCP, (x0, xs, us, kff, K), ps) of phase 10's
+    linear cases."""
+    return [(c[0], *_linear_case(dev, B, c[0])) for c in LINEAR_CASES]
+
+
+# The linear cases are held against the float64 twin.  Their plants are
+# open-loop unstable (the pendulum) or their costs large (forces up to 200),
+# so float32 round-off grows along the horizon: on the pendulum at N = 50
+# the float32 twin and the kernel, each float32 in its own order, differ by
+# 1e-4 in the cost and 3e-4 in kff (relative), above phase 4's and K1_TOL's
+# bounds, which were set on the unicycle.  So each output is held to the
+# float64 twin within the larger of that bound and F32_MARGIN times the
+# float32 twin's own distance from it: the kernel must be as accurate as
+# the plain float32 version, give or take its order of operations.
+F32_MARGIN = 4.0
+
+
+def _k2_candidates(data, alphas, ocp):
+    """The twin's candidates one alpha at a time: xs (A, B, N+1, nx), us
+    (A, B, N, nu), cost (A, B), float64."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
+
+    outs = [linesearch_forward_torch(*data, (a,), ocp=ocp) for a in alphas]
+    return tuple(torch.stack([o[i] for o in outs]).double() for i in range(3))
+
+
+def _hold_k2_f64(label, out, cand32, cand64, model):
+    """K2's outputs against the float64 twin's candidates: the picked
+    alpha's cost and trajectory within the bounds above, the pick a first
+    minimum within the cost bound, and on the move-blocked stages of
+    ``model`` (a ``LinearRateDeviceModel``) the rates exactly 0 wherever the
+    rolled u_prev lies inside the control box.  (Where a free stage's rate
+    clipped to the box's edge, u_prev + w may round past it in float32; the
+    blocked stage's box [0, u_ub - u_prev] then pulls it back by that
+    rounding, in the kernel as in the twin.)  Returns the max abs error
+    against float64."""
+    xs_k, us_k, c_k, b_k = out
+    pinned = torch.as_tensor(model.du_ub[:, 0] == 0.0, device=us_k.device)
+    up = xs_k[:, :-1][:, pinned][..., model.nx0:]
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=up.dtype,
+                                  device=up.device)
+    inside = (up >= t(model.u_lb)) & (up <= t(model.u_ub))
+    b = b_k.long()
+    rows = torch.arange(b.shape[0], device=b.device)
+    c64 = cand64[2]
+    rel = lambda a, r: float(((a - r).abs() / r.abs().clamp(min=1.0)).max())
+    tol_c = max(1e-5, F32_MARGIN * rel(cand32[2], c64))
+    tol_t = max(1e-4, F32_MARGIN * max(rel(cand32[0], cand64[0]),
+                                       rel(cand32[1], cand64[1])))
+    pick = c64[b, rows]
+    cost = rel(c_k.double(), pick)
+    cmin = c64.min(0).values
+    first_min = bool((pick <= cmin + tol_c * cmin.abs().clamp(min=1.0)).all())
+    xs_p, us_p = cand64[0][b, rows], cand64[1][b, rows]
+    traj = max(rel(xs_k.double(), xs_p), rel(us_k.double(), us_p))
+    same = float((b == c64.argmin(0)).float().mean())
+    zero = bool((us_k[:, pinned][inside] == 0.0).all())
+    print(f"[terms] K2 {label}: cost rel err vs float64 {cost:.2e} (bound "
+          f"{tol_c:.2e}), traj {traj:.2e} (bound {tol_t:.2e}), a first "
+          f"minimum {first_min}, the float64 argmin in {same:.4f}, pinned "
+          f"rates 0 {zero} (u_prev inside the box at "
+          f"{float(inside.float().mean()) if inside.numel() else 1.0:.4f} of "
+          f"the pinned stages)", flush=True)
+    if not (cost <= tol_c and traj <= tol_t and first_min and zero):
+        raise AssertionError(f"K2 {label} against float64: cost {cost} "
+                             f"(bound {tol_c}), traj {traj} (bound {tol_t}), "
+                             f"first minimum {first_min}, pinned 0 {zero}")
+    return max(_abs_err(c_k, pick), _abs_err(xs_k, xs_p), _abs_err(us_k, us_p))
+
+
+def _hold_f64(out, ref32, ref64, tag, label):
+    """Backward-pass outputs against the float64 twin: each output of
+    K1_TOL within the larger of its bound and F32_MARGIN times the float32
+    twin's distance from float64.  Returns the max abs error."""
+    errs, bounds = {}, {}
+    for n, o, r32, r64 in zip(BACKWARD_OUT, out, ref32, ref64):
+        errs[n] = _rel_err(o, r64)
+        bounds[n] = max(K1_TOL.get(n, 0.0), F32_MARGIN * _rel_err(r32, r64))
+    bad = {n: e for n, e in errs.items() if n in K1_TOL and not e <= bounds[n]}
+    print(f"[{tag}] {label} rel err vs float64 (vs max(1,|ref|)) "
+          + " ".join(f"{n}={e:.2e}/{bounds[n]:.1e}" for n, e in errs.items()),
+          flush=True)
+    if bad:
+        raise AssertionError(f"{tag.upper()} {label} out of tolerance: {bad}")
+    return max(_abs_err(o, r) for o, r in zip(out, ref64))
+
+
+def _to64(*ts):
+    return tuple(t.double() for t in ts)
+
+
+def _k1_on_case(label, ocp, ocp64, data, ps):
+    """K1 at the case's (nx, nu) on its derivatives (the twin's, along the
+    case's trajectories, with its move-blocked stages' lo == hi) against the
+    float64 twin on the float64 derivatives, under the planned variant and
+    "thread"; its time and bound."""
+    from mpc_verde_tpu_torch.ops.cuda.riccati import (
+        riccati_backward, riccati_backward_torch, riccati_launch_plan)
+    from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
+
+    _, xs, us, _, _ = data
+    B, N, nu = us.shape
+    nx = xs.shape[-1]
+    d, gN, HN, dlb, dub = trajectory_derivatives(ocp, xs, us, ps, True)
+    f = dict(dtype=torch.float32, device=xs.device)
+    args = (d, dlb.contiguous(), dub.contiguous(), gN, HN,
+            torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
+    kw = dict(nx=nx, nu=nu)
+    ref = riccati_backward_torch(*args, **kw)
+    d64, gN64, HN64, dlb64, dub64 = trajectory_derivatives(
+        ocp64, *_to64(xs, us, ps), True)
+    ref64 = riccati_backward_torch(d64, dlb64, dub64, gN64, HN64,
+                                   *_to64(*args[5:]), **kw)
+    plan = riccati_launch_plan(N, nx, nu, True, B)
+    for variant in (None, "thread"):
+        used, out = _variants_used(
+            riccati_backward,
+            lambda: riccati_backward(*args, variant=variant, **kw))
+        if used != {variant or plan.variant}:
+            raise AssertionError(f"K1 {label} ran variants {used}")
+        _hold_f64(out, ref, ref64, "terms",
+                  f"K1 {label} ({nx},{nu}) variant {sorted(used)}")
+    ms = _time_ms(lambda: riccati_backward(*args, **kw), reps=50)
+    plain_ms = _time_ms(lambda: riccati_backward_torch(*args, **kw), reps=3,
+                        warmup=1, queued=False)
+    n_in = sum(a.numel() for a in args[1:]) + sum(v.numel() for v in d.values())
+    n_out = sum(o.numel() for o in out)
+    flops = B * N * K1_STAGE_FLOPS * (nx * nx * (nx + nu)) // (9 * 5)
+    row = {"case": label, "nx": nx, "nu": nu, "ms": ms, "plain_ms": plain_ms,
+           "variant": plan.variant, **_bound(4 * (n_in + n_out), flops)}
+    print(f"[terms] K1 {label} ({nx},{nu}) B={B} N={N}: kernel {ms:.4f} ms, "
+          f"twin {plain_ms:.2f} ms, bound {row['bound_ms']:.4f} by "
+          f"{row['bound_by']}; {plan[:4]}", flush=True)
+    return row
+
+
+def _hold_case(label, ocp, data, ps, alphas, err, flops):
+    """K2 (every variant, against the twin's candidates under the kernel's
+    winner rule) and K3 (DDP on and off, "staged" and "thread", at K1_TOL)
+    against their twins on one OCP; updates ``err`` and returns the case's
+    (K2 row, K3 row) of times and bounds.  ``data`` is (x0, xs, us, kff, K)
+    and ``ps`` the OCP's params; ``flops`` (K2 a step, K3 a stage)."""
     from mpc_verde_tpu_torch.ops.cuda.fused import (
-        fused_backward, fused_backward_torch, fused_launch_plan)
+        fused_backward, fused_backward_torch)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
         LINESEARCH_VARIANTS, linesearch_forward, linesearch_forward_torch,
         linesearch_launch_plan)
 
+    x0, xs, us, kff, K = data
+    B, N, nu = us.shape
+    nx, npar, A = xs.shape[-1], ps.shape[-1], len(alphas)
+    f = dict(dtype=torch.float32, device=xs.device)
+    reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
+    sizes = dict(nx=nx, nu=nu)
+    data = (x0, xs, us, ps, kff, K)
+    best, xs_r, us_r, c_r, nonfinite = _k2_kernel_rule(data, alphas, ocp)
+    twin_best = linesearch_forward_torch(*data, alphas, ocp=ocp)[3]
+    planned = linesearch_launch_plan(N, A, npar, **sizes).variant
+    for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
+        used, (xs_k, us_k, c_k, b_k) = _variants_used(
+            linesearch_forward,
+            lambda: linesearch_forward(*data, alphas, ocp=ocp,
+                                       variant=variant))
+        same = b_k == best
+        fin = same & torch.isfinite(c_r)
+        cost_rel = float(((c_k - c_r).abs() / c_r.abs())[fin].max())
+        nonfin_ok = bool((~torch.isfinite(c_k[same & ~torch.isfinite(c_r)])
+                          ).all())
+        same_frac = float(same.float().mean())
+        traj = max(_rel_err(xs_k[same], xs_r[same]),
+                   _rel_err(us_k[same], us_r[same]))
+        print(f"[terms] K2 {label} npar={npar} variant {sorted(used)}: cost "
+              f"rel err {cost_rel:.2e}, same alpha {same_frac:.4f}, traj err "
+              f"{traj:.2e}; problems with a +inf/NaN candidate "
+              f"{nonfinite:.4f}, twin argmin elsewhere "
+              f"{float((twin_best != best).float().mean()):.4f}", flush=True)
+        if (not cost_rel <= 1e-5 or same_frac < 0.999 or not traj <= 1e-4
+                or not nonfin_ok):
+            raise AssertionError(f"K2 {label} out of tolerance: cost rel "
+                                 f"{cost_rel}, same {same_frac}, traj {traj}, "
+                                 f"non-finite winners kept {nonfin_ok}")
+        if used != {variant or planned}:
+            raise AssertionError(f"K2 {label} ran variants {used}")
+        err["linesearch_forward"] = max(
+            err["linesearch_forward"], _abs_err(c_k[fin], c_r[fin]),
+            _abs_err(xs_k[same], xs_r[same]), _abs_err(us_k[same], us_r[same]))
+
+    # Without a clip box the stage QP is a plain Newton step, and with
+    # DDP these far-from-target trajectories make Quu indefinite: the
+    # recursion then amplifies float32 round-off along the horizon
+    # (kernel and twin differed by 1e2 relative at N = 40, as the bench
+    # OCP's DDP derivatives with infinite bounds turn NaN), so that case
+    # is held on Gauss-Newton only.  DDP and Gauss-Newton share the
+    # cost's derivatives, the barrier's among them.
+    for use_ddp in ((False,) if ocp.control_bounds is None
+                    else (True, False)):
+        args = (xs, us, ps, reg, ones)
+        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+        for variant in (None, "thread"):
+            used, out = _variants_used(
+                fused_backward,
+                lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                       variant=variant))
+            if used != {variant or "staged"}:
+                raise AssertionError(f"K3 {label} ran variants {used}")
+            err["fused_backward"] = max(err["fused_backward"], _hold(
+                out, ref, "terms", f"K3 {label} npar={npar} DDP={use_ddp} "
+                f"variant {sorted(used)}"))
+
+    return _time_case(label, ocp, data, alphas, flops)
+
+
+def _time_case(label, ocp, data, alphas, flops):
+    """One case's K2 and K3 times beside their twins' and their bounds:
+    (K2 row, K3 row)."""
+    from mpc_verde_tpu_torch.ops.cuda.fused import (
+        fused_backward, fused_backward_torch, fused_launch_plan)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        linesearch_forward, linesearch_forward_torch, linesearch_launch_plan)
+
+    xs, us, ps = data[1], data[2], data[3]
+    B, N, nu = us.shape
+    nx, npar, A = xs.shape[-1], ps.shape[-1], len(alphas)
+    f = dict(dtype=torch.float32, device=xs.device)
+    reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
+    sizes = dict(nx=nx, nu=nu)
+    planned = linesearch_launch_plan(N, A, npar, **sizes).variant
+    k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
+    k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
+    out2, out3 = k2(), k3()
+    n2 = sum(a.numel() for a in data) + sum(o.numel() for o in out2)
+    n3 = xs.numel() + us.numel() + ps.numel() + 2 * B + sum(
+        o.numel() for o in out3)
+    row2 = {"case": label, "ms": _time_ms(k2, reps=50),
+            "plain_ms": _time_ms(
+                lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
+                reps=3, warmup=1, queued=False),
+            "variant": planned, **_bound(4 * n2, B * A * N * flops[0])}
+    row3 = {"case": label, "ms": _time_ms(k3, reps=50),
+            "plain_ms": _time_ms(
+                lambda: fused_backward_torch(xs, us, ps, reg, ones, ocp=ocp),
+                reps=3, warmup=1, queued=False),
+            "variant": fused_launch_plan(N, True, None, B, **sizes).variant,
+            **_bound(4 * n3, B * N * flops[1])}
+    print(f"[terms] {label} npar={npar}: K2 {row2['ms']:.4f} ms "
+          f"(twin {row2['plain_ms']:.2f}, bound {row2['bound_ms']:.4f} "
+          f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
+          f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
+          f"{row3['bound_by']}); plan K2 "
+          f"{linesearch_launch_plan(N, A, npar, **sizes)[:4]}, K3 "
+          f"{fused_launch_plan(N, True, None, B, **sizes)[:4]}", flush=True)
+    return row2, row3
+
+
+def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err, flops):
+    """K2 (every variant) and K3 (DDP on and off, both variants) on a linear
+    case against the float64 twin (``_hold_k2_f64``, ``_hold_f64``); then
+    the case's times."""
+    from mpc_verde_tpu_torch.ops.cuda.fused import (
+        fused_backward, fused_backward_torch)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan)
+
+    x0, xs, us, kff, K = data
+    B, N, nu = us.shape
+    full = (x0, xs, us, ps, kff, K)
+    full64 = _to64(*full)
+    cand32 = _k2_candidates(full, alphas, ocp)
+    cand64 = _k2_candidates(full64, alphas, ocp64)
+    planned = linesearch_launch_plan(N, len(alphas), ps.shape[-1],
+                                     nx=xs.shape[-1], nu=nu).variant
+    for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
+        used, out = _variants_used(
+            linesearch_forward,
+            lambda: linesearch_forward(*full, alphas, ocp=ocp, variant=variant))
+        if used != {variant or planned}:
+            raise AssertionError(f"K2 {label} ran variants {used}")
+        err["linesearch_forward"] = max(err["linesearch_forward"], _hold_k2_f64(
+            f"{label} variant {sorted(used)}", out, cand32, cand64,
+            ocp.device_model))
+    f = dict(dtype=torch.float32, device=xs.device)
+    args = (xs, us, ps, torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
+    for use_ddp in (True, False):
+        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+        ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+        for variant in (None, "thread"):
+            used, out = _variants_used(
+                fused_backward,
+                lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                       variant=variant))
+            if used != {variant or "staged"}:
+                raise AssertionError(f"K3 {label} ran variants {used}")
+            err["fused_backward"] = max(err["fused_backward"], _hold_f64(
+                out, ref, ref64, "terms", f"K3 {label} DDP={use_ddp} "
+                f"variant {sorted(used)}"))
+    return _time_case(label, ocp, full, alphas, flops)
+
+
+def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
+    """K2 and K3 against their twins on the barrier and AL terms and the
+    scenario terms of the unicycle, then on the linear rate-form model."""
     inputs = _term_inputs(dev, B, N)
     x0, xs, us, _, kff, K = inputs[:6]
     alphas = tuple(0.4 ** i for i in range(A))
-    f = dict(dtype=torch.float32, device=dev)
-    reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
     err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
     by_case = {"linesearch_forward": {}, "fused_backward": {}}
     for label, ocp, ps in _term_cases(dev, N, inputs):
-        npar = ps.shape[-1]
-        data = (x0, xs, us, ps, kff, K)
-        best, xs_r, us_r, c_r, nonfinite = _k2_kernel_rule(data, alphas, ocp)
-        twin_best = linesearch_forward_torch(*data, alphas, ocp=ocp)[3]
-        planned = linesearch_launch_plan(N, A, npar).variant
-        for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
-            used, (xs_k, us_k, c_k, b_k) = _variants_used(
-                linesearch_forward,
-                lambda: linesearch_forward(*data, alphas, ocp=ocp,
-                                           variant=variant))
-            same = b_k == best
-            fin = same & torch.isfinite(c_r)
-            cost_rel = float(((c_k - c_r).abs() / c_r.abs())[fin].max())
-            nonfin_ok = bool((~torch.isfinite(c_k[same & ~torch.isfinite(c_r)])
-                              ).all())
-            same_frac = float(same.float().mean())
-            traj = max(_rel_err(xs_k[same], xs_r[same]),
-                       _rel_err(us_k[same], us_r[same]))
-            print(f"[terms] K2 {label} npar={npar} variant {sorted(used)}: cost "
-                  f"rel err {cost_rel:.2e}, same alpha {same_frac:.4f}, traj err "
-                  f"{traj:.2e}; problems with a +inf/NaN candidate "
-                  f"{nonfinite:.4f}, twin argmin elsewhere "
-                  f"{float((twin_best != best).float().mean()):.4f}", flush=True)
-            if (not cost_rel <= 1e-5 or same_frac < 0.999 or not traj <= 1e-4
-                    or not nonfin_ok):
-                raise AssertionError(f"K2 {label} out of tolerance: cost rel "
-                                     f"{cost_rel}, same {same_frac}, traj {traj}, "
-                                     f"non-finite winners kept {nonfin_ok}")
-            if used != {variant or planned}:
-                raise AssertionError(f"K2 {label} ran variants {used}")
-            err["linesearch_forward"] = max(
-                err["linesearch_forward"], _abs_err(c_k[fin], c_r[fin]),
-                _abs_err(xs_k[same], xs_r[same]), _abs_err(us_k[same], us_r[same]))
-
-        # Without a clip box the stage QP is a plain Newton step, and with
-        # DDP these far-from-target trajectories make Quu indefinite: the
-        # recursion then amplifies float32 round-off along the horizon
-        # (kernel and twin differed by 1e2 relative at N = 40, as the bench
-        # OCP's DDP derivatives with infinite bounds turn NaN), so that case
-        # is held on Gauss-Newton only.  DDP and Gauss-Newton share the
-        # cost's derivatives, the barrier's among them.
-        for use_ddp in ((False,) if ocp.control_bounds is None
-                        else (True, False)):
-            args = (xs, us, ps, reg, ones)
-            ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
-            for variant in (None, "thread"):
-                used, out = _variants_used(
-                    fused_backward,
-                    lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
-                                           variant=variant))
-                if used != {variant or "staged"}:
-                    raise AssertionError(f"K3 {label} ran variants {used}")
-                err["fused_backward"] = max(err["fused_backward"], _hold(
-                    out, ref, "terms", f"K3 {label} npar={npar} DDP={use_ddp} "
-                    f"variant {sorted(used)}"))
-
-        # every case's times and bounds
+        # every case's terms for its bound
         model = ocp.device_model
         terms = [t for t, on in (("barrier", model.barrier is not None),
                                  ("al", model.al),
                                  ("u_ref", model.u_ref is not None)) if on]
         terms += (["quadrature_substep"] * model.quad_substeps
                   if model.cost == "quadrature" else [])
-        k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
-        k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
-        out2, out3 = k2(), k3()
-        n2 = sum(a.numel() for a in data) + sum(o.numel() for o in out2)
-        n3 = xs.numel() + us.numel() + ps.numel() + 2 * B + sum(
-            o.numel() for o in out3)
-        flops2 = K2_STEP_FLOPS + sum(TERM_FLOPS[t][0] for t in terms)
-        flops3 = K3_STAGE_FLOPS + sum(TERM_FLOPS[t][1] for t in terms)
-        row2 = {"case": label, "ms": _time_ms(k2, reps=50),
-                "plain_ms": _time_ms(
-                    lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
-                    reps=3, warmup=1, queued=False),
-                "variant": linesearch_launch_plan(N, A, npar).variant,
-                **_bound(4 * n2, B * A * N * flops2)}
-        row3 = {"case": label, "ms": _time_ms(k3, reps=50),
-                "plain_ms": _time_ms(
-                    lambda: fused_backward_torch(xs, us, ps, reg, ones,
-                                                 ocp=ocp),
-                    reps=3, warmup=1, queued=False),
-                "variant": fused_launch_plan(N, True, None, B).variant,
-                **_bound(4 * n3, B * N * flops3)}
-        print(f"[terms] {label} npar={npar}: K2 {row2['ms']:.4f} ms "
-              f"(twin {row2['plain_ms']:.2f}, bound {row2['bound_ms']:.4f} "
-              f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
-              f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
-              f"{row3['bound_by']}); plan K2 "
-              f"{linesearch_launch_plan(N, A, npar)[:4]}", flush=True)
+        flops = (K2_STEP_FLOPS + sum(TERM_FLOPS[t][0] for t in terms),
+                 K3_STAGE_FLOPS + sum(TERM_FLOPS[t][1] for t in terms))
+        row2, row3 = _hold_case(label, ocp, (x0, xs, us, kff, K), ps, alphas,
+                                err, flops)
         by_case["linesearch_forward"][label] = row2
         by_case["fused_backward"][label] = row3
-    return {k: {"max_abs_err": err[k], "by_case": by_case[k]} for k in err}
+    k1_rows = {}
+    for label, ocp, ocp64, data, ps in _linear_cases(dev, B):
+        model = ocp.device_model
+        row2, row3 = _hold_linear_case(label, ocp, ocp64, data, ps, alphas,
+                                       err, _linear_flops(model.nx0, model.nu))
+        by_case["linesearch_forward"][label] = row2
+        by_case["fused_backward"][label] = row3
+        k1_rows[label] = _k1_on_case(label, ocp, ocp64, data, ps)
+    out = {k: {"max_abs_err": err[k], "by_case": by_case[k]} for k in err}
+    out["riccati_backward"] = {"by_case": k1_rows}
+    return out
 
 
 def _cost_gap(res, ref):
@@ -1066,12 +1407,12 @@ DIFFDRIVE_VARIANTS = {"rk4": {}, "euler": dict(integrator="euler"),
 FUSED_PATH = ("fused_backward", "linesearch_forward")
 
 
-def _closed_loop(tag, gpu, run, n_steps, path_kernels):
+def _closed_loop(tag, gpu, run, n_steps, path_kernels, nx=3):
     """Drive one closed loop with the path's counts; returns (metrics,
     wall s, launches)."""
     m, wall, launches, twin_calls = _drive(run)
     res = m["result"]
-    if tuple(res.xs.shape) != (n_steps + 1, 3) or not bool(
+    if tuple(res.xs.shape) != (n_steps + 1, nx) or not bool(
             torch.isfinite(res.xs).all()):
         raise AssertionError(f"{tag}: xs shape {tuple(res.xs.shape)} or "
                              "non-finite values")
@@ -1080,7 +1421,8 @@ def _closed_loop(tag, gpu, run, n_steps, path_kernels):
           f"({wall:.3f} s), mean iterations {float(iters.mean()):.3f} (max "
           f"{int(iters.max())}), "
           + ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
-                      for k, v in m.items() if k != "result")
+                      for k, v in m.items()
+                      if isinstance(v, (int, float, bool)))
           + f", launches {launches}, twin calls on CUDA {twin_calls} | GPU "
           f"{gpu}", flush=True)
     _check_path(launches, twin_calls, path_kernels)
@@ -1159,6 +1501,188 @@ def phase_diffdrive(dev, gpu, n_steps=100, compare_steps=90):
     return by_path
 
 
+# The lane-change and pendulum runs that are held against the port's CPU
+# float64 run and against "cuda" (K1 at B = 1): the lane change over 60
+# steps of the course from sample 110, where the maneuver begins (the first
+# 110 steps track a straight line), and the pendulum's first 20 steps.
+# Tolerances on the states: absolute 1e-2 for the lane change (meters and
+# radians), and relative to max(1, |x|) 5e-2 for the pendulum, whose open-
+# loop unstable plant and forces up to 77 make float32 drift more: over
+# these 20 steps JAX's own float32 run leaves its float64 run by 9.6e-3
+# (the applied force, 0.25 N apart), the port's float32 run on the CPU by
+# 2.6e-2.
+LC_HOLD, LC_START, LC_STATE_TOL = 60, 110, 1e-2
+PEND_HOLD, PEND_STATE_TOL = 20, 5e-2
+K1_PATH = ("riccati_backward", "linesearch_forward")
+
+
+def _hold_states(tag, label, m, other, tol, relative=False):
+    """Max |x diff| (relative to max(1, |x|) when ``relative``) and |u
+    diff| of two closed loops over ``other``'s steps; raises past ``tol``."""
+    n = other["result"].us.shape[0]
+    xs = m["result"].xs[:n + 1].double().cpu()
+    xo = other["result"].xs.double().cpu()
+    us = m["result"].us[:n].double().cpu()
+    du = float((us - other["result"].us.double().cpu()).abs().max())
+    dx = (xs - xo).abs()
+    if relative:
+        dx = dx / xo.abs().clamp(min=1.0)
+    dx = float(dx.max())
+    print(f"[{tag}] first {n} steps against {label}: max |x diff| "
+          f"{dx:.3e}{' (vs max(1,|x|))' if relative else ''} (tolerance "
+          f"{tol}), max |u diff| {du:.3e}", flush=True)
+    if not dx <= tol:
+        raise AssertionError(f"{tag} against {label}: {dx}")
+
+
+def _cpu64(tag, run):
+    t0 = time.perf_counter()
+    m = run()
+    print(f"[{tag}] float64 \"torch\" on the CPU: {time.perf_counter() - t0:.1f} "
+          f"s, mean iterations {float(m['result'].iterations.double().mean()):.3f}",
+          flush=True)
+    return m
+
+
+def phase_lanechange(dev, gpu, n_lti=250, n_v1=300, n_ltv=250):
+    """The lane-change families at B = 1 on "cuda_fused" with the JAX
+    tests' gates (tests/test_scenarios.py), the exact pin of move blocking,
+    and 60 steps held against CPU float64 and against "cuda"."""
+    from mpc_verde_tpu_torch.refgen import synthetic_lane_change
+    from mpc_verde_tpu_torch.scenarios import (build_lane_change_lti,
+                                               build_lane_change_ltv,
+                                               build_leitura,
+                                               run_lane_change_lti,
+                                               run_lane_change_ltv)
+
+    run_lane_change_lti(build_lane_change_lti(n_steps=5, device=dev))  # warm-up
+    by_path, ms = {}, {}
+    runs = {
+        "lti": (lambda: build_lane_change_lti(n_steps=n_lti, device=dev),
+                run_lane_change_lti, n_lti, dict(mean_y=1e-3, mean_phi=1e-3),
+                "mean_y 5.063e-4, mean_phi 5.39e-5, conv 0.968, 4.344 it"),
+        "lti_v1": (lambda: build_lane_change_lti(N=20, Ntu=3, n_steps=n_v1,
+                                                 device=dev),
+                   run_lane_change_lti, n_v1,
+                   dict(mean_y=1e-3, mean_delta=1e-3),
+                   "mean_y 5.031e-5, mean_delta 2.687e-5, conv 0.9967, 7.013 it"),
+        "ltv": (lambda: build_lane_change_ltv(n_steps=n_ltv, device=dev),
+                run_lane_change_ltv, n_ltv, dict(mse=1e-2, mean_path_dist=0.1),
+                "mse 1.619e-3, mean_path_dist 0.06209, conv 0.952, 6.056 it"),
+        "leitura": (lambda: build_leitura(n_steps=n_ltv, device=dev),
+                    run_lane_change_ltv, n_ltv,
+                    dict(mse=2e-2, mean_path_dist=0.1),
+                    "mse 1.619e-3, mean_path_dist 0.06209, conv 0.952, "
+                    "6.056 it"),
+    }
+    built_v1 = None
+    for name, (build, run, n, gates, jax_ref) in runs.items():
+        built = build()
+        if name == "lti_v1":
+            built_v1 = built
+        m, wall, by_path[name] = _closed_loop(
+            name, gpu, lambda: run(built), n, FUSED_PATH, nx=4)
+        ms[name] = 1e3 * wall / n
+        print(f"[{name}] JAX float32 (CPU): {jax_ref}; converged_frac "
+              f"{m['converged_frac']:.4f} printed, not gated", flush=True)
+        bad = {k: m[k] for k, b in gates.items() if not m[k] < b}
+        if bad:
+            raise AssertionError(f"{name} gates {gates} failed: {bad}")
+
+    # the exact pin: the v1 plan's rates after Ntu = 3 are 0 (the rollout's
+    # clip on the box [0, 0]), at B = 1 and over 301 problems at once
+    from mpc_verde_tpu_torch import ILQROptions, make_batched_ilqr_solver
+
+    ocp = built_v1["ocp"]
+    res = built_v1["solve"](torch.zeros(4, device=dev),
+                            built_v1["params_seq"][min(150, n_v1 - 1)],
+                            torch.zeros((ocp.N, ocp.nu), device=dev))
+    dus = res.us.double().cpu()
+    tail, head = float(dus[3:].abs().max()), float(dus[:3].abs().max())
+    solve_b = make_batched_ilqr_solver(ocp, ILQROptions(max_iters=30))
+    rng = np.random.default_rng(41)
+    z0 = torch.zeros((301, 4), device=dev)
+    z0[:, :3] = torch.as_tensor(rng.uniform(-0.5, 0.5, (301, 3)), device=dev)
+    res_b = solve_b(z0, built_v1["params_seq"][rng.integers(0, n_v1, 301)],
+                    None)
+    tail_b = float(res_b.us[:, 3:].abs().max())
+    print(f"[lti_v1] move blocking: |w[3:]| max {tail:.1e} at B=1 and "
+          f"{tail_b:.1e} over B=301 (must be 0), |w[:3]| max {head:.3e}",
+          flush=True)
+    if tail != 0.0 or tail_b != 0.0 or not head > 0.0:
+        raise AssertionError(f"move blocking: tail {tail}, {tail_b}, head {head}")
+
+    # 60 steps of the maneuver: "cuda_fused", "cuda" (K1 at (4, 1), B = 1)
+    # and the CPU float64 run
+    path = {k: np.asarray(v)[LC_START:]
+            for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
+    hold = lambda **kw: run_lane_change_lti(build_lane_change_lti(
+        path=path, n_steps=LC_HOLD, **kw))
+    m_f, _, by_path["lti_hold"] = _closed_loop(
+        "lti_hold", gpu, lambda: hold(device=dev), LC_HOLD, FUSED_PATH, nx=4)
+    m_c, _, by_path["lti_cuda"] = _closed_loop(
+        "lti_cuda", gpu, lambda: hold(device=dev, backend="cuda"), LC_HOLD,
+        K1_PATH, nx=4)
+    m_64 = _cpu64("lti_hold", lambda: hold(device="cpu", dtype=torch.float64))
+    for label, other in (("CPU float64", m_64), ('"cuda"', m_c)):
+        _hold_states("lti_hold", label, m_f, other, LC_STATE_TOL)
+    return by_path, ms
+
+
+def phase_pendulum_dynamic(dev, gpu, n_dyn=200, n_dyn_c=300):
+    """The cart pendulum at its SPEC and the dynamic bicycle in both modes,
+    at B = 1 on "cuda_fused"; the pendulum's first 20 steps held against CPU
+    float64 and against "cuda" (K1 at (5, 1))."""
+    from mpc_verde_tpu_torch.scenarios import (build_dynamic_bicycle,
+                                               build_pendulum,
+                                               run_dynamic_bicycle,
+                                               run_pendulum)
+
+    run_pendulum(build_pendulum(n_steps=3, device=dev))   # warm-up
+    by_path, ms = {}, {}
+    built = build_pendulum(device=dev)
+    n = built["spec"]["n_steps"]
+    m, wall, by_path["pendulum"] = _closed_loop(
+        "pendulum", gpu, lambda: run_pendulum(built), n, FUSED_PATH, nx=5)
+    ms["pendulum"] = 1e3 * wall / n
+    print(f"[pendulum] JAX (CPU, SPEC): final_pos_error 0.1593 / 0.1620, "
+          f"max_angle 0.3697 / 0.3690, max_force 77.26 / 77.07, conv 1.0 / "
+          f"0.988, 3.0 / 13.17 it (float64 / float32); max_force "
+          f"{m['max_force']:.4f}", flush=True)
+    if not (m["max_angle"] < 1.2 and m["final_pos_error"] < 0.25):
+        raise AssertionError(f"pendulum gates failed: max_angle "
+                             f"{m['max_angle']}, final_pos_error "
+                             f"{m['final_pos_error']}")
+    m_c, _, by_path["pendulum_cuda"] = _closed_loop(
+        "pendulum_cuda", gpu, lambda: run_pendulum(build_pendulum(
+            n_steps=PEND_HOLD, device=dev, backend="cuda")), PEND_HOLD,
+        K1_PATH, nx=5)
+    m_64 = _cpu64("pendulum", lambda: run_pendulum(build_pendulum(
+        n_steps=PEND_HOLD, device="cpu", dtype=torch.float64)))
+    for label, other in (("CPU float64", m_64), ('"cuda"', m_c)):
+        _hold_states("pendulum", label, m, other, PEND_STATE_TOL, relative=True)
+
+    for name, kw, n_d in (("dynamic", {}, n_dyn),
+                          ("dynamic_corrected", dict(corrected=True), n_dyn_c)):
+        built = build_dynamic_bicycle(n_steps=n_d, device=dev, **kw)
+        m, wall, by_path[name] = _closed_loop(
+            name, gpu, lambda: run_dynamic_bicycle(built), n_d, FUSED_PATH,
+            nx=5)
+        ms[name] = 1e3 * wall / n_d
+        if name == "dynamic":
+            print("[dynamic] JAX (CPU): mse_y 15.85, max_err_y 7.396, conv "
+                  "1.0, 2.675 / 9.01 it (float64 / float32)", flush=True)
+            ok = (m["converged_frac"] >= 0.99 and np.isfinite(m["mse_y"])
+                  and abs(m["mse_y"] - 15.85) <= 0.01 * 15.85)
+        else:
+            print("[dynamic_corrected] JAX (CPU): mse_y 0.5732, max_err_y "
+                  "1.820, conv 1.0, 1.613 it", flush=True)
+            ok = m["mse_y"] < 1.0 and m["max_err_y"] < 2.5
+        if not ok:
+            raise AssertionError(f"{name} gates failed: {m}")
+    return by_path, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1203,6 +1727,9 @@ def main() -> int:
     by_path.update(phase_al(dev, gpu))
     by_path.update(phase_circular(dev, gpu))
     by_path.update(phase_diffdrive(dev, gpu))
+    for phase in (phase_lanechange, phase_pendulum_dynamic):
+        paths, _ = phase(dev, gpu)
+        by_path.update(paths)
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

@@ -36,11 +36,15 @@ extern "C" int mv_riccati_backward(int nx, int nu, int use_ddp, int B, int N, fl
   if (variant == 0) {
     if (nx == 3 && nu == 1) return mv_riccati_launch_3x1(a, d, s);
     if (nx == 3 && nu == 2) return mv_riccati_launch_3x2(a, d, s);
+    if (nx == 4 && nu == 1) return mv_riccati_launch_4x1(a, d, s);
+    if (nx == 5 && nu == 1) return mv_riccati_launch_5x1(a, d, s);
     if (nx == 4 && nu == 3) return mv_riccati_launch_4x3(a, d, s);
     if (nx == 5 && nu == 4) return mv_riccati_launch_5x4(a, d, s);
   } else {
     if (nx == 3 && nu == 1) return mv_riccati_warps_launch_3x1(a, d, problems, layout, c, s);
     if (nx == 3 && nu == 2) return mv_riccati_warps_launch_3x2(a, d, problems, layout, c, s);
+    if (nx == 4 && nu == 1) return mv_riccati_warps_launch_4x1(a, d, problems, layout, c, s);
+    if (nx == 5 && nu == 1) return mv_riccati_warps_launch_5x1(a, d, problems, layout, c, s);
     if (nx == 4 && nu == 3) return mv_riccati_warps_launch_4x3(a, d, problems, layout, c, s);
     if (nx == 5 && nu == 4) return mv_riccati_warps_launch_5x4(a, d, problems, layout, c, s);
   }

@@ -618,11 +618,17 @@ cudaError_t riccati_launch(const RiccatiArgs& a, bool ddp, cudaStream_t stream) 
 // and `clocks` null or the device array the timing instantiation fills.
 cudaError_t mv_riccati_launch_3x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_3x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
+cudaError_t mv_riccati_launch_4x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
+cudaError_t mv_riccati_launch_5x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_4x3(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_5x4(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_3x1(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_3x2(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_4x1(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_5x1(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_4x3(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);

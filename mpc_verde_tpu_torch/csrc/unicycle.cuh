@@ -32,6 +32,11 @@
 // barrier_term / al_penalty are
 // templates on the scalar type T: K2 evaluates them on float, K3 on the
 // forward-mode numbers of dual.cuh, so both kernels evaluate one definition.
+// The kernels (rollout.cuh, fused.cuh) are templates on the model and read
+// every model through the same members: kNX, kNU, bounds (the stage's
+// control box; here the constant one), clip, and the free functions step /
+// stage_cost / has_terminal_cost / terminal_cost (linear_rate.cuh gives the
+// linear rate-form model the same surface).
 // T needs +, -, * with T and float, / by a float, construction from a
 // float, and mv_sin / mv_cos / mv_log / mv_max / mv_value overloads.
 
@@ -49,6 +54,7 @@ constexpr int kBarrierStreaming = 1, kBarrierBatched = 2;
 constexpr int kModelFloats = 42, kModelInts = 10;
 
 struct UnicycleModel {
+  static constexpr int kNX = 3, kNU = 2;
   float h, h_half, h_sixth;  // RK4 substep constants (Euler uses h)
   int substeps;
   int euler;                 // 0: RK4, 1: explicit Euler
@@ -64,6 +70,21 @@ struct UnicycleModel {
   float lb[kNU], ub[kNU];    // the clip box
   float blb[kNU], bub[kNU];  // the barrier's box
   float xlb[kNX], xub[kNX];  // the AL state box
+
+  // Stage k's control box at state x: the constant clip box.
+  __device__ __forceinline__ void bounds(const float (&)[kNX], int, float (&lo)[kNU],
+                                         float (&hi)[kNU]) const {
+#pragma unroll
+    for (int a = 0; a < kNU; ++a) {
+      lo[a] = lb[a];
+      hi[a] = ub[a];
+    }
+  }
+
+  // clip = min(max(v, lo), hi), NaN-propagating like jnp.clip (lo <= hi)
+  __device__ __forceinline__ static float clip(float v, float lo, float hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+  }
 };
 
 // `model` is a host array of kModelFloats floats: h, h/2, h/6, Q, R, Qf, lb,
@@ -125,8 +146,10 @@ __device__ __forceinline__ void rhs(const T (&x)[kNX], const T (&u)[kNU], T (&f)
   f[2] = u[1];
 }
 
+// One step of the dynamics; the unicycle reads no parameter.
 template <class T>
-__device__ __forceinline__ void step(const UnicycleModel& m, T (&x)[kNX], const T (&u)[kNU]) {
+__device__ __forceinline__ void step(const UnicycleModel& m, T (&x)[kNX], const T (&u)[kNU],
+                                     const float*) {
   for (int s = 0; s < m.substeps; ++s) {
     T k1[kNX], k2[kNX], k3[kNX], k4[kNX], t[kNX];
     rhs(x, u, k1);

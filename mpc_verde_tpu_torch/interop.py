@@ -4,6 +4,7 @@ The JAX package (``mpc_verde_tpu``) is the reference; the port never imports
 it.  Data crosses as numpy arrays: ``from_numpy`` turns what the JAX side
 feeds or returns into tensors, ``result_to_numpy`` turns a port result back.
 ``unicycle_ocp`` builds a unicycle OCP with its matching device model,
+``linear_rate_ocp`` the rate form of a linear plant with its own,
 ``bench_ocp`` the diff-drive point-stabilization OCP that the JAX package's
 ``bench.py`` headlines (``build_ocp``), constants included, optionally with a
 state box, and ``derived_ocps`` the OCPs that the interior-point and
@@ -18,9 +19,9 @@ import numpy as np
 import torch
 
 from .models import unicycle
-from .ocp import OCP, box_bounds
+from .ocp import OCP, box_bounds, to_rate_form
 from .ops import discretize, rk4_step_with_quadrature
-from .ops.cuda.rollout import UnicycleDeviceModel
+from .ops.cuda.rollout import LinearRateDeviceModel, UnicycleDeviceModel
 from .runtime import ClosedLoopResult
 from .solver.ilqr import ILQRResult
 
@@ -134,6 +135,68 @@ def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
     return OCP(dynamics=F, stage_cost=l, terminal_cost=lf, N=N, nx=3, nu=2,
                npar=model.min_npar, control_bounds=cb, device=device,
                dtype=dtype, device_model=model)
+
+
+def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
+                    u_lb=None, u_ub=None, du_lb=None, du_ub=None, Ad=None,
+                    Bd=None, ab_col=None, x_ref=None, target=None,
+                    u_ref=None) -> OCP:
+    """The rate form (``to_rate_form``) of the linear plant ``x' = Ad x +
+    Bd u`` with the cost ``(x - r)' Q (x - r) + (u - u_r)' R (u - u_r) + du'
+    R_du du``, and its matching ``LinearRateDeviceModel``, from one set of
+    numbers.
+
+    ``Ad`` (nx0, nx0) and ``Bd`` (nx0, nu) are constants, or with
+    ``ab_col`` each stage's params hold them (``Ad`` row-major from column
+    ``ab_col``, then ``Bd``).  ``r`` is ``p[x_ref : x_ref + nx0]`` or the
+    constant ``target`` (zeros by default), ``u_r`` is ``p[u_ref : u_ref +
+    nu]`` or zero; ``R_du`` defaults to zeros.  ``u_lb`` / ``u_ub`` (nu,) and
+    ``du_lb`` / ``du_ub`` ((nu,) or (N, nu)) are the magnitude and rate
+    boxes (+-inf where None).  The OCP's npar is the columns the model
+    reads.  The numbers keep the caller's values; the kernels take them
+    rounded to float32.
+    """
+    device = torch.device(device)
+    num = lambda a: np.asarray(a, dtype=np.float64)
+    Qn, Rn = num(Q), num(R)
+    nx0, nu = Qn.shape[0], Rn.shape[0]
+    R_dun = np.zeros((nu, nu)) if R_du is None else num(R_du)
+
+    def table(b, fill):
+        return np.broadcast_to(np.full(nu, fill) if b is None else num(b),
+                               (N, nu)).copy()
+
+    bounds = dict(u_lb=np.full(nu, -np.inf) if u_lb is None else num(u_lb),
+                  u_ub=np.full(nu, np.inf) if u_ub is None else num(u_ub),
+                  du_lb=table(du_lb, -np.inf), du_ub=table(du_ub, np.inf))
+    model = LinearRateDeviceModel(
+        N=N, Q=Qn, R=Rn, R_du=R_dun, **bounds,
+        Ad=None if Ad is None else num(Ad), Bd=None if Bd is None else num(Bd),
+        ab_col=ab_col, x_ref=x_ref,
+        target=None if target is None else num(target), u_ref=u_ref)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    Qt, Rt, Rdt = t(Qn), t(Rn), t(R_dun)
+    rt = t(np.zeros(nx0) if target is None else num(target))
+
+    if ab_col is None:
+        At, Bt = t(num(Ad)), t(num(Bd))
+
+        def F(x, u, p):
+            return At @ x + Bt @ u
+    else:
+        def F(x, u, p):
+            A = p[ab_col:ab_col + nx0 * nx0].reshape(nx0, nx0)
+            B = p[ab_col + nx0 * nx0:ab_col + nx0 * (nx0 + nu)].reshape(nx0, nu)
+            return A @ x + B @ u
+
+    def l(x, u, p, du):
+        e = x - (rt if x_ref is None else p[x_ref:x_ref + nx0])
+        eu = u if u_ref is None else u - p[u_ref:u_ref + nu]
+        return e @ Qt @ e + eu @ Rt @ eu + du @ Rdt @ du
+
+    return to_rate_form(F, l, N=N, nx=nx0, nu=nu, npar=model.min_npar,
+                        **bounds, device=device, dtype=dtype,
+                        device_model=model)
 
 
 def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,

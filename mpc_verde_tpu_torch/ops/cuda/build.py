@@ -43,9 +43,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21
                            + [_I, _I, _IP, _P] + [_P],
-    "mv_linesearch_forward": [_I, _I, _I] + [_P] * 6 + [_FP, _IP, _FP, _I]
+    "mv_linesearch_forward": [_I, _I, _I, _I] + [_P] * 6 + [_FP, _IP, _P, _FP, _I]
                              + [_P] * 4 + [_I, _I, _IP] + [_P],
-    "mv_fused_backward": [_I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP]
+    "mv_fused_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP, _P]
                          + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
 }
 

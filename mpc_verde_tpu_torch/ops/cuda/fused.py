@@ -9,8 +9,10 @@ memory.
 
 Its kernel is ``csrc/fused.cu``, two phases in one launch.  In phase 1 a
 block's threads take its problems' stages one (problem, stage) at a time:
-each evaluates the OCP's ``UnicycleDeviceModel`` (``csrc/unicycle.cuh``, the
-model K2 evaluates) on second-order forward-mode dual numbers
+each evaluates the OCP's device model (``UnicycleDeviceModel``,
+``csrc/unicycle.cuh``, or ``LinearRateDeviceModel``, ``csrc/linear_rate.cuh``:
+the models K2 evaluates; the kernels, templates on the model, are in
+``csrc/fused.cuh``) on second-order forward-mode dual numbers
 (``csrc/dual.cuh``) over z = [x; u] and stores the stage's derivatives as
 one record in shared memory.  In phase 2 one thread per problem walks the
 stages N-1..0 with K1's stage recursion (``backward_stage`` in
@@ -38,7 +40,6 @@ from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
 from .riccati import riccati_backward_torch
 
 FUSED_VARIANTS = ("thread", "staged")  # the C entry's ids
-_NX, _NU = 3, 2
 # The plan's constants follow measurements on the H100
 # (utils/tune_launch_plans.py, DDP, B = 1024 unless said).
 # Problems a block: at N = 40, 8 take 0.074 ms, 4 and 2 take 0.137 ms (their
@@ -60,9 +61,11 @@ _MAX_THREADS = 256    # kMaxThreads in csrc/fused.cu: 255 registers a thread
 
 
 def fused_launch_plan(N: int, use_ddp: bool, variant: Optional[str] = None,
-                      B: Optional[int] = None) -> LaunchPlan:
-    """How ``fused_backward`` launches its kernel for horizon ``N`` and
-    batch ``B`` (one wave of blocks if not given): a rule on the shape.
+                      B: Optional[int] = None, *, nx: int = 3,
+                      nu: int = 2) -> LaunchPlan:
+    """How ``fused_backward`` launches its kernel for horizon ``N``, batch
+    ``B`` (one wave of blocks if not given) and the model's sizes ``(nx,
+    nu)`` (the unicycle's by default): a rule on the shape.
 
     A block takes 8 problems, halved until their N stage records and kff/K
     staging fit its shared memory: ``"staged"`` if at least 4 fit and the
@@ -78,14 +81,14 @@ def fused_launch_plan(N: int, use_ddp: bool, variant: Optional[str] = None,
     """
     if variant is not None and variant not in FUSED_VARIANTS:
         raise ValueError(f"unknown fused-backward variant {variant!r}")
-    nz = _NX + _NU
+    nz = nx + nu
     tri = nz * (nz + 1) // 2
     # SharedStage's record (csrc/riccati.cuh, kStride): the dynamics'
     # gradients (and Hessian triangles with DDP), the cost's gradient and
     # triangle, lo and hi.  Every stride is odd, so that neither phase's
     # lanes meet in a shared-memory bank.
-    record = (_NX * (nz + (tri if use_ddp else 0)) + nz + tri + 2 * _NU) | 1
-    strides = ((N * record) | 1, (N * _NU) | 1, (N * _NU * _NX) | 1)
+    record = (nx * (nz + (tri if use_ddp else 0)) + nz + tri + 2 * nu) | 1
+    strides = ((N * record) | 1, (N * nu) | 1, (N * nu * nx) | 1)
     smem = lambda pb: 4 * pb * sum(strides)
     if variant != "thread":
         pb = _BLOCK_PROBLEMS
@@ -102,7 +105,8 @@ def fused_launch_plan(N: int, use_ddp: bool, variant: Optional[str] = None,
         if variant is not None:
             raise ValueError(f'variant "staged" needs {smem(1)} bytes of shared '
                              f"memory for one problem at N={N}, "
-                             f"use_ddp={use_ddp}; a block has {SMEM_MAX_BYTES}")
+                             f"use_ddp={use_ddp}, (nx, nu)=({nx}, {nu}); a "
+                             f"block has {SMEM_MAX_BYTES}")
     return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
@@ -143,16 +147,16 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
             "cannot differentiate Python callables)")
     B, N, nu = us.shape
     nx, npar = xs.shape[-1], ps.shape[-1]
-    if (nx, nu) != (3, 2) or npar < model.min_npar:
-        raise ValueError(f"the unicycle device model needs nx=3, nu=2, "
-                         f"npar>={model.min_npar}")
+    if (nx, nu) != (model.nx, model.nu) or npar < model.min_npar:
+        raise ValueError(f"the {type(model).__name__} needs nx={model.nx}, "
+                         f"nu={model.nu}, npar>={model.min_npar}")
     if ddp_scale is None:
         ddp_scale = torch.ones((B,), dtype=torch.float32, device=xs.device)
     named = [("xs", xs, (B, N + 1, nx)), ("us", us, (B, N, nu)),
              ("ps", ps, (B, N + 1, npar)), ("reg", reg, (B,)),
              ("ddp_scale", ddp_scale, (B,))]
     check_args("fused_backward", xs.device, named)
-    plan = fused_launch_plan(N, use_ddp, variant, B)
+    plan = fused_launch_plan(N, use_ddp, variant, B, nx=nx, nu=nu)
 
     lib = load_library()
     opts = dict(dtype=torch.float32, device=xs.device)
@@ -165,13 +169,13 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
         clocks = torch.zeros((-(-B // plan.problems), 3), dtype=torch.int64,
                              device=xs.device)
         out += (clocks,)
-    c_model, c_ints = model.kernel_args()
+    c_model, c_ints, c_tables = model.kernel_args(xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mv_fused_backward(
-            int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
+            model.kind, int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), reg.data_ptr(), ddp_scale.data_ptr(),
-            c_model, c_ints, kff.data_ptr(),
+            c_model, c_ints, c_tables, kff.data_ptr(),
             K.data_ptr(), dV1.data_ptr(), dV2.data_ptr(), gmax.data_ptr(),
             FUSED_VARIANTS.index(plan.variant), plan.problems, plan.threads,
             plan.c_layout(), None if clocks is None else clocks.data_ptr(),

@@ -25,12 +25,15 @@ The plan also computes the kernel's shared-memory layout, which the C entry
 point takes as it is.
 
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
-Python callable, so the kernel evaluates a ``UnicycleDeviceModel`` carried on
-the OCP: plain numbers describing the same dynamics, cost and box as the
-OCP's torch callables.  Its ``step`` / ``stage_cost`` / ``terminal_cost`` /
-``terminal_grad_hess`` methods are those formulas in PyTorch, in the
-kernels' order, so a test can tie the two definitions together.  The model's
-device code is ``csrc/unicycle.cuh``, shared with the fused kernel K3.
+Python callable, so the kernel evaluates a device model carried on the OCP:
+plain numbers describing the same dynamics, cost and box as the OCP's torch
+callables.  Two models exist: ``UnicycleDeviceModel`` (``csrc/unicycle.cuh``)
+and ``LinearRateDeviceModel`` (``csrc/linear_rate.cuh``), the rate form of a
+linear plant that ``ocp/rate.py`` builds.  Their ``step`` / ``stage_cost`` /
+... methods are those formulas in PyTorch, in the kernels' order, so a test
+can tie the two definitions together.  The kernels are templates on the
+model (``csrc/rollout.cuh``, instantiated in ``rollout.cu`` and
+``rollout_linear.cu``); K3 shares the models' device code.
 
 ``linesearch_forward_torch`` is the plain PyTorch version: the JAX
 materialising line search (``mpc_verde_tpu/solver/batched.py``) on the
@@ -49,9 +52,8 @@ from torch.func import vmap
 from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
                     load_library)
 
-MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cu: one problem's lanes fit a warp
+MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cuh: one problem's lanes fit a warp
 LINESEARCH_VARIANTS = ("thread", "lanes", "lanes_reroll")  # the C entry's ids
-_NX, _NU = 3, 2
 # The plan's constants follow measurements on the H100
 # (utils/tune_launch_plans.py, B = 1024 unless said).
 # Lanes a block: the kernel's time is one candidate's chain, so 32 to 256
@@ -67,9 +69,11 @@ _WARP = 32
 
 
 def linesearch_launch_plan(N: int, A: int, npar: int,
-                           variant: Optional[str] = None) -> LaunchPlan:
+                           variant: Optional[str] = None, *, nx: int = 3,
+                           nu: int = 2) -> LaunchPlan:
     """How ``linesearch_forward`` launches its kernel for horizon ``N``,
-    ``A`` alphas and ``npar`` parameters: a rule on the shape.
+    ``A`` alphas, ``npar`` parameters and the model's sizes ``(nx, nu)``
+    (the unicycle's by default): a rule on the shape.
 
     A block takes 64 / A_pad problems (A_pad: A rounded up to a power of
     two), halved until its shared memory fits.  ``"lanes"`` if A > 1 and the
@@ -87,7 +91,7 @@ def linesearch_launch_plan(N: int, A: int, npar: int,
     if variant is not None and variant not in LINESEARCH_VARIANTS:
         raise ValueError(f"unknown line-search variant {variant!r}")
     a_pad = 1 << (A - 1).bit_length()
-    lx, lu, lk, lp = (N + 1) * _NX, N * _NU, N * _NU * _NX, (N + 1) * npar
+    lx, lu, lk, lp = (N + 1) * nx, N * nu, N * nu * nx, (N + 1) * npar
     slot = (lx + lu) | 1    # odd: the lanes of a group write different banks
 
     def layout(pb, slots):
@@ -118,7 +122,8 @@ def linesearch_launch_plan(N: int, A: int, npar: int,
         if variant is not None:
             raise ValueError(f"variant {name!r} needs {smem(1, slots)} bytes of "
                              f"shared memory for one problem at N={N}, A={A}, "
-                             f"npar={npar}; a block has {SMEM_MAX_BYTES}")
+                             f"npar={npar}, (nx, nu)=({nx}, {nu}); a block has "
+                             f"{SMEM_MAX_BYTES}")
     return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
 
 
@@ -128,7 +133,8 @@ STAGE_COSTS = ("discrete", "quadrature")
 
 @dataclasses.dataclass(frozen=True)
 class UnicycleDeviceModel:
-    """Kernel-side description of a unicycle OCP (nx = 3, nu = 2, npar >= 3).
+    """Kernel-side description of a unicycle OCP (nx = 3, nu = 2, npar >= 3;
+    model kind 0 of the kernels' C entry points).
 
     Dynamics: unicycle kinematics, ``integrator`` "rk4" (``substeps`` equal
     substeps over ``dt``) or "euler" (one step).  Running cost
@@ -207,6 +213,10 @@ class UnicycleDeviceModel:
             if np.shape(getattr(self, name)) != shape:
                 raise ValueError(f"{name} must have shape {shape}")
 
+    nx = 3
+    nu = 2
+    kind = 0
+
     @property
     def al_mu(self) -> int:
         return self.al_lam + 6
@@ -280,11 +290,13 @@ class UnicycleDeviceModel:
                          self.quad_substeps if self.cost == "quadrature"
                          else 0], np.int32)
 
-    def kernel_args(self):
+    def kernel_args(self, device=None):
         """The model as the kernels' C entry points take it: (packed floats,
-        packed ints).  The pointers keep the packed arrays alive."""
+        packed ints, device tables: none for the unicycle).  The pointers
+        keep the packed arrays alive."""
         return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                None)
 
     # --- the kernel's formulas in PyTorch (batched over leading dims) -------
     def _t(self, a, like):
@@ -404,6 +416,200 @@ class UnicycleDeviceModel:
         return g, H
 
 
+# (nx0, nu) of the linear rate-form instantiations -> their model kind in
+# the kernels' C entry points (csrc/rollout_linear.cu, fused_linear.cu)
+LINEAR_KINDS = {(3, 1): 1, (4, 1): 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearRateDeviceModel:
+    """Kernel-side description of the rate form of a linear plant
+    (``ocp.rate.to_rate_form``; model kinds 1 and 2 of the C entry points).
+
+    State ``z = [x; u_prev]`` (nx = nx0 + nu), control ``w = du``, ``u =
+    u_prev + w``.  Dynamics ``x' = Ad x + Bd u``, ``u_prev' = u``: ``Ad``
+    (nx0, nx0) and ``Bd`` (nx0, nu) are constants (LTI), or with ``ab_col``
+    read from each stage's params, ``Ad`` row-major in ``p[ab_col : ab_col +
+    nx0^2]`` and then ``Bd`` row-major (LTV).  Stage cost ``(x - r)' Q (x -
+    r) + (u - u_r)' R (u - u_r) + w' R_du w``: ``r = p[x_ref : x_ref + nx0]``
+    or the constant ``target`` (zeros if not given), ``u_r = p[u_ref :
+    u_ref + nu]`` or zero.  No terminal cost.  Stage k's box is
+    ``max(du_lb[k], u_lb - u_prev) <= w <= min(du_ub[k], u_ub - u_prev)``,
+    the ``w_bounds`` of ``to_rate_form``; the kernels evaluate it on the
+    state being rolled (K2) and on the nominal state (K3), and read the
+    (N, nu) rate tables from device memory.
+
+    The model carries no barrier and no AL term: ``with_barrier`` and
+    ``with_al`` return None, so the OCPs the interior-point and state-bound
+    solvers derive from a rate-form OCP have no device model, and run on the
+    card only with ``backend="torch"``.  The kernels exist for (nx0, nu) in
+    ``LINEAR_KINDS``.
+    """
+
+    N: int
+    Q: np.ndarray
+    R: np.ndarray
+    R_du: np.ndarray
+    u_lb: np.ndarray
+    u_ub: np.ndarray
+    du_lb: np.ndarray
+    du_ub: np.ndarray
+    Ad: Optional[np.ndarray] = None
+    Bd: Optional[np.ndarray] = None
+    ab_col: Optional[int] = None
+    x_ref: Optional[int] = None
+    target: Optional[np.ndarray] = None
+    u_ref: Optional[int] = None
+
+    def __post_init__(self):
+        nx0, nu = np.shape(self.Q)[0], np.shape(self.R)[0]
+        if (self.ab_col is None) == (self.Ad is None or self.Bd is None):
+            raise ValueError("give the constant Ad and Bd, or ab_col")
+        if self.x_ref is not None and self.target is not None:
+            raise ValueError("give x_ref or target, not both")
+        for col in ("ab_col", "x_ref", "u_ref"):
+            if getattr(self, col) is not None and getattr(self, col) < 0:
+                raise ValueError(f"{col} must be a column index >= 0")
+        shapes = {"Q": (nx0, nx0), "R": (nu, nu), "R_du": (nu, nu),
+                  "u_lb": (nu,), "u_ub": (nu,), "du_lb": (self.N, nu),
+                  "du_ub": (self.N, nu)}
+        if self.ab_col is None:
+            shapes.update(Ad=(nx0, nx0), Bd=(nx0, nu))
+        if self.target is not None:
+            shapes["target"] = (nx0,)
+        for name, shape in shapes.items():
+            if np.shape(getattr(self, name)) != shape:
+                raise ValueError(f"{name} must have shape {shape}")
+        object.__setattr__(self, "_tables", {})
+
+    @property
+    def nx0(self) -> int:
+        return int(np.shape(self.Q)[0])
+
+    @property
+    def nu(self) -> int:
+        return int(np.shape(self.R)[0])
+
+    @property
+    def nx(self) -> int:
+        return self.nx0 + self.nu
+
+    @property
+    def kind(self) -> int:
+        """The kernels' model kind; raises for sizes without kernels."""
+        if (self.nx0, self.nu) not in LINEAR_KINDS:
+            raise NotImplementedError(
+                f"no linear rate-form kernels for (nx0, nu) = ({self.nx0}, "
+                f"{self.nu}); built for {sorted(LINEAR_KINDS)}")
+        return LINEAR_KINDS[(self.nx0, self.nu)]
+
+    @property
+    def min_npar(self) -> int:
+        """The fewest parameter columns the model reads (0 for none)."""
+        cols = [0]
+        if self.ab_col is not None:
+            cols.append(self.ab_col + self.nx0 * (self.nx0 + self.nu))
+        if self.x_ref is not None:
+            cols.append(self.x_ref + self.nx0)
+        if self.u_ref is not None:
+            cols.append(self.u_ref + self.nu)
+        return max(cols)
+
+    def with_barrier(self, lb, ub, mu_col: int, rule: str, clip: bool = True):
+        """None: the linear model carries no barrier term."""
+        return None
+
+    def with_al(self, x_lb, x_ub, lam_col: int):
+        """None: the linear model carries no AL term."""
+        return None
+
+    def packed(self) -> np.ndarray:
+        """float32 [Ad, Bd, Q, R, R_du, target, u_lb, u_ub], row-major, the
+        kernels' layout (zeros for Ad and Bd of an LTV model and for an
+        absent target)."""
+        z = lambda a, n: np.zeros(n) if a is None else np.ravel(a)
+        nx0, nu = self.nx0, self.nu
+        return np.concatenate([
+            z(self.Ad, nx0 * nx0), z(self.Bd, nx0 * nu), np.ravel(self.Q),
+            np.ravel(self.R), np.ravel(self.R_du), z(self.target, nx0),
+            np.ravel(self.u_lb), np.ravel(self.u_ub)]).astype(np.float32)
+
+    def packed_ints(self) -> np.ndarray:
+        """int32 [ab_col, x_ref, u_ref (-1 for none), N]."""
+        c = lambda v: -1 if v is None else v
+        return np.array([c(self.ab_col), c(self.x_ref), c(self.u_ref),
+                         self.N], np.int32)
+
+    def tables(self, device) -> torch.Tensor:
+        """The rate bounds as the kernels read them: float32 (2, N, nu),
+        du_lb then du_ub, on ``device`` (made once a device)."""
+        device = torch.device(device)
+        if device not in self._tables:
+            self._tables[device] = torch.as_tensor(
+                np.stack([self.du_lb, self.du_ub]), dtype=torch.float32,
+                device=device).contiguous()
+        return self._tables[device]
+
+    def kernel_args(self, device):
+        """The model as the kernels' C entry points take it: (packed floats,
+        packed ints, the device pointer of ``tables(device)``).  The pointers
+        keep the packed arrays alive."""
+        return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                self.tables(device).data_ptr())
+
+    # --- the kernel's formulas in PyTorch (batched over leading dims) -------
+    def _t(self, a, like):
+        return torch.as_tensor(np.asarray(a), dtype=like.dtype,
+                               device=like.device)
+
+    def _matrices(self, p, like):
+        """(Ad, Bd) of each stage: from p's columns or the constants."""
+        nx0, nu = self.nx0, self.nu
+        if self.ab_col is None:
+            return self._t(self.Ad, like), self._t(self.Bd, like)
+        c = self.ab_col
+        A = p[..., c:c + nx0 * nx0].reshape(p.shape[:-1] + (nx0, nx0))
+        B = p[..., c + nx0 * nx0:c + nx0 * (nx0 + nu)].reshape(
+            p.shape[:-1] + (nx0, nu))
+        return A, B
+
+    def step(self, z, w, p):
+        nx0 = self.nx0
+        x, u = z[..., :nx0], z[..., nx0:] + w
+        A, B = self._matrices(p, z)
+        xn = (A @ x[..., None])[..., 0] + (B @ u[..., None])[..., 0]
+        return torch.cat([xn, u], dim=-1)
+
+    @staticmethod
+    def _quad(W, v):
+        return ((v[..., :, None] * W).sum(-2) * v).sum(-1)
+
+    def stage_cost(self, z, w, p):
+        nx0, nu = self.nx0, self.nu
+        if self.x_ref is None:
+            r = self._t(np.zeros(nx0) if self.target is None else self.target, z)
+        else:
+            r = p[..., self.x_ref:self.x_ref + nx0]
+        du = z[..., nx0:] + w
+        if self.u_ref is not None:
+            du = du - p[..., self.u_ref:self.u_ref + nu]
+        return ((self._quad(self._t(self.Q, z), z[..., :nx0] - r)
+                 + self._quad(self._t(self.R, z), du))
+                + self._quad(self._t(self.R_du, z), w))
+
+    def bounds(self, z, k):
+        """Stage ``k``'s box at ``z``: k an int, or a tensor of stage
+        indices with z's leading dims."""
+        up = z[..., self.nx0:]
+        dlb, dub = self._t(self.du_lb, z)[k], self._t(self.du_ub, z)[k]
+        return (torch.maximum(dlb, self._t(self.u_lb, z) - up),
+                torch.minimum(dub, self._t(self.u_ub, z) - up))
+
+    def terminal_cost(self, z, p):
+        return torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+
+
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
                              *, ocp):
     """Plain PyTorch line search on ``ocp``'s callables (same contract as the kernel).
@@ -462,7 +668,8 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
 
     Same arguments and results as ``linesearch_forward_torch``, which is
     what runs when the tensors lie on the CPU.  On the card the kernel
-    evaluates ``ocp.device_model``; an OCP without one raises
+    evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel`` or a
+    ``LinearRateDeviceModel``); an OCP without one raises
     ``NotImplementedError``.  CUDA tensors must be contiguous float32.
     The kernel's variant is ``linesearch_launch_plan``'s choice for the
     shape; ``variant`` forces another for a comparison on the card (the
@@ -482,10 +689,10 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     B, N, nu = us.shape
     nx, npar = x0.shape[-1], ps.shape[-1]
     A = len(alphas)
-    if (nx, nu) != (3, 2) or npar < model.min_npar:
-        raise ValueError(f"the unicycle device model needs nx=3, nu=2, "
-                         f"npar>={model.min_npar}")
-    plan = linesearch_launch_plan(N, A, npar, variant)
+    if (nx, nu) != (model.nx, model.nu) or npar < model.min_npar:
+        raise ValueError(f"the {type(model).__name__} needs nx={model.nx}, "
+                         f"nu={model.nu}, npar>={model.min_npar}")
+    plan = linesearch_launch_plan(N, A, npar, variant, nx=nx, nu=nu)
     named = [("x0", x0, (B, nx)), ("xs", xs, (B, N + 1, nx)),
              ("us", us, (B, N, nu)), ("ps", ps, (B, N + 1, npar)),
              ("kffs", kffs, (B, N, nu)), ("Ks", Ks, (B, N, nu, nx))]
@@ -497,14 +704,14 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     us_o = torch.empty((B, N, nu), **opts)
     cost = torch.empty((B,), **opts)
     best = torch.empty((B,), dtype=torch.int32, device=x0.device)
-    c_model, c_ints = model.kernel_args()
+    c_model, c_ints, c_tables = model.kernel_args(x0.device)
     c_alphas = (ctypes.c_float * A)(*map(float, alphas))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mv_linesearch_forward(
-            B, N, npar, x0.data_ptr(), xs.data_ptr(), us.data_ptr(),
-            ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(), c_model, c_ints,
-            c_alphas, A, xs_o.data_ptr(),
+            model.kind, B, N, npar, x0.data_ptr(), xs.data_ptr(),
+            us.data_ptr(), ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(),
+            c_model, c_ints, c_tables, c_alphas, A, xs_o.data_ptr(),
             us_o.data_ptr(), cost.data_ptr(), best.data_ptr(),
             LINESEARCH_VARIANTS.index(plan.variant), plan.problems,
             plan.c_layout(), stream)

@@ -73,7 +73,8 @@ def linearize_trajectory(F: Callable, l: Callable, xs, us, ps,
     ``xs`` (the layout the CUDA Riccati kernel reads).
     """
     lead = xs.shape[:-1]
-    flat = lambda t: t.reshape((-1,) + t.shape[len(lead):])
+    n = xs[..., 0].numel()   # not -1: a zero-width params tensor (npar 0)
+    flat = lambda t: t.reshape((n,) + t.shape[len(lead):])
     x, u, p = flat(xs), flat(us), flat(ps)
     fx, fu = vmap(linearize_dynamics(F))(x, u, p)
     lx, lu, lxx, luu, lux = vmap(quadratize_cost(l))(x, u, p)
@@ -117,6 +118,6 @@ def trajectory_derivatives(ocp, xs, us, ps, second_order: bool):
     else:
         ks = torch.arange(N, device=xs.device).expand(B, N).reshape(-1)
         lbs, ubs = vmap(cb)(xs[:, :N].reshape(B * N, nx),
-                            ps[:, :N].reshape(B * N, -1), ks)
+                            ps[:, :N].reshape(B * N, ps.shape[-1]), ks)
         lbs, ubs = lbs.reshape(B, N, nu), ubs.reshape(B, N, nu)
     return d, gN, HN, lbs - us, ubs - us

@@ -628,3 +628,136 @@ def test_scenario_20_steps_on_the_card(dev, scenario):
     m64 = run(build(n_steps=20, device="cpu", dtype=torch.float64))
     dx = (m["result"].xs.double().cpu() - m64["result"].xs).abs().max()
     assert float(dx) <= CIRC_STATE_TOL
+
+
+# ---- the linear rate-form model: phase 10's linear cases --------------------
+# Held against the float64 twin within chip_smoke.py's bounds (_hold_k2_f64,
+# _hold_f64: the larger of the unicycle's tolerance and F32_MARGIN times the
+# float32 twin's own distance from float64; the pendulum's unstable plant
+# over N = 50 grows float32 round-off past the unicycle's bounds).
+
+def _linear(dev, label, B):
+    from chip_smoke import _linear_case
+
+    return _linear_case(dev, B, label, seed=37 + B)
+
+
+LINEAR_LABELS = ["lti N=20 Ntu=3", "ltv", "dynamic", "pendulum",
+                 "pendulum padded"]
+
+
+@pytest.mark.parametrize("B", [1, 8, 301])
+@pytest.mark.parametrize("label", LINEAR_LABELS)
+def test_linesearch_kernel_on_the_linear_model(dev, label, B):
+    """K2 on the linear rate-form model, every variant: the pick is a first
+    minimum of the float64 twin's candidates, its cost and trajectory are
+    that candidate's, the box follows the rolled u_prev, and the
+    move-blocked stages' rates come out exactly 0 where u_prev lies inside
+    the control box."""
+    from chip_smoke import _hold_k2_f64, _k2_candidates, _to64
+
+    ocp, ocp64, (x0, xs, us, kff, K), ps = _linear(dev, label, B)
+    alphas = tuple(0.4 ** i for i in range(8))
+    data = (x0, xs, us, ps, kff, K)
+    cand32 = _k2_candidates(data, alphas, ocp)
+    cand64 = _k2_candidates(_to64(*data), alphas, ocp64)
+    for variant in LINESEARCH_VARIANTS:
+        by_variant = dict(linesearch_forward.launches_by_variant)
+        out = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
+        torch.cuda.synchronize()
+        assert _launched(linesearch_forward, by_variant) == {variant: 1}
+        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64,
+                     ocp.device_model)
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("B", [1, 8, 301])
+@pytest.mark.parametrize("label", LINEAR_LABELS)
+def test_fused_kernel_on_the_linear_model(dev, label, B, use_ddp):
+    """K3 on the linear rate-form model, both variants, and K1 at the
+    model's (nx, nu) on the twin's derivatives of the same trajectories (lo
+    == hi on the blocked stages), each against the float64 twin."""
+    from chip_smoke import _hold_f64, _to64
+    from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
+
+    ocp, ocp64, (_, xs, us, _, _), ps = _linear(dev, label, B)
+    args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
+            torch.ones((B,), device=dev))
+    ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+    ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+    for variant in FUSED_VARIANTS:
+        by_variant = dict(fused_backward.launches_by_variant)
+        out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp, variant=variant)
+        torch.cuda.synchronize()
+        assert _launched(fused_backward, by_variant) == {variant: 1}
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+        _hold_f64(out, ref, ref64, "k3", f"{label} B={B} {variant}")
+    kw = dict(nx=ocp.nx, nu=ocp.nu, use_ddp=use_ddp)
+    d, gN, HN, dlb, dub = trajectory_derivatives(ocp, xs, us, ps, use_ddp)
+    d64, gN64, HN64, dlb64, dub64 = trajectory_derivatives(
+        ocp64, *_to64(xs, us, ps), use_ddp)
+    rargs = (d, dlb.contiguous(), dub.contiguous(), gN, HN, *args[3:])
+    ref1 = riccati_backward_torch(*rargs, **kw)
+    ref1_64 = riccati_backward_torch(d64, dlb64, dub64, gN64, HN64,
+                                     *_to64(*args[3:]), **kw)
+    for variant in ("warps", "thread"):
+        out = riccati_backward(*rargs, variant=variant, **kw)
+        _hold_f64(out, ref1, ref1_64, "k1", f"{label} B={B} {variant}")
+
+
+@pytest.mark.parametrize("backend", [None, "cuda"])
+def test_move_blocking_pins_exactly_on_the_card(dev, backend):
+    """The lane change's v1 plan (N 20, Ntu 3) at B = 1 and over 301
+    problems: the rates after Ntu are exactly 0, the head moves; the plan
+    agrees with the float32 twin's."""
+    from mpc_verde_tpu_torch.scenarios import build_lane_change_lti
+
+    built = build_lane_change_lti(N=20, Ntu=3, n_steps=300, backend=backend)
+    ocp = built["ocp"]
+    z0 = torch.zeros(4, device=dev)
+    res = built["solve"](z0, built["params_seq"][150],
+                         torch.zeros((ocp.N, ocp.nu), device=dev))
+    assert float(res.us[3:].abs().max()) == 0.0
+    assert float(res.us[:3].abs().max()) > 0.0
+    twin = mt.make_ilqr_solver(ocp, mt.ILQROptions(max_iters=30),
+                               backend="torch")(z0, built["params_seq"][150])
+    assert float((res.us - twin.us).abs().max()) <= 1e-3
+    solve_b = mt.make_batched_ilqr_solver(ocp, mt.ILQROptions(max_iters=30),
+                                          backend=backend)
+    rng = np.random.default_rng(42)
+    z0s = torch.zeros((301, 4), device=dev)
+    z0s[:, :3] = torch.as_tensor(rng.uniform(-0.5, 0.5, (301, 3)), device=dev)
+    res_b = solve_b(z0s, built["params_seq"][rng.integers(0, 300, 301)], None)
+    assert float(res_b.us[:, 3:].abs().max()) == 0.0
+    assert bool(torch.isfinite(res_b.cost).all())
+
+
+@pytest.mark.parametrize("family", ["lti", "pendulum"])
+def test_linear_family_20_steps_on_the_card(dev, family):
+    """20 closed-loop steps at B = 1 on the default device and backend
+    ("cuda_fused"), against the float64 "torch" run on the CPU: the lane
+    change from sample 110 of its course within chip_smoke.py's LC_STATE_TOL
+    (absolute), the pendulum within PEND_STATE_TOL (relative to max(1,
+    |x|))."""
+    from chip_smoke import LC_START, LC_STATE_TOL, PEND_STATE_TOL
+    from mpc_verde_tpu_torch import scenarios as sc
+    from mpc_verde_tpu_torch.refgen import synthetic_lane_change
+
+    if family == "lti":
+        path = {k: np.asarray(v)[LC_START:]
+                for k, v in synthetic_lane_change().items()}
+        go = lambda **kw: sc.run_lane_change_lti(sc.build_lane_change_lti(
+            path=path, n_steps=20, **kw))
+    else:
+        go = lambda **kw: sc.run_pendulum(sc.build_pendulum(n_steps=20, **kw))
+    k2, k3 = linesearch_forward.launches, fused_backward.launches
+    m = go()
+    assert fused_backward.launches > k3 and linesearch_forward.launches > k2
+    assert m["result"].xs.is_cuda
+    m64 = go(device="cpu", dtype=torch.float64)
+    x, x64 = m["result"].xs.double().cpu(), m64["result"].xs
+    if family == "lti":
+        assert float((x - x64).abs().max()) <= LC_STATE_TOL
+    else:
+        assert float(((x - x64).abs() / x64.abs().clamp(min=1.0)).max()) <= (
+            PEND_STATE_TOL)

@@ -299,3 +299,90 @@ def test_twin_tie_rule_matches_jax_materialize(case):
         assert best.tolist() == [0] * B
     else:
         assert len(set(best.tolist())) > 1 and max(best.tolist()) < A
+
+
+# The linear rate-form families' shapes: (N, npar, nx) of the lane change
+# (N 5, npar 4; v1 N 20), LTV (npar 16), the dynamic bicycle (N 10, npar 25,
+# nx 5) and the pendulum (N 50, npar 0, or 1 as the closed-loop runner pads
+# it), nu = 1, at the solvers' 12 alphas, phase 10's 8 and the pre-roll's 1.
+LINEAR_SHAPES = [(5, 4, 4), (20, 4, 4), (5, 16, 4), (10, 25, 5), (50, 0, 5),
+                 (50, 1, 5)]
+
+
+@pytest.mark.parametrize("A", [1, 8, 12])
+@pytest.mark.parametrize("N,npar,nx", LINEAR_SHAPES)
+def test_linesearch_launch_plan_at_the_linear_shapes(N, npar, nx, A):
+    plan = linesearch_launch_plan(N, A, npar, nx=nx, nu=1)
+    A_pad = 1 << (A - 1).bit_length()
+    assert plan.variant == ("lanes" if A > 1 else "lanes_reroll")
+    assert plan.problems == 64 // A_pad and plan.threads == 64
+    *slabs, cand, best, slot, total = plan.layout
+    sizes = [plan.problems * n for n in
+             ((N + 1) * nx, N, N, N * nx, (N + 1) * npar)]
+    for start, size, end in zip(slabs, sizes, slabs[1:] + [cand]):
+        assert start % 4 == 0 and start + size <= end
+    assert 4 * total == plan.smem_bytes <= SMEM_MAX_BYTES
+    if plan.variant == "lanes":
+        assert slot % 2 == 1 and slot >= (N + 1) * nx + N
+        assert cand + plan.threads * slot == best
+    # the unicycle's sizes are the default
+    assert (linesearch_launch_plan(N, A, npar)
+            == linesearch_launch_plan(N, A, npar, nx=3, nu=2))
+
+
+def test_linesearch_launch_plan_at_the_family_shapes():
+    assert linesearch_launch_plan(5, 12, 4, nx=4, nu=1)[:4] == (
+        "lanes", 4, 64, 8_688)
+    assert linesearch_launch_plan(10, 12, 25, nx=5, nu=1)[:4] == (
+        "lanes", 4, 64, 23_056)
+    assert linesearch_launch_plan(50, 12, 1, nx=5, nu=1)[:4] == (
+        "lanes", 4, 64, 88_592)
+    assert linesearch_launch_plan(50, 1, 1, nx=5, nu=1)[:4] == (
+        "lanes_reroll", 64, 64, 167_936)
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("N,nx", [(5, 4), (20, 4), (10, 5), (50, 5), (600, 5)])
+def test_fused_launch_plan_at_the_linear_shapes(N, nx, use_ddp):
+    nz = nx + 1
+    tri = nz * (nz + 1) // 2
+    record = nx * (nz + (tri if use_ddp else 0)) + nz + tri + 2
+    for B in (1, 301, 1024):
+        plan = fused_launch_plan(N, use_ddp, None, B, nx=nx, nu=1)
+        if plan.variant == "thread":
+            assert 16 * N * (record + 1 + nx) > SMEM_MAX_BYTES
+            continue
+        rec, kff, K = plan.layout
+        assert (rec >= N * record and kff >= N and K >= N * nx
+                and rec % 2 == kff % 2 == K % 2 == 1)
+        assert 4 * plan.problems * (rec + kff + K) == plan.smem_bytes
+        assert plan.smem_bytes <= SMEM_MAX_BYTES and plan.problems >= 4
+        assert plan.threads * -(-plan.problems * N // plan.threads) >= (
+            plan.problems * N)
+    assert fused_launch_plan(N, use_ddp) == fused_launch_plan(
+        N, use_ddp, nx=3, nu=2)
+
+
+def test_fused_launch_plan_at_the_family_shapes():
+    """At B = 1 and B = 1024 alike (one wave): the lane change, the dynamic
+    bicycle, and the pendulum's 50 stages, 4 problems a block with DDP."""
+    for B in (1, 1024):
+        assert fused_launch_plan(5, True, None, B, nx=4, nu=1)[:4] == (
+            "staged", 8, 64, 17_312)
+        assert fused_launch_plan(10, True, None, B, nx=5, nu=1)[:4] == (
+            "staged", 8, 96, 54_816)
+        assert fused_launch_plan(50, True, None, B, nx=5, nu=1)[:4] == (
+            "staged", 4, 224, 136_848)
+        assert fused_launch_plan(50, False, None, B, nx=5, nu=1)[:4] == (
+            "staged", 8, 224, 104_096)
+
+
+def test_riccati_launch_plan_at_the_linear_sizes():
+    for B in (1, 1024):
+        assert riccati_launch_plan(5, 4, 1, True, B)[:4] == (
+            "warps", 8, 128, 30_368)
+        assert riccati_launch_plan(10, 5, 1, True, B)[:4] == (
+            "warps", 8, 128, 80_672)
+        assert riccati_launch_plan(50, 5, 1, True, B)[:4] == (
+            "warps", 4, 128, 186_512)
+    assert {(4, 1), (5, 1)} <= SUPPORTED
