@@ -51,7 +51,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               rate-form model (K1, K2 and K3, held to the float64 twin): the
               lane change's v1 shape (nx 4, N 20, move blocking after Ntu 3,
               npar 4), LTV (N 5, npar 16), the dynamic bicycle (nx 5, N 10,
-              npar 25) and the pendulum (N 50, npar 0 and padded to 1).
+              npar 25) and the pendulum (N 50, npar 0 and padded to 1);
+              then the path-frame models, held to the float64 twin as well:
+              the Frenet model ((5, 2), N 20, npar 4: sin, cos, tan and a
+              reciprocal on K3's dual numbers, K1 at (5, 2)) and the
+              curvature cost on the LTV model ((4, 1), N 20, npar 16).
  11. ipm:     make_streaming_barrier_solver on phase 5's queue on
               "cuda_fused": cold (mu 1e-2, 1e-4, then the mu = 0 crossover,
               inexact_kappa 10) and hybrid (warmstart="ddp", mu 1e-4); final
@@ -87,7 +91,15 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               first 20 steps held against CPU float64 and "cuda" (K1 at
               (5, 1)); the dynamic bicycle 200 steps (mse_y within 1% of
               JAX's 15.85) and corrected=True 300 steps.
-Phases 5, 8, 9 and 11 to 16 each set every kernel launch count to 0 just
+ 17. frenet + curvature: the Frenet family at B=1 on "cuda_fused" on the
+              synthetic lane change (120 steps; mse_y < 1e-3, |delta| <=
+              0.384, |rate| <= 0.1225), over the whole 500-step course (mse_y
+              within 1% of the port's CPU float64 run) and on the double
+              lane change (60 steps, max_iters 80); the curvature family
+              (300 steps; mse_y < 1.0, mse_phi < 0.2); 60 steps of each from
+              the maneuver held against CPU float64 and "cuda" (K1 at (5, 2)
+              and (4, 1)).
+Phases 5, 8, 9 and 11 to 17 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape.  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
@@ -99,10 +111,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
 import time
+import traceback
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -175,21 +190,23 @@ def _queue(M, N, seed=0):
 
 
 PTXAS_SOURCES = ("riccati_warps_3x2.cu", "riccati_warps_4x1.cu",
-                 "riccati_warps_5x1.cu", "rollout.cu", "rollout_linear.cu",
-                 "fused.cu", "fused_linear.cu")
+                 "riccati_warps_5x1.cu", "riccati_warps_5x2.cu", "rollout.cu",
+                 "rollout_linear.cu", "rollout_frenet.cu", "fused.cu",
+                 "fused_linear.cu", "fused_frenet.cu")
 
 
 def _kernel_name(mangled):
     """kernel<args> from a kernel template's mangled name: the model (the
-    unicycle, or the linear model with its (nx0, nu)) and the int and bool
-    arguments; the mangled name where it does not parse."""
+    unicycle, the Frenet model, or the linear model or its curvature-cost
+    variant with its (nx0, nu)) and the int and bool arguments; the mangled
+    name where it does not parse."""
     t = re.search(r"\d([a-z_]+_kernel)I(.+)", mangled)
     if not t:
         return mangled
     targs = t.group(2).split("Ev")[0]
     args = []
-    model = re.search(r"(UnicycleModel|LinearRateModel)(?:ILi(\d+)ELi(\d+)E)?",
-                      targs)
+    model = re.search(r"(UnicycleModel|FrenetRateModel|LinearRateModel|"
+                      r"CurvatureRateModel)(?:ILi(\d+)ELi(\d+)EE)?", targs)
     if model:
         args.append(model.group(1) + (f"<{model.group(2)},{model.group(3)}>"
                                       if model.group(2) else ""))
@@ -911,6 +928,30 @@ def _linear_flops(nx0, nu):
     return k2, k3
 
 
+def _frenet_flops():
+    """(K2 step, K3 stage) operations of the Frenet rate-form model, counted
+    from its formulas as ``_linear_flops`` counts (a sinf, cosf, tanf or a
+    division 16): on floats a right-hand side is about 60 (its sin, cos and
+    tan, one division, a dozen products and sums), an RK4 step four of them
+    and 45 for the stage sums, the cost about 40 (a tan), the feedback, box
+    and clip about 40; on second-order duals over the five seeds (d = 21 a
+    dual) a right-hand side is about 25 d and the step 4 x 25 d + 36 d, the
+    cost about 50 d, plus the stage QP at (5, 2) (K1_STAGE_FLOPS scaled as
+    ``_k1_on_case`` scales it)."""
+    d = 21
+    k2 = 4 * 60 + 45 + 40 + 40
+    k3 = (4 * 25 + 36 + 50) * d + K1_STAGE_FLOPS * 25 * 7 // 45
+    return k2, k3
+
+
+def _curvature_flops():
+    """(K2 step, K3 stage) operations of the linear model with the curvature
+    cost: ``_linear_flops(3, 1)`` plus its tan (16 on floats, a chain of
+    about 2 d on duals) and the reciprocal of kappa_t (16, a float in both)."""
+    k2, k3 = _linear_flops(3, 1)
+    return k2 + 32, k3 + 2 * 21 + 16
+
+
 # Phase 10's linear cases: (label, builder, its keywords, state scale, rate
 # scale): the lane change's v1 shape (N 20, move blocking after Ntu 3, npar
 # 4), LTV (N 5, npar 16), the dynamic bicycle (N 10, npar 25, nx 5) and the
@@ -983,6 +1024,62 @@ def _linear_cases(dev, B):
     return [(c[0], *_linear_case(dev, B, c[0])) for c in LINEAR_CASES]
 
 
+# Phase 10's path-frame cases, the Frenet model ((5, 2), N 20, npar 4) and
+# the curvature cost on the LTV model ((4, 1), N 20, move blocking after Ntu
+# 3, npar 16): (label, builder, its keywords, scales of (y, phi, v or r)
+# about the stage's reference, rate scale, FLOP counter).  |y - y_t| <= 0.4
+# and the courses' kappa <= 1 keep |(y - y_t) kappa| below 0.5 at the start,
+# away from the Frenet model's pole at 1; the curvature case's steering
+# (u_prev up to 0.65, three free rates of 0.1) stays below 1.2 rad, away
+# from the poles of its tan.
+PATH_CASES = [
+    ("frenet", "build_frenet", dict(n_steps=500), (0.4, 0.3, 0.5), 0.15,
+     _frenet_flops),
+    ("curvature", "build_curvature_ltv", dict(n_steps=500), (0.4, 0.3, 0.5),
+     0.1, _curvature_flops),
+]
+
+
+def _path_case(dev, B, label, seed=33):
+    """(OCP, its float64 twin, (x0, xs, us, kff, K), ps) of phase 10's
+    path-frame case ``label``, float32 on ``dev``: params drawn from the
+    scenario's own table, starts about the first stage's reference (u_prev
+    on both sides of the steering box, its scale capped at 0.5), random
+    rates and xs their rollout by the twin, random gains."""
+    from mpc_verde_tpu_torch import scenarios
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
+
+    _, builder, kw, scales, u_scale, _ = next(
+        c for c in PATH_CASES if c[0] == label)
+    build = lambda dtype: getattr(scenarios, builder)(
+        device=dev, dtype=dtype,
+        backend=None if dtype == torch.float32 else "torch", **kw)
+    built = build(torch.float32)
+    ocp = built["ocp"]
+    N, nx, nu = ocp.N, ocp.nx, ocp.nu
+    rng = np.random.default_rng(seed)
+    table = np.asarray(built["params_seq"])
+    ps = table[rng.integers(0, len(table), B)]
+    z0 = np.zeros((B, nx))
+    z0[:, 0] = ps[:, 0, 0] + rng.uniform(-scales[0], scales[0], B)
+    z0[:, 1] = ps[:, 0, 1] + rng.uniform(-scales[1], scales[1], B)
+    z0[:, 2] = (ps[:, 0, 3] if nu == 2 else 0.0) + rng.uniform(
+        -scales[2], scales[2], B)
+    u_max = np.minimum(np.asarray(ocp.device_model.u_ub, float), 0.5)
+    z0[:, 3:] = rng.uniform(-1.3 * u_max, 1.3 * u_max, (B, nu))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    z = dict(dtype=torch.float32, device=dev)
+    x0, ps = t(z0), t(ps)
+    xs, us, _, _ = linesearch_forward_torch(
+        x0, torch.zeros((B, N + 1, nx), **z),
+        t(rng.uniform(-u_scale, u_scale, (B, N, nu))), ps,
+        torch.zeros((B, N, nu), **z), torch.zeros((B, N, nu, nx), **z), (1.0,),
+        ocp=ocp)
+    kff = t(0.5 * u_scale * rng.normal(size=(B, N, nu)))
+    K = t(0.1 * u_scale * rng.normal(size=(B, N, nu, nx)))
+    return ocp, build(torch.float64)["ocp"], (x0, xs, us, kff, K), ps
+
+
 # The linear cases are held against the float64 twin.  Their plants are
 # open-loop unstable (the pendulum) or their costs large (forces up to 200),
 # so float32 round-off grows along the horizon: on the pendulum at N = 50
@@ -1008,7 +1105,7 @@ def _hold_k2_f64(label, out, cand32, cand64, model):
     """K2's outputs against the float64 twin's candidates: the picked
     alpha's cost and trajectory within the bounds above, the pick a first
     minimum within the cost bound, and on the move-blocked stages of
-    ``model`` (a ``LinearRateDeviceModel``) the rates exactly 0 wherever the
+    ``model`` (a rate-form device model) the rates exactly 0 wherever the
     rolled u_prev lies inside the control box.  (Where a free stage's rate
     clipped to the box's edge, u_prev + w may round past it in float32; the
     blocked stage's box [0, u_ub - u_prev] then pulls it back by that
@@ -1024,9 +1121,17 @@ def _hold_k2_f64(label, out, cand32, cand64, model):
     rows = torch.arange(b.shape[0], device=b.device)
     c64 = cand64[2]
     rel = lambda a, r: float(((a - r).abs() / r.abs().clamp(min=1.0)).max())
-    tol_c = max(1e-5, F32_MARGIN * rel(cand32[2], c64))
-    tol_t = max(1e-4, F32_MARGIN * max(rel(cand32[0], cand64[0]),
-                                       rel(cand32[1], cand64[1])))
+
+    def rel_finite(a, r):   # the float32 twin's distance where both are finite
+        ok = torch.isfinite(a) & torch.isfinite(r)
+        return rel(a[ok], r[ok]) if bool(ok.any()) else 0.0
+
+    tol_c = max(1e-5, F32_MARGIN * rel_finite(cand32[2], c64))
+    tol_t = max(1e-4, F32_MARGIN * max(rel_finite(cand32[0], cand64[0]),
+                                       rel_finite(cand32[1], cand64[1])))
+    # a candidate that leaves the model's domain (+inf or NaN cost) never
+    # wins (the kernel's rule), so the first minimum is over the finite ones
+    c64 = torch.where(torch.isfinite(c64), c64, torch.inf)
     pick = c64[b, rows]
     cost = rel(c_k.double(), pick)
     cmin = c64.min(0).values
@@ -1073,7 +1178,7 @@ def _k1_on_case(label, ocp, ocp64, data, ps):
     """K1 at the case's (nx, nu) on its derivatives (the twin's, along the
     case's trajectories, with its move-blocked stages' lo == hi) against the
     float64 twin on the float64 derivatives, under the planned variant and
-    "thread"; its time and bound."""
+    "thread"; the time of each and the bound."""
     from mpc_verde_tpu_torch.ops.cuda.riccati import (
         riccati_backward, riccati_backward_torch, riccati_launch_plan)
     from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
@@ -1101,15 +1206,19 @@ def _k1_on_case(label, ocp, ocp64, data, ps):
         _hold_f64(out, ref, ref64, "terms",
                   f"K1 {label} ({nx},{nu}) variant {sorted(used)}")
     ms = _time_ms(lambda: riccati_backward(*args, **kw), reps=50)
+    thread_ms = _time_ms(lambda: riccati_backward(*args, variant="thread", **kw),
+                         reps=50)
     plain_ms = _time_ms(lambda: riccati_backward_torch(*args, **kw), reps=3,
                         warmup=1, queued=False)
     n_in = sum(a.numel() for a in args[1:]) + sum(v.numel() for v in d.values())
     n_out = sum(o.numel() for o in out)
     flops = B * N * K1_STAGE_FLOPS * (nx * nx * (nx + nu)) // (9 * 5)
     row = {"case": label, "nx": nx, "nu": nu, "ms": ms, "plain_ms": plain_ms,
-           "variant": plan.variant, **_bound(4 * (n_in + n_out), flops)}
+           "variant": plan.variant, "thread_variant_ms": thread_ms,
+           **_bound(4 * (n_in + n_out), flops)}
     print(f"[terms] K1 {label} ({nx},{nu}) B={B} N={N}: kernel {ms:.4f} ms, "
-          f"twin {plain_ms:.2f} ms, bound {row['bound_ms']:.4f} by "
+          f"\"thread\" variant {thread_ms:.4f} ms, twin {plain_ms:.2f} ms, "
+          f"bound {row['bound_ms']:.4f} by "
           f"{row['bound_by']}; {plan[:4]}", flush=True)
     return row
 
@@ -1299,10 +1408,12 @@ def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
         by_case["linesearch_forward"][label] = row2
         by_case["fused_backward"][label] = row3
     k1_rows = {}
-    for label, ocp, ocp64, data, ps in _linear_cases(dev, B):
-        model = ocp.device_model
+    cases = [(*c, _linear_flops(c[1].device_model.nx0, c[1].device_model.nu))
+             for c in _linear_cases(dev, B)]
+    cases += [(c[0], *_path_case(dev, B, c[0]), c[5]()) for c in PATH_CASES]
+    for label, ocp, ocp64, data, ps, flops in cases:
         row2, row3 = _hold_linear_case(label, ocp, ocp64, data, ps, alphas,
-                                       err, _linear_flops(model.nx0, model.nu))
+                                       err, flops)
         by_case["linesearch_forward"][label] = row2
         by_case["fused_backward"][label] = row3
         k1_rows[label] = _k1_on_case(label, ocp, ocp64, data, ps)
@@ -1429,8 +1540,10 @@ def _closed_loop(tag, gpu, run, n_steps, path_kernels, nx=3):
     return m, wall, launches
 
 
-def phase_circular(dev, gpu, n_steps=None, hold=CIRC_HOLD_STEPS):
-    """The circular track at B = 1 on make_ilqr_solver's default backend."""
+def phase_circular(dev, gpu, refs, n_steps=None, hold=CIRC_HOLD_STEPS):
+    """The circular track at B = 1 on make_ilqr_solver's default backend;
+    its first ``hold`` steps held against the CPU float64 run of ``refs``
+    (a ``CpuReferences`` of as many steps)."""
     from mpc_verde_tpu_torch.scenarios import (build_circular_tracking,
                                                run_circular_tracking)
 
@@ -1453,12 +1566,7 @@ def phase_circular(dev, gpu, n_steps=None, hold=CIRC_HOLD_STEPS):
     m_c, _, launches_c = _closed_loop(
         "circular_cuda", gpu, lambda: run_circular_tracking(built_c), hold,
         ("riccati_backward", "linesearch_forward"))
-    t0 = time.perf_counter()
-    m_64 = run_circular_tracking(build_circular_tracking(
-        n_steps=hold, device="cpu", dtype=torch.float64))
-    print(f"[circular] float64 \"torch\" on the CPU, {hold} steps: "
-          f"{time.perf_counter() - t0:.1f} s, mean iterations "
-          f"{float(m_64['result'].iterations.double().mean()):.3f}", flush=True)
+    m_64 = refs.get("circular", "circular")
     for label, other in (("CPU float64", m_64), ('"cuda"', m_c)):
         dx = float((xs - other["result"].xs.double().cpu()).abs().max())
         du = float((us - other["result"].us.double().cpu()).abs().max())
@@ -1533,6 +1641,74 @@ def _hold_states(tag, label, m, other, tol, relative=False):
           f"{tol}), max |u diff| {du:.3e}", flush=True)
     if not dx <= tol:
         raise AssertionError(f"{tag} against {label}: {dx}")
+
+
+def _cpu64_references(queue, hold_circ, hold_path, lc_start):
+    """In a child process: the float64 "torch" runs on the CPU that phases
+    13 and 17 hold the card's closed loops against (the circular track's
+    first ``hold_circ`` steps, the Frenet and curvature families' first
+    ``hold_path`` steps from sample ``lc_start`` of the lane change).  They
+    need no card, so they run beside phases 3-16; puts {name: (xs, us,
+    mean iterations, seconds)} on ``queue``, or the error's traceback."""
+    try:
+        torch.set_num_threads(2)
+        from mpc_verde_tpu_torch.refgen import synthetic_lane_change
+        from mpc_verde_tpu_torch import scenarios as sc
+
+        path = {k: np.asarray(v)[lc_start:]
+                for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
+        cpu = dict(device="cpu", dtype=torch.float64)
+        runs = {
+            "circular": lambda: sc.run_circular_tracking(
+                sc.build_circular_tracking(n_steps=hold_circ, **cpu)),
+            "frenet": lambda: sc.run_frenet(sc.build_frenet(
+                path=path, n_steps=hold_path, **cpu)),
+            "curvature": lambda: sc.run_curvature_ltv(sc.build_curvature_ltv(
+                path=path, n_steps=hold_path, **cpu)),
+        }
+        out = {}
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            res = run()["result"]
+            out[name] = (res.xs.numpy(), res.us.numpy(),
+                         float(res.iterations.double().mean()),
+                         time.perf_counter() - t0)
+        queue.put(out)
+    except Exception:   # the parent raises it where it reads the result
+        queue.put(traceback.format_exc())
+
+
+class CpuReferences:
+    """The child process of ``_cpu64_references``: ``get(name)`` waits for
+    its results and returns one run as a metrics dict with a ``result``
+    (xs, us, iterations as tensors), ``stop()`` ends the child."""
+
+    def __init__(self, hold_circ, hold_path, lc_start):
+        ctx = multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        self._proc = ctx.Process(target=_cpu64_references, daemon=True,
+                                 args=(self._queue, hold_circ, hold_path,
+                                       lc_start))
+        self._proc.start()
+        self._out = None
+
+    def get(self, tag, name, timeout=1200):
+        if self._out is None:
+            self._out = self._queue.get(timeout=timeout)
+        if isinstance(self._out, str):
+            raise AssertionError(f"the CPU float64 references failed: "
+                                 f"{self._out}")
+        xs, us, iters, seconds = self._out[name]
+        print(f"[{tag}] float64 \"torch\" on the CPU (a child process beside "
+              f"the card's phases): {seconds:.1f} s, mean iterations "
+              f"{iters:.3f}", flush=True)
+        return {"result": SimpleNamespace(xs=torch.as_tensor(xs),
+                                          us=torch.as_tensor(us))}
+
+    def stop(self):
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
 
 
 def _cpu64(tag, run):
@@ -1683,6 +1859,95 @@ def phase_pendulum_dynamic(dev, gpu, n_dyn=200, n_dyn_c=300):
     return by_path, ms
 
 
+# Phase 17's reference: the port's float64 run on the CPU over the whole
+# 500-step Frenet course (python -m mpc_verde_tpu_torch.scenarios.run_all
+# --family frenet --cpu), against which the card's float32 mse_y is held
+# within 1%.  The reference's own controller saturates its steering there
+# and leaves the lane (JAX float64 5.30991, float32 5.30990).
+FRENET_COURSE_MSE_Y = 5.309911592974794
+FRENET_DELTA_MAX, FRENET_RATE_MAX = 0.384, 0.1225
+
+
+def _frenet_gates(m):
+    """The JAX tests' Frenet gates (tests/test_scenarios.py:106) with
+    float32's 1e-6 of slack on the bounds; converged_frac is printed, not
+    gated, as JAX's own float32 run fails the float64 gate."""
+    return (m["mse_y"] < 1e-3 and m["max_delta"] <= FRENET_DELTA_MAX + 1e-6
+            and m["max_delta_rate"] <= FRENET_RATE_MAX + 1e-6)
+
+
+def phase_frenet_curvature(dev, gpu, refs, n_frenet=120, n_dlc=60,
+                           n_curv=300, n_course=500, hold=LC_HOLD):
+    """The Frenet and curvature families at B = 1 on "cuda_fused" with the
+    JAX tests' gates; the first 60 steps of each on the lane change's
+    maneuver held against CPU float64 and against "cuda" (K1 at (5, 2) and
+    (4, 1)) within the lane change's LC_STATE_TOL: over these 60 steps the
+    port's own float32 run on the CPU leaves its float64 run by 2.0e-6
+    (Frenet) and 7.6e-5 (curvature).  The CPU float64 runs come from
+    ``refs`` (a ``CpuReferences`` of ``hold`` steps)."""
+    from mpc_verde_tpu_torch.refgen import (double_lane_change_course,
+                                            synthetic_lane_change)
+    from mpc_verde_tpu_torch.scenarios import (build_curvature_ltv,
+                                               build_frenet,
+                                               run_curvature_ltv, run_frenet)
+
+    run_frenet(build_frenet(n_steps=3, device=dev))                # warm-up
+    run_curvature_ltv(build_curvature_ltv(n_steps=3, device=dev))
+    by_path, ms = {}, {}
+    course_ref = FRENET_COURSE_MSE_Y
+    runs = {   # name -> (build, run, steps, gate, JAX's numbers on the CPU)
+        "frenet": (lambda: build_frenet(n_steps=n_frenet, device=dev),
+                   run_frenet, n_frenet, _frenet_gates,
+                   "mse_y 2.7867e-5, conv 0.9917, 2.375 it (float32); "
+                   "mse_y 2.7878e-5, max_delta 0.245, max_delta_rate "
+                   "0.1225 (float64)"),
+        "frenet_course": (
+            lambda: build_frenet(n_steps=n_course, device=dev), run_frenet,
+            n_course,
+            lambda m: abs(m["mse_y"] - course_ref) <= 0.01 * course_ref,
+            f"mse_y 5.30990, conv 0.996, 7.014 it (float32); the port's "
+            f"CPU float64 mse_y {course_ref}"),
+        "frenet_double_lane_change": (
+            lambda: build_frenet(path=double_lane_change_course(),
+                                 n_steps=n_dlc, max_iters=80, device=dev),
+            run_frenet, n_dlc, _frenet_gates,
+            "mse_y 5.3107e-6, conv 0.9833, 2.317 it (float32)"),
+        "curvature": (
+            lambda: build_curvature_ltv(n_steps=n_curv, device=dev),
+            run_curvature_ltv, n_curv,
+            lambda m: m["mse_y"] < 1.0 and m["mse_phi"] < 0.2,
+            "mse_y 0.228506, conv 0.9933, 13.99 it (float32)"),
+    }
+    for name, (build, run, n, gate, jax_ref) in runs.items():
+        built = build()
+        m, wall, by_path[name] = _closed_loop(
+            name, gpu, lambda: run(built), n, FUSED_PATH, nx=built["ocp"].nx)
+        ms[name] = 1e3 * wall / n
+        print(f"[{name}] JAX (CPU): {jax_ref}; converged_frac "
+              f"{m['converged_frac']:.4f} printed, not gated", flush=True)
+        if not gate(m):
+            raise AssertionError(f"{name} gates failed: {m}")
+
+    # 60 steps of the maneuver: "cuda_fused", "cuda" (K1 at B = 1) and the
+    # CPU float64 run
+    path = {k: np.asarray(v)[LC_START:]
+            for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
+    for name, build, run, nx in (
+            ("frenet", build_frenet, run_frenet, 5),
+            ("curvature", build_curvature_ltv, run_curvature_ltv, 4)):
+        go = lambda **kw: run(build(path=path, n_steps=hold, **kw))
+        m_f, _, by_path[f"{name}_hold"] = _closed_loop(
+            f"{name}_hold", gpu, lambda: go(device=dev), hold, FUSED_PATH,
+            nx=nx)
+        m_c, _, by_path[f"{name}_cuda"] = _closed_loop(
+            f"{name}_cuda", gpu, lambda: go(device=dev, backend="cuda"), hold,
+            K1_PATH, nx=nx)
+        m_64 = refs.get(f"{name}_hold", name)
+        for label, other in (("CPU float64", m_64), ('"cuda"', m_c)):
+            _hold_states(f"{name}_hold", label, m_f, other, LC_STATE_TOL)
+    return by_path, ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1712,6 +1977,26 @@ def main() -> int:
     for line in _ptxas_summary(built.log):
         print(f"[build] ptxas {line}", flush=True)
 
+    refs = CpuReferences(CIRC_HOLD_STEPS, LC_HOLD, LC_START)
+    try:
+        kernels = _phases(dev, gpu, refs)
+    finally:
+        refs.stop()
+    print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _phases(dev, gpu, refs):
+    """Phases 3-17; returns the kernels' JSON entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
     by_path = {}
@@ -1725,11 +2010,12 @@ def main() -> int:
         meas[name]["terms"] = t
     by_path.update(phase_ipm(dev, gpu, res_main))
     by_path.update(phase_al(dev, gpu))
-    by_path.update(phase_circular(dev, gpu))
+    by_path.update(phase_circular(dev, gpu, refs))
     by_path.update(phase_diffdrive(dev, gpu))
     for phase in (phase_lanechange, phase_pendulum_dynamic):
         paths, _ = phase(dev, gpu)
         by_path.update(paths)
+    by_path.update(phase_frenet_curvature(dev, gpu, refs)[0])
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path
@@ -1747,17 +2033,7 @@ def main() -> int:
                             p: {k.split(".")[1]: n for k, n in c.items()
                                 if k.startswith(name + ".")}
                             for p, c in by_path.items()}})
-    print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
-          flush=True)
-    print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

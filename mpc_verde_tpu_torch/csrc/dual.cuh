@@ -7,10 +7,12 @@
 // model on variables seeded by Dual::var gives every first and second
 // derivative in one pass: forward over forward, the order of the JAX fused
 // kernel's nested jacfwd (mpc_verde_tpu/ops/pallas/fused.py, dfun).  Only
-// what the unicycle device model (unicycle.cuh) needs is defined: + - *
-// between duals and with float constants, / by a float constant, sin, cos
-// and log, and max with a constant that follows the value as jnp.maximum
-// does.
+// what the device models (unicycle.cuh, linear_rate.cuh, frenet_rate.cuh)
+// need is defined: + - * between duals and with float constants, / by a
+// float constant, the reciprocal and with it / of a float or a dual by a
+// dual, sin, cos, tan and log, and max with a constant that follows the value
+// as jnp.maximum does.  chain_coeffs in ops/cuda/fused.py is the PyTorch twin
+// of the scalar functions' chain rule.
 //
 // Size: Dual<5, true> is 21 floats, and an RK4 step on three of them keeps
 // about 18 live; see fused.cu for what ptxas makes of that.
@@ -186,6 +188,36 @@ template <int NZ, bool H>
 __device__ __forceinline__ Dual<NZ, H> mv_cos(const Dual<NZ, H>& a) {
   const float s = sinf(a.v), c = cosf(a.v);
   return chain(a, c, -s, -c);
+}
+
+// tan' = 1 + tan^2, tan'' = 2 tan (1 + tan^2)
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_tan(const Dual<NZ, H>& a) {
+  const float t = tanf(a.v), s = 1.0f + t * t;
+  return chain(a, t, s, 2.0f * t * s);
+}
+
+// 1 / a: the derivatives -r^2 and 2 r^3 at r = 1 / a.v
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_recip(const Dual<NZ, H>& a) {
+  const float r = 1.0f / a.v;
+  return chain(a, r, -(r * r), 2.0f * (r * r * r));
+}
+
+// c / a = c (1 / a); the value is the float quotient
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator/(float c, const Dual<NZ, H>& a) {
+  Dual<NZ, H> r = c * mv_recip(a);
+  r.v = c / a.v;
+  return r;
+}
+
+// a / b = a (1 / b); the value is the float quotient
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator/(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  Dual<NZ, H> r = a * mv_recip(b);
+  r.v = a.v / b.v;
+  return r;
 }
 
 template <int NZ, bool H>

@@ -6,8 +6,10 @@
 // What it computes: from the trajectory alone (x_k, u_k, p_k) every stage's
 // derivatives, the terminal value and the step bounds, then K1's recursion.
 // The kernels are templates on the device model: the unicycle of
-// unicycle.cuh (instantiated in fused.cu) and the linear rate-form model of
-// linear_rate.cuh (fused_linear.cu).  The derivatives come from the model
+// unicycle.cuh (instantiated in fused.cu), the linear rate-form model of
+// linear_rate.cuh with its curvature-cost variant (fused_linear.cu) and the
+// Frenet rate-form model of frenet_rate.cuh (fused_frenet.cu, whose stage
+// type, StageOf, takes the derivatives over five seeds).  The derivatives come from the model
 // evaluated once on the dual numbers of dual.cuh over z = [x; u]: the
 // dynamics on second-order duals with DDP and first-order ones without, the
 // cost always on second-order ones, as the JAX kernel's nested-jacfwd pyramid
@@ -118,6 +120,14 @@ struct DualStage {
   __device__ __forceinline__ float hi(int a) const { return hi_[a]; }
 };
 
+// The stage type the kernels fill for Model: DualStage, unless the model's
+// unit specializes it (fused_frenet.cu: derivatives over fewer seeds, read
+// through the same accessors).
+template <class Model, bool DDP>
+struct StageOf {
+  using type = DualStage<Model, DDP>;
+};
+
 // Stage k's derivatives at (x, u, p): F(z) and l(z) on duals seeded at
 // z = [x; u], and the step bounds: the stage box at x less u.
 template <class Model, bool DDP>
@@ -151,7 +161,7 @@ __device__ __forceinline__ void linearize_stage(const Model& m, const float (&x)
 // Stage (b, k)'s derivatives from the trajectory in device memory.
 template <class Model, bool DDP>
 __device__ __forceinline__ void linearize_at(const FusedArgs& g, const Model& m, int b, int k,
-                                             DualStage<Model, DDP>& d) {
+                                             typename StageOf<Model, DDP>::type& d) {
   constexpr int kNX = Model::kNX, kNU = Model::kNU;
   const size_t s = (size_t)b * g.N + k;
   const size_t sx = (size_t)b * (g.N + 1) + k;
@@ -160,7 +170,7 @@ __device__ __forceinline__ void linearize_at(const FusedArgs& g, const Model& m,
   for (int i = 0; i < kNX; ++i) x[i] = g.xs[sx * kNX + i];
 #pragma unroll
   for (int a = 0; a < kNU; ++a) u[a] = g.us[s * kNU + a];
-  linearize_stage<Model, DDP>(m, x, u, g.ps + sx * g.npar, k, d);
+  linearize_stage(m, x, u, g.ps + sx * g.npar, k, d);
 }
 
 // Terminal value at stage N of problem b: the model's gradient and Hessian
@@ -192,7 +202,7 @@ __global__ void fused_thread_kernel(FusedArgs g, Model m) {
 #pragma unroll 1
   for (int k = g.N - 1; k >= 0; --k) {
     const size_t s = (size_t)b * g.N + k;
-    DualStage<Model, DDP> d;
+    typename StageOf<Model, DDP>::type d;
     linearize_at<Model, DDP>(g, m, b, k, d);
     float kff[kNU], Kg[kNU][kNX];
     backward_stage<kNX, kNU, DDP>(d, rg, ds, g.tol, Vx, Vxx, dV1, dV2, gmax, kff, Kg);
@@ -252,9 +262,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   // phase 1: one (problem, stage) per thread and turn
   for (int s = threadIdx.x; s < nb * N; s += blockDim.x) {
     const int p = s / N, k = s - p * N;
-    DualStage<Model, DDP> d;
+    typename StageOf<Model, DDP>::type d;
     linearize_at<Model, DDP>(g, m, b0 + p, k, d);
-    store_record<Model, DDP>(d, rec + p * L.rec + k * S::kStride);
+    store_record(d, rec + p * L.rec + k * S::kStride);
   }
   __syncthreads();
   if constexpr (CLOCKS) t1 = clock64();

@@ -1,8 +1,9 @@
 // Fused stage derivatives + Riccati backward pass (K3) for the linear
 // rate-form device model (linear_rate.cuh): the kernels of fused.cuh
 // instantiated at (nx0, nu) = (3, 1) and (4, 1), so (nx, nu) = (4, 1) and
-// (5, 1), in a translation unit of their own that compiles in parallel with
-// fused.cu.  No timing instantiation.
+// (5, 1), and for the curvature cost's model at (3, 1), in a translation
+// unit of their own that compiles in parallel with fused.cu.  No timing
+// instantiation.
 
 #include "dual.cuh"
 #include "linear_rate.cuh"
@@ -20,9 +21,19 @@ cudaError_t run_linear(const float* model, const int* ints, const float* tables,
                                                     strides, clocks, s);
 }
 
+template <int NX0, int NU>
+cudaError_t run_curvature(const float* model, const int* ints, const float* tables,
+                          const FusedArgs& g, bool use_ddp, int variant, int problems,
+                          int threads, const int* strides, long long* clocks, cudaStream_t s) {
+  const CurvatureRateModel<NX0, NU> m = unpack_curvature<NX0, NU>(model, ints, tables);
+  if (!model_fits(m, g.npar, g.N)) return cudaErrorInvalidValue;
+  return fused_run<CurvatureRateModel<NX0, NU>, false>(m, g, use_ddp, variant, problems,
+                                                       threads, strides, clocks, s);
+}
+
 }  // namespace
 
-// Called by mv_fused_backward (fused.cu) for model kinds 1 and 2.
+// Called by mv_fused_backward (fused.cu) for model kinds 1, 2 and 4.
 cudaError_t mv_fused_linear(int kind, const float* model, const int* ints, const float* tables,
                             const FusedArgs& g, bool use_ddp, int variant, int problems,
                             int threads, const int* strides, long long* clocks, cudaStream_t s) {
@@ -32,5 +43,8 @@ cudaError_t mv_fused_linear(int kind, const float* model, const int* ints, const
   if (kind == 2)
     return run_linear<4, 1>(model, ints, tables, g, use_ddp, variant, problems, threads, strides,
                             clocks, s);
+  if (kind == 4)
+    return run_curvature<3, 1>(model, ints, tables, g, use_ddp, variant, problems, threads,
+                               strides, clocks, s);
   return cudaErrorInvalidValue;
 }

@@ -19,11 +19,22 @@
 // step / stage_cost are templates on the scalar type T (float in K2, the
 // dual numbers of dual.cuh in K3), as unicycle.cuh's are; the kernels read
 // this model through the members unicycle.cuh's UnicycleModel has as well.
+//
+// CurvatureRateModel (nx0 3, nu 1) is the same model with the curvature cost
+// of scenarios/curvature.py in place of the quadratic one, over
+// p = (y_t, phi_t, kappa_t, v_des, ...) and R_t = 1 / kappa_t:
+//   l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l1 (r R_t - v_des)^2
+//     + R_t (tan(delta) - L kappa_t)^2,   delta = u_prev + w.
+// It derives from LinearRateModel, whose step, box and terminal value it
+// keeps; its own stage_cost overload is the only new code, so the quadratic
+// instantiations compile as they did.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "scalar.cuh"
 
 namespace {
 
@@ -161,6 +172,37 @@ inline LinearRateModel<NX0, NU> unpack_linear(const float* f, const int* ints,
   return m;
 }
 
+template <int NX0, int NU>
+struct CurvatureRateModel : LinearRateModel<NX0, NU> {
+  static_assert(NX0 == 3 && NU == 1, "the curvature cost is the (3, 1) lateral-error model's");
+  // the host array: LinearRateModel's floats, then L, lambda1, lambda2, lambda3
+  static constexpr int kFloats = LinearRateModel<NX0, NU>::kFloats + 4;
+  float L, lam1, lam2, lam3;
+};
+
+template <class T, int NX0, int NU>
+__device__ __forceinline__ T stage_cost(const CurvatureRateModel<NX0, NU>& m,
+                                        const T (&z)[NX0 + NU], const T (&w)[NU],
+                                        const float* p) {
+  const float Rt = 1.0f / p[2];
+  const T ey = z[0] - p[0], ephi = z[1] - p[1], er = z[2] * Rt - p[3];
+  const T zt = mv_tan(z[NX0] + w[0]) - m.L * p[2];
+  return ((m.lam2 * (ey * ey) + m.lam3 * (ephi * ephi)) + m.lam1 * (er * er)) + (Rt * zt) * zt;
+}
+
+template <int NX0, int NU>
+inline CurvatureRateModel<NX0, NU> unpack_curvature(const float* f, const int* ints,
+                                                    const float* tables) {
+  CurvatureRateModel<NX0, NU> m;
+  static_cast<LinearRateModel<NX0, NU>&>(m) = unpack_linear<NX0, NU>(f, ints, tables);
+  const float* c = f + LinearRateModel<NX0, NU>::kFloats;
+  m.L = c[0];
+  m.lam1 = c[1];
+  m.lam2 = c[2];
+  m.lam3 = c[3];
+  return m;
+}
+
 // The columns of p the model reads lie below npar, and its tables cover the
 // horizon N.
 template <int NX0, int NU>
@@ -170,6 +212,12 @@ inline bool model_fits(const LinearRateModel<NX0, NU>& m, int npar, int N) {
   if (m.x_ref < -1 || (m.x_ref >= 0 && m.x_ref + NX0 > npar)) return false;
   if (m.u_ref < -1 || (m.u_ref >= 0 && m.u_ref + NU > npar)) return false;
   return true;
+}
+
+// The curvature cost reads p[0:4] besides the linear model's columns.
+template <int NX0, int NU>
+inline bool model_fits(const CurvatureRateModel<NX0, NU>& m, int npar, int N) {
+  return npar >= 4 && model_fits(static_cast<const LinearRateModel<NX0, NU>&>(m), npar, N);
 }
 
 }  // namespace

@@ -38,6 +38,7 @@ extern "C" int mv_riccati_backward(int nx, int nu, int use_ddp, int B, int N, fl
     if (nx == 3 && nu == 2) return mv_riccati_launch_3x2(a, d, s);
     if (nx == 4 && nu == 1) return mv_riccati_launch_4x1(a, d, s);
     if (nx == 5 && nu == 1) return mv_riccati_launch_5x1(a, d, s);
+    if (nx == 5 && nu == 2) return mv_riccati_launch_5x2(a, d, s);
     if (nx == 4 && nu == 3) return mv_riccati_launch_4x3(a, d, s);
     if (nx == 5 && nu == 4) return mv_riccati_launch_5x4(a, d, s);
   } else {
@@ -45,6 +46,7 @@ extern "C" int mv_riccati_backward(int nx, int nu, int use_ddp, int B, int N, fl
     if (nx == 3 && nu == 2) return mv_riccati_warps_launch_3x2(a, d, problems, layout, c, s);
     if (nx == 4 && nu == 1) return mv_riccati_warps_launch_4x1(a, d, problems, layout, c, s);
     if (nx == 5 && nu == 1) return mv_riccati_warps_launch_5x1(a, d, problems, layout, c, s);
+    if (nx == 5 && nu == 2) return mv_riccati_warps_launch_5x2(a, d, problems, layout, c, s);
     if (nx == 4 && nu == 3) return mv_riccati_warps_launch_4x3(a, d, problems, layout, c, s);
     if (nx == 5 && nu == 4) return mv_riccati_warps_launch_5x4(a, d, problems, layout, c, s);
   }

@@ -620,6 +620,7 @@ cudaError_t mv_riccati_launch_3x1(const RiccatiArgs& a, bool ddp, cudaStream_t s
 cudaError_t mv_riccati_launch_3x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_4x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_5x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
+cudaError_t mv_riccati_launch_5x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_4x3(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_launch_5x4(const RiccatiArgs& a, bool ddp, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_3x1(const RiccatiArgs& a, bool ddp, int problems,
@@ -629,6 +630,8 @@ cudaError_t mv_riccati_warps_launch_3x2(const RiccatiArgs& a, bool ddp, int prob
 cudaError_t mv_riccati_warps_launch_4x1(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_5x1(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s);
+cudaError_t mv_riccati_warps_launch_5x2(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);
 cudaError_t mv_riccati_warps_launch_4x3(const RiccatiArgs& a, bool ddp, int problems,
                                         const int* layout, long long* clocks, cudaStream_t s);

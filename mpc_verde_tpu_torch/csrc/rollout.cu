@@ -1,7 +1,8 @@
 // Fused parallel line search / pre-roll (K2): the C entry point, and the
 // kernels of rollout.cuh instantiated for the unicycle device model
-// (unicycle.cuh).  The linear rate-form models' instantiations are in
-// rollout_linear.cu, compiled in parallel with this file.
+// (unicycle.cuh).  The rate-form models' instantiations are in
+// rollout_linear.cu and rollout_frenet.cu, compiled in parallel with this
+// file.
 //
 // Replaces the Pallas TPU kernel linesearch_forward_pallas
 // (mpc_verde_tpu/ops/pallas/rollout.py, body _make_kernel); rollout.cuh
@@ -10,11 +11,17 @@
 #include "unicycle.cuh"
 #include "rollout.cuh"
 
-// rollout_linear.cu: model kind 1 (nx0 3, nu 1) or 2 (nx0 4, nu 1), from the
-// host arrays of linear_rate.cuh's unpack_linear and the device tables.
+// rollout_linear.cu: model kind 1 (nx0 3, nu 1), 2 (nx0 4, nu 1) or 4 (the
+// curvature cost at nx0 3, nu 1), from the host arrays of linear_rate.cuh's
+// unpack_linear / unpack_curvature and the device tables.
 cudaError_t mv_linesearch_linear(int kind, const float* model, const int* ints,
                                  const float* tables, const RolloutArgs& g, const Alphas& al,
                                  int variant, const LanesLayout& L, cudaStream_t s);
+// rollout_frenet.cu: model kind 3, from the host arrays of frenet_rate.cuh's
+// unpack_frenet and the device tables.
+cudaError_t mv_linesearch_frenet(const float* model, const int* ints, const float* tables,
+                                 const RolloutArgs& g, const Alphas& al, int variant,
+                                 const LanesLayout& L, cudaStream_t s);
 
 // Plain C entry point (loaded with ctypes).  Tensor pointers are device
 // pointers to contiguous float32 tensors: x0 (B,nx), xs (B,N+1,nx),
@@ -24,7 +31,9 @@ cudaError_t mv_linesearch_linear(int kind, const float* model, const int* ints,
 // arrays of unicycle.cuh's unpack_model, `tables` unused), 1 or 2 the linear
 // rate-form model at (nx, nu) = (4, 1) or (5, 1) (the host arrays of
 // linear_rate.cuh's unpack_linear, `tables` the device array of its
-// per-stage rate bounds).  `alphas` is a host array of n_alphas floats.
+// per-stage rate bounds), 3 the Frenet rate-form model at (5, 2)
+// (frenet_rate.cuh's unpack_frenet, `tables` as for the linear model), 4 the
+// linear model with the curvature cost at (4, 1) (unpack_curvature).  `alphas` is a host array of n_alphas floats.
 // `variant` is 0 "thread", 1 "lanes" or 2 "lanes_reroll"; for the lanes
 // variants `problems` is the number of problems a block takes and `layout`
 // a host array of the 9 ints of LanesLayout from `xs` on, as
@@ -39,7 +48,7 @@ extern "C" int mv_linesearch_forward(int kind, int B, int N, int npar, const flo
                                      const float* alphas, int n_alphas, float* xs_out,
                                      float* us_out, float* cost_out, int* best_out, int variant,
                                      int problems, const int* layout, void* stream) {
-  if (n_alphas < 1 || n_alphas > kMaxAlphas || kind < 0 || kind > 2)
+  if (n_alphas < 1 || n_alphas > kMaxAlphas || kind < 0 || kind > 4)
     return cudaErrorInvalidValue;
   if (variant < 0 || variant > 2) return cudaErrorInvalidValue;
   const UnicycleModel m = kind == 0 ? unpack_model(model, model_ints) : UnicycleModel{};
@@ -59,6 +68,7 @@ extern "C" int mv_linesearch_forward(int kind, int B, int N, int npar, const flo
                     layout[4], layout[5], layout[6], layout[7], layout[8]};
     if (((L.xs | L.us | L.kff | L.K | L.ps) & 3) != 0) return cudaErrorInvalidValue;
   }
+  if (kind == 3) return mv_linesearch_frenet(model, model_ints, tables, g, al, variant, L, s);
   if (kind != 0) return mv_linesearch_linear(kind, model, model_ints, tables, g, al, variant, L, s);
   return linesearch_run(m, g, al, variant, L, s);
 }

@@ -1,7 +1,8 @@
 // Fused parallel line search / pre-roll (K2) for the linear rate-form device
 // model (linear_rate.cuh): the kernels of rollout.cuh instantiated at
-// (nx0, nu) = (3, 1) and (4, 1), so (nx, nu) = (4, 1) and (5, 1), in a
-// translation unit of their own that compiles in parallel with rollout.cu.
+// (nx0, nu) = (3, 1) and (4, 1), so (nx, nu) = (4, 1) and (5, 1), and for the
+// curvature cost's model at (3, 1), in a translation unit of their own that
+// compiles in parallel with rollout.cu.
 
 #include "linear_rate.cuh"
 #include "rollout.cuh"
@@ -17,13 +18,23 @@ cudaError_t run_linear(const float* model, const int* ints, const float* tables,
   return linesearch_run(m, g, al, variant, L, s);
 }
 
+template <int NX0, int NU>
+cudaError_t run_curvature(const float* model, const int* ints, const float* tables,
+                          const RolloutArgs& g, const Alphas& al, int variant,
+                          const LanesLayout& L, cudaStream_t s) {
+  const CurvatureRateModel<NX0, NU> m = unpack_curvature<NX0, NU>(model, ints, tables);
+  if (!model_fits(m, g.npar, g.N)) return cudaErrorInvalidValue;
+  return linesearch_run(m, g, al, variant, L, s);
+}
+
 }  // namespace
 
-// Called by mv_linesearch_forward (rollout.cu) for model kinds 1 and 2.
+// Called by mv_linesearch_forward (rollout.cu) for model kinds 1, 2 and 4.
 cudaError_t mv_linesearch_linear(int kind, const float* model, const int* ints,
                                  const float* tables, const RolloutArgs& g, const Alphas& al,
                                  int variant, const LanesLayout& L, cudaStream_t s) {
   if (kind == 1) return run_linear<3, 1>(model, ints, tables, g, al, variant, L, s);
   if (kind == 2) return run_linear<4, 1>(model, ints, tables, g, al, variant, L, s);
+  if (kind == 4) return run_curvature<3, 1>(model, ints, tables, g, al, variant, L, s);
   return cudaErrorInvalidValue;
 }

@@ -38,12 +38,15 @@
 // stage_cost / has_terminal_cost / terminal_cost (linear_rate.cuh gives the
 // linear rate-form model the same surface).
 // T needs +, -, * with T and float, / by a float, construction from a
-// float, and mv_sin / mv_cos / mv_log / mv_max / mv_value overloads.
+// float, and mv_sin / mv_cos / mv_log / mv_max / mv_value overloads (scalar.cuh
+// for float, dual.cuh for the dual numbers).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "scalar.cuh"
 
 namespace {
 
@@ -131,13 +134,6 @@ inline bool model_fits(const UnicycleModel& m, int npar) {
   if (m.u_ref < -1 || m.u_ref + kNU > npar || m.quad_substeps < 0) return false;
   return true;
 }
-
-__device__ __forceinline__ float mv_sin(float a) { return sinf(a); }
-__device__ __forceinline__ float mv_cos(float a) { return cosf(a); }
-__device__ __forceinline__ float mv_log(float a) { return logf(a); }
-__device__ __forceinline__ float mv_value(float a) { return a; }
-// jnp.maximum(c, a): NaN propagates
-__device__ __forceinline__ float mv_max(float a, float c) { return a < c ? c : a; }
 
 template <class T>
 __device__ __forceinline__ void rhs(const T (&x)[kNX], const T (&u)[kNU], T (&f)[kNX]) {

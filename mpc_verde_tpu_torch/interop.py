@@ -5,6 +5,8 @@ it.  Data crosses as numpy arrays: ``from_numpy`` turns what the JAX side
 feeds or returns into tensors, ``result_to_numpy`` turns a port result back.
 ``unicycle_ocp`` builds a unicycle OCP with its matching device model,
 ``linear_rate_ocp`` the rate form of a linear plant with its own,
+``frenet_rate_ocp`` and ``curvature_rate_ocp`` those of the Frenet and
+curvature families,
 ``bench_ocp`` the diff-drive point-stabilization OCP that the JAX package's
 ``bench.py`` headlines (``build_ocp``), constants included, optionally with a
 state box, and ``derived_ocps`` the OCPs that the interior-point and
@@ -18,10 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from .models import unicycle
+from .models import frenet_path_frame, unicycle
 from .ocp import OCP, box_bounds, to_rate_form
-from .ops import discretize, rk4_step_with_quadrature
-from .ops.cuda.rollout import LinearRateDeviceModel, UnicycleDeviceModel
+from .ops import discretize, rk4_step, rk4_step_with_quadrature
+from .ops.cuda.rollout import (FrenetRateDeviceModel, LinearRateDeviceModel,
+                               UnicycleDeviceModel)
 from .runtime import ClosedLoopResult
 from .solver.ilqr import ILQRResult
 
@@ -140,7 +143,7 @@ def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
 def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
                     u_lb=None, u_ub=None, du_lb=None, du_ub=None, Ad=None,
                     Bd=None, ab_col=None, x_ref=None, target=None,
-                    u_ref=None) -> OCP:
+                    u_ref=None, curvature=None) -> OCP:
     """The rate form (``to_rate_form``) of the linear plant ``x' = Ad x +
     Bd u`` with the cost ``(x - r)' Q (x - r) + (u - u_r)' R (u - u_r) + du'
     R_du du``, and its matching ``LinearRateDeviceModel``, from one set of
@@ -152,9 +155,11 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
     constant ``target`` (zeros by default), ``u_r`` is ``p[u_ref : u_ref +
     nu]`` or zero; ``R_du`` defaults to zeros.  ``u_lb`` / ``u_ub`` (nu,) and
     ``du_lb`` / ``du_ub`` ((nu,) or (N, nu)) are the magnitude and rate
-    boxes (+-inf where None).  The OCP's npar is the columns the model
-    reads.  The numbers keep the caller's values; the kernels take them
-    rounded to float32.
+    boxes (+-inf where None).  ``curvature = (L, lambda1, lambda2,
+    lambda3)`` replaces the quadratic cost with the curvature family's
+    (``LinearRateDeviceModel``; nx0 3, nu 1, params from column 0 on).  The
+    OCP's npar is the columns the model reads.  The numbers keep the
+    caller's values; the kernels take them rounded to float32.
     """
     device = torch.device(device)
     num = lambda a: np.asarray(a, dtype=np.float64)
@@ -173,7 +178,8 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
         N=N, Q=Qn, R=Rn, R_du=R_dun, **bounds,
         Ad=None if Ad is None else num(Ad), Bd=None if Bd is None else num(Bd),
         ab_col=ab_col, x_ref=x_ref,
-        target=None if target is None else num(target), u_ref=u_ref)
+        target=None if target is None else num(target), u_ref=u_ref,
+        curvature=None if curvature is None else tuple(map(float, curvature)))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Qt, Rt, Rdt = t(Qn), t(Rn), t(R_dun)
     rt = t(np.zeros(nx0) if target is None else num(target))
@@ -194,9 +200,76 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
         eu = u if u_ref is None else u - p[u_ref:u_ref + nu]
         return e @ Qt @ e + eu @ Rt @ eu + du @ Rdt @ du
 
+    if curvature is not None:
+        L, lam1, lam2, lam3 = model.curvature
+
+        def l(x, u, p, du):
+            # scenarios/curvature.py's cost: R_t = 1 / kappa_t is the turn
+            # radius, which the reference writes in place of a weight
+            y, phi, r = x[0], x[1], x[2]
+            yt, phit, kappat, vdes = p[0], p[1], p[2], p[3]
+            Rt = 1.0 / kappat
+            z = torch.tan(u[0]) - L * kappat
+            return (lam2 * (y - yt) ** 2 + lam3 * (phi - phit) ** 2
+                    + lam1 * (r * Rt - vdes) ** 2 + Rt * z * z)
+
     return to_rate_form(F, l, N=N, nx=nx0, nu=nu, npar=model.min_npar,
                         **bounds, device=device, dtype=dtype,
                         device_model=model)
+
+
+def frenet_rate_ocp(N: int, device, dtype=torch.float32, *, T: float,
+                    L: float, lambda1: float, lambda2: float, lambda3: float,
+                    lambda4: float, lambda5: float, delta_max: float,
+                    a_max: float, delta_dot_max: float) -> OCP:
+    """The Frenet family's OCP (``scenarios/frenet.py``): the rate form of
+    one RK4 step over ``T`` of the path-frame model (``models/frenet.py``,
+    wheelbase ``L``), the cost ``(l1 (v - v_des)^2 + l2 (y - y_t)^2 + l3
+    (phi - phi_t)^2 + l4 a^2 + l5 (tan(delta) - L kappa_t)^2) / (N + 1)``
+    over ``p = (y_t, phi_t, kappa_t, v_des)``, the box ``|delta| <=
+    delta_max``, ``|a| <= a_max``, ``|du_delta| <= delta_dot_max`` (``du_a``
+    free), and its matching ``FrenetRateDeviceModel``, from one set of
+    numbers (the JAX package's ``SPEC``)."""
+    device = torch.device(device)
+    lam = (lambda1, lambda2, lambda3, lambda4, lambda5)
+    u_lb, u_ub = np.array([-delta_max, -a_max]), np.array([delta_max, a_max])
+    du_lb = np.array([-delta_dot_max, -np.inf])
+    du_ub = np.array([delta_dot_max, np.inf])
+    model = FrenetRateDeviceModel(
+        N=N, T=float(T), L=float(L), weights=tuple(map(float, lam)),
+        u_lb=u_lb, u_ub=u_ub, du_lb=np.broadcast_to(du_lb, (N, 2)).copy(),
+        du_ub=np.broadcast_to(du_ub, (N, 2)).copy())
+    F = rk4_step(frenet_path_frame(L).f, T, M=1)
+
+    def l(x, u, p, du):
+        y, phi, v = x[0], x[1], x[2]
+        delta, a = u[0], u[1]
+        yt, phit, kappat, vdes_k = p[0], p[1], p[2], p[3]
+        z = torch.tan(delta) - L * kappat
+        return (lambda1 * (v - vdes_k) ** 2 + lambda2 * (y - yt) ** 2
+                + lambda3 * (phi - phit) ** 2 + lambda4 * a ** 2
+                + lambda5 * z ** 2) / (N + 1)
+
+    return to_rate_form(F, l, N=N, nx=3, nu=2, npar=model.min_npar,
+                        u_lb=u_lb, u_ub=u_ub, du_lb=du_lb, du_ub=du_ub,
+                        device=device, dtype=dtype, device_model=model)
+
+
+def curvature_rate_ocp(N: int, device, dtype=torch.float32, *, Ntu: int,
+                       L: float, lambda1: float, lambda2: float,
+                       lambda3: float, delta_max: float) -> OCP:
+    """The curvature family's OCP (``scenarios/curvature.py``): the rate
+    form of the LTV lateral-error model with each stage's (Ad, Bd) in
+    ``p[4:16]`` (``ab_col`` 4, after ``(y_t, phi_t, kappa_t, v_des)``), the
+    curvature cost (``linear_rate_ocp``'s ``curvature``), the steering box
+    ``|delta| <= delta_max`` and move blocking after ``Ntu`` (free rates,
+    then rates pinned to 0)."""
+    du_lb, du_ub = np.zeros((N, 1)), np.zeros((N, 1))
+    du_lb[:Ntu], du_ub[:Ntu] = -np.inf, np.inf
+    return linear_rate_ocp(
+        N, device, dtype, Q=np.zeros((3, 3)), R=np.zeros((1, 1)),
+        u_lb=[-delta_max], u_ub=[delta_max], du_lb=du_lb, du_ub=du_ub,
+        ab_col=4, curvature=(L, lambda1, lambda2, lambda3))
 
 
 def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,

@@ -10,11 +10,13 @@ memory.
 Its kernel is ``csrc/fused.cu``, two phases in one launch.  In phase 1 a
 block's threads take its problems' stages one (problem, stage) at a time:
 each evaluates the OCP's device model (``UnicycleDeviceModel``,
-``csrc/unicycle.cuh``, or ``LinearRateDeviceModel``, ``csrc/linear_rate.cuh``:
-the models K2 evaluates; the kernels, templates on the model, are in
-``csrc/fused.cuh``) on second-order forward-mode dual numbers
-(``csrc/dual.cuh``) over z = [x; u] and stores the stage's derivatives as
-one record in shared memory.  In phase 2 one thread per problem walks the
+``csrc/unicycle.cuh``, ``LinearRateDeviceModel``, ``csrc/linear_rate.cuh``,
+or ``FrenetRateDeviceModel``, ``csrc/frenet_rate.cuh``: the models K2
+evaluates; the kernels, templates on the model, are in ``csrc/fused.cuh``)
+on second-order forward-mode dual numbers (``csrc/dual.cuh``) over z = [x;
+u] and stores the stage's derivatives as one record in shared memory.  The
+Frenet model's duals run over its five numbers (x, u_prev + w) and its
+derivatives are scattered to (z, w) exactly (``csrc/fused_frenet.cu``).  In phase 2 one thread per problem walks the
 stages N-1..0 with K1's stage recursion (``backward_stage`` in
 ``csrc/riccati.cuh``) on those records, and the gains leave through a
 shared-memory staging area as coalesced slabs.  ``fused_launch_plan`` picks
@@ -27,6 +29,7 @@ problems' records fit a block's shared memory and for batches whose
 ``fused_backward_torch`` is the plain PyTorch version: the port's
 ``derivs`` -> ``backward`` on the OCP's own callables
 (``ops.linearize.trajectory_derivatives``, then ``riccati_backward_torch``).
+``dual_chain`` is the PyTorch twin of the dual numbers' chain rule.
 """
 from __future__ import annotations
 
@@ -58,6 +61,29 @@ _MIN_PROBLEMS = 4
 _MAX_WAVES = 2
 _SMS, _SM_SMEM_BYTES, _SM_REGISTERS, _THREAD_REGISTERS = 132, 233_472, 65_536, 256
 _MAX_THREADS = 256    # kMaxThreads in csrc/fused.cu: 255 registers a thread
+
+
+# (f, f', f'') at a of the scalar functions of csrc/dual.cuh, as its mv_*
+# functions hand them to chain(): the twins of its formulas
+CHAIN_COEFFS = {
+    "sin": lambda a: (torch.sin(a), torch.cos(a), -torch.sin(a)),
+    "cos": lambda a: (torch.cos(a), -torch.sin(a), -torch.cos(a)),
+    "tan": lambda a: (torch.tan(a), 1.0 + torch.tan(a) ** 2,
+                      2.0 * torch.tan(a) * (1.0 + torch.tan(a) ** 2)),
+    "log": lambda a: (torch.log(a), 1.0 / a, -(1.0 / a) ** 2),
+    "recip": lambda a: (1.0 / a, -(1.0 / a) ** 2, 2.0 * (1.0 / a) ** 3),
+}
+
+
+def dual_chain(name: str, v, g, H):
+    """``f(a)`` on a second-order dual number as ``chain`` in
+    ``csrc/dual.cuh`` computes it, f one of ``CHAIN_COEFFS``: from a's value
+    ``v`` (...), gradient ``g`` (..., nz) and Hessian ``H`` (..., nz, nz), the
+    value f(v), the gradient f'(v) g and the Hessian f'(v) H + f''(v) g g'."""
+    f0, f1, f2 = CHAIN_COEFFS[name](v)
+    return (f0, f1[..., None] * g,
+            f1[..., None, None] * H
+            + f2[..., None, None] * (g[..., :, None] * g[..., None, :]))
 
 
 def fused_launch_plan(N: int, use_ddp: bool, variant: Optional[str] = None,

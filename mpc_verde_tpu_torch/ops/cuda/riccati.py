@@ -3,8 +3,9 @@
 ``riccati_backward`` replaces the Pallas TPU kernel ``riccati_backward_pallas``
 (``mpc_verde_tpu/ops/pallas/riccati.py``).  The 3^nu stage box-QP patterns
 are unrolled at compile time for (nx, nu) in {(3, 1), (3, 2), (4, 1), (4, 3),
-(5, 1), (5, 4)}: the unicycle (3, 2), the rate-form linear families (4, 1)
-and (5, 1), and the JAX kernel's test sizes.
+(5, 1), (5, 2), (5, 4)}: the unicycle (3, 2), the rate-form linear families
+(4, 1) and (5, 1), the Frenet family's rate form (5, 2), and the JAX
+kernel's test sizes.
 What bounds the function on the H100 is neither bytes nor operations but the
 recursion's chain: N stage QPs that each wait for the next stage's
 (Vx, Vxx), with too few problems to hide one chain behind another.
@@ -41,7 +42,7 @@ from ...solver.ilqr import _stage_boxqp_with_gain
 from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
                     load_library)
 
-SUPPORTED = {(3, 1), (3, 2), (4, 1), (4, 3), (5, 1), (5, 4)}
+SUPPORTED = {(3, 1), (3, 2), (4, 1), (4, 3), (5, 1), (5, 2), (5, 4)}
 RICCATI_VARIANTS = ("thread", "warps")  # the C entry's ids
 
 _STAGE_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")

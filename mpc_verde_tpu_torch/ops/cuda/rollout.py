@@ -27,13 +27,16 @@ point takes as it is.
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
 Python callable, so the kernel evaluates a device model carried on the OCP:
 plain numbers describing the same dynamics, cost and box as the OCP's torch
-callables.  Two models exist: ``UnicycleDeviceModel`` (``csrc/unicycle.cuh``)
-and ``LinearRateDeviceModel`` (``csrc/linear_rate.cuh``), the rate form of a
-linear plant that ``ocp/rate.py`` builds.  Their ``step`` / ``stage_cost`` /
-... methods are those formulas in PyTorch, in the kernels' order, so a test
-can tie the two definitions together.  The kernels are templates on the
-model (``csrc/rollout.cuh``, instantiated in ``rollout.cu`` and
-``rollout_linear.cu``); K3 shares the models' device code.
+callables.  Three models exist: ``UnicycleDeviceModel``
+(``csrc/unicycle.cuh``), ``LinearRateDeviceModel`` (``csrc/linear_rate.cuh``),
+the rate form of a linear plant that ``ocp/rate.py`` builds, with the
+quadratic cost or the curvature family's, and ``FrenetRateDeviceModel``
+(``csrc/frenet_rate.cuh``), the rate form of the Frenet path-frame model.
+Their ``step`` / ``stage_cost`` / ... methods are those formulas in
+PyTorch, in the kernels' order, so a test can tie the two definitions
+together.  The kernels are templates on the model (``csrc/rollout.cuh``,
+instantiated in ``rollout.cu``, ``rollout_linear.cu`` and
+``rollout_frenet.cu``); K3 shares the models' device code.
 
 ``linesearch_forward_torch`` is the plain PyTorch version: the JAX
 materialising line search (``mpc_verde_tpu/solver/batched.py``) on the
@@ -417,14 +420,64 @@ class UnicycleDeviceModel:
 
 
 # (nx0, nu) of the linear rate-form instantiations -> their model kind in
-# the kernels' C entry points (csrc/rollout_linear.cu, fused_linear.cu)
+# the kernels' C entry points (csrc/rollout_linear.cu, fused_linear.cu); the
+# curvature cost's instantiation at (3, 1) is kind 4, the Frenet model kind 3
 LINEAR_KINDS = {(3, 1): 1, (4, 1): 2}
+CURVATURE_KIND = 4
+
+
+class _RateFormModel:
+    """What the rate-form device models share: the stage box of
+    ``to_rate_form`` on the rate tables and the magnitude box, the tables as
+    the kernels read them, and no terminal cost, barrier or AL term."""
+
+    def _t(self, a, like):
+        return torch.as_tensor(np.asarray(a), dtype=like.dtype,
+                               device=like.device)
+
+    def with_barrier(self, lb, ub, mu_col: int, rule: str, clip: bool = True):
+        """None: a rate-form model carries no barrier term."""
+        return None
+
+    def with_al(self, x_lb, x_ub, lam_col: int):
+        """None: a rate-form model carries no AL term."""
+        return None
+
+    def tables(self, device) -> torch.Tensor:
+        """The rate bounds as the kernels read them: float32 (2, N, nu),
+        du_lb then du_ub, on ``device`` (made once a device)."""
+        device = torch.device(device)
+        if device not in self._tables:
+            self._tables[device] = torch.as_tensor(
+                np.stack([self.du_lb, self.du_ub]), dtype=torch.float32,
+                device=device).contiguous()
+        return self._tables[device]
+
+    def kernel_args(self, device):
+        """The model as the kernels' C entry points take it: (packed floats,
+        packed ints, the device pointer of ``tables(device)``).  The pointers
+        keep the packed arrays alive."""
+        return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                self.tables(device).data_ptr())
+
+    def bounds(self, z, k):
+        """Stage ``k``'s box at ``z``: k an int, or a tensor of stage
+        indices with z's leading dims."""
+        up = z[..., self.nx0:]
+        dlb, dub = self._t(self.du_lb, z)[k], self._t(self.du_ub, z)[k]
+        return (torch.maximum(dlb, self._t(self.u_lb, z) - up),
+                torch.minimum(dub, self._t(self.u_ub, z) - up))
+
+    def terminal_cost(self, z, p):
+        return torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
 
 
 @dataclasses.dataclass(frozen=True)
-class LinearRateDeviceModel:
+class LinearRateDeviceModel(_RateFormModel):
     """Kernel-side description of the rate form of a linear plant
-    (``ocp.rate.to_rate_form``; model kinds 1 and 2 of the C entry points).
+    (``ocp.rate.to_rate_form``; model kinds 1, 2 and 4 of the C entry
+    points).
 
     State ``z = [x; u_prev]`` (nx = nx0 + nu), control ``w = du``, ``u =
     u_prev + w``.  Dynamics ``x' = Ad x + Bd u``, ``u_prev' = u``: ``Ad``
@@ -433,7 +486,12 @@ class LinearRateDeviceModel:
     nx0^2]`` and then ``Bd`` row-major (LTV).  Stage cost ``(x - r)' Q (x -
     r) + (u - u_r)' R (u - u_r) + w' R_du w``: ``r = p[x_ref : x_ref + nx0]``
     or the constant ``target`` (zeros if not given), ``u_r = p[u_ref :
-    u_ref + nu]`` or zero.  No terminal cost.  Stage k's box is
+    u_ref + nu]`` or zero.  With ``curvature = (L, lambda1, lambda2,
+    lambda3)`` (nx0 3, nu 1: ``scenarios/curvature.py``) the stage cost is
+    instead ``l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l1 (r R_t - v_des)^2 +
+    R_t (tan(delta) - L kappa_t)^2`` over ``x = (y, phi, r)``, ``delta = u``,
+    ``p[:4] = (y_t, phi_t, kappa_t, v_des)`` and ``R_t = 1 / kappa_t``; Q, R
+    and R_du are then unused.  No terminal cost.  Stage k's box is
     ``max(du_lb[k], u_lb - u_prev) <= w <= min(du_ub[k], u_ub - u_prev)``,
     the ``w_bounds`` of ``to_rate_form``; the kernels evaluate it on the
     state being rolled (K2) and on the nominal state (K3), and read the
@@ -443,7 +501,7 @@ class LinearRateDeviceModel:
     ``with_al`` return None, so the OCPs the interior-point and state-bound
     solvers derive from a rate-form OCP have no device model, and run on the
     card only with ``backend="torch"``.  The kernels exist for (nx0, nu) in
-    ``LINEAR_KINDS``.
+    ``LINEAR_KINDS``, and with the curvature cost for (3, 1).
     """
 
     N: int
@@ -460,6 +518,7 @@ class LinearRateDeviceModel:
     x_ref: Optional[int] = None
     target: Optional[np.ndarray] = None
     u_ref: Optional[int] = None
+    curvature: Optional[tuple] = None
 
     def __post_init__(self):
         nx0, nu = np.shape(self.Q)[0], np.shape(self.R)[0]
@@ -467,6 +526,10 @@ class LinearRateDeviceModel:
             raise ValueError("give the constant Ad and Bd, or ab_col")
         if self.x_ref is not None and self.target is not None:
             raise ValueError("give x_ref or target, not both")
+        if self.curvature is not None and (
+                (nx0, nu) != (3, 1) or len(self.curvature) != 4):
+            raise ValueError("the curvature cost is (L, lambda1, lambda2, "
+                             "lambda3) on nx0 = 3, nu = 1")
         for col in ("ab_col", "x_ref", "u_ref"):
             if getattr(self, col) is not None and getattr(self, col) < 0:
                 raise ValueError(f"{col} must be a column index >= 0")
@@ -497,6 +560,8 @@ class LinearRateDeviceModel:
     @property
     def kind(self) -> int:
         """The kernels' model kind; raises for sizes without kernels."""
+        if self.curvature is not None:
+            return CURVATURE_KIND
         if (self.nx0, self.nu) not in LINEAR_KINDS:
             raise NotImplementedError(
                 f"no linear rate-form kernels for (nx0, nu) = ({self.nx0}, "
@@ -506,7 +571,7 @@ class LinearRateDeviceModel:
     @property
     def min_npar(self) -> int:
         """The fewest parameter columns the model reads (0 for none)."""
-        cols = [0]
+        cols = [0 if self.curvature is None else 4]
         if self.ab_col is not None:
             cols.append(self.ab_col + self.nx0 * (self.nx0 + self.nu))
         if self.x_ref is not None:
@@ -515,24 +580,19 @@ class LinearRateDeviceModel:
             cols.append(self.u_ref + self.nu)
         return max(cols)
 
-    def with_barrier(self, lb, ub, mu_col: int, rule: str, clip: bool = True):
-        """None: the linear model carries no barrier term."""
-        return None
-
-    def with_al(self, x_lb, x_ub, lam_col: int):
-        """None: the linear model carries no AL term."""
-        return None
-
     def packed(self) -> np.ndarray:
         """float32 [Ad, Bd, Q, R, R_du, target, u_lb, u_ub], row-major, the
         kernels' layout (zeros for Ad and Bd of an LTV model and for an
-        absent target)."""
+        absent target), then the curvature cost's (L, lambda1, lambda2,
+        lambda3) where it has one."""
         z = lambda a, n: np.zeros(n) if a is None else np.ravel(a)
         nx0, nu = self.nx0, self.nu
         return np.concatenate([
             z(self.Ad, nx0 * nx0), z(self.Bd, nx0 * nu), np.ravel(self.Q),
             np.ravel(self.R), np.ravel(self.R_du), z(self.target, nx0),
-            np.ravel(self.u_lb), np.ravel(self.u_ub)]).astype(np.float32)
+            np.ravel(self.u_lb), np.ravel(self.u_ub),
+            np.asarray(() if self.curvature is None else self.curvature,
+                       np.float64)]).astype(np.float32)
 
     def packed_ints(self) -> np.ndarray:
         """int32 [ab_col, x_ref, u_ref (-1 for none), N]."""
@@ -540,29 +600,7 @@ class LinearRateDeviceModel:
         return np.array([c(self.ab_col), c(self.x_ref), c(self.u_ref),
                          self.N], np.int32)
 
-    def tables(self, device) -> torch.Tensor:
-        """The rate bounds as the kernels read them: float32 (2, N, nu),
-        du_lb then du_ub, on ``device`` (made once a device)."""
-        device = torch.device(device)
-        if device not in self._tables:
-            self._tables[device] = torch.as_tensor(
-                np.stack([self.du_lb, self.du_ub]), dtype=torch.float32,
-                device=device).contiguous()
-        return self._tables[device]
-
-    def kernel_args(self, device):
-        """The model as the kernels' C entry points take it: (packed floats,
-        packed ints, the device pointer of ``tables(device)``).  The pointers
-        keep the packed arrays alive."""
-        return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                self.tables(device).data_ptr())
-
     # --- the kernel's formulas in PyTorch (batched over leading dims) -------
-    def _t(self, a, like):
-        return torch.as_tensor(np.asarray(a), dtype=like.dtype,
-                               device=like.device)
-
     def _matrices(self, p, like):
         """(Ad, Bd) of each stage: from p's columns or the constants."""
         nx0, nu = self.nx0, self.nu
@@ -585,7 +623,19 @@ class LinearRateDeviceModel:
     def _quad(W, v):
         return ((v[..., :, None] * W).sum(-2) * v).sum(-1)
 
+    def _curvature_cost(self, z, w, p):
+        L, l1, l2, l3 = self.curvature
+        y, phi, r = z[..., 0], z[..., 1], z[..., 2]
+        yt, phit, kt, vdes = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
+        Rt = 1.0 / kt
+        e_r = r * Rt - vdes
+        zt = torch.tan(z[..., 3] + w[..., 0]) - L * kt
+        return ((l2 * (y - yt) ** 2 + l3 * (phi - phit) ** 2) + l1 * e_r ** 2
+                ) + Rt * zt * zt
+
     def stage_cost(self, z, w, p):
+        if self.curvature is not None:
+            return self._curvature_cost(z, w, p)
         nx0, nu = self.nx0, self.nu
         if self.x_ref is None:
             r = self._t(np.zeros(nx0) if self.target is None else self.target, z)
@@ -598,16 +648,93 @@ class LinearRateDeviceModel:
                  + self._quad(self._t(self.R, z), du))
                 + self._quad(self._t(self.R_du, z), w))
 
-    def bounds(self, z, k):
-        """Stage ``k``'s box at ``z``: k an int, or a tensor of stage
-        indices with z's leading dims."""
-        up = z[..., self.nx0:]
-        dlb, dub = self._t(self.du_lb, z)[k], self._t(self.du_ub, z)[k]
-        return (torch.maximum(dlb, self._t(self.u_lb, z) - up),
-                torch.minimum(dub, self._t(self.u_ub, z) - up))
 
-    def terminal_cost(self, z, p):
-        return torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
+@dataclasses.dataclass(frozen=True)
+class FrenetRateDeviceModel(_RateFormModel):
+    """Kernel-side description of the rate form of the Frenet path-frame OCP
+    (``scenarios/frenet.py``; model kind 3 of the C entry points).
+
+    State ``z = [y, phi, v, delta_prev, a_prev]``, control ``w = du``, ``u =
+    u_prev + w``; params ``p = (y_t, phi_t, kappa_t, v_des)``.  Dynamics:
+    one RK4 step over ``T`` of ``models/frenet.py``'s ``f(x, u, p)`` (with
+    ``tan(delta / L)``), u held, then ``u_prev' = u``.  Stage cost ``(l1 (v
+    - v_des)^2 + l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l4 a^2 + l5
+    (tan(delta) - L kappa_t)^2) / (N + 1)`` with ``weights = (l1, ..., l5)``.
+    No terminal cost.  Stage k's box is that of ``to_rate_form``, as for
+    ``LinearRateDeviceModel``.  The numbers keep the caller's values; the
+    kernels take them rounded to float32.
+    """
+
+    N: int
+    T: float
+    L: float
+    weights: tuple
+    u_lb: np.ndarray
+    u_ub: np.ndarray
+    du_lb: np.ndarray
+    du_ub: np.ndarray
+
+    nx0 = 3
+    nu = 2
+    nx = 5
+    kind = 3
+    min_npar = 4
+
+    def __post_init__(self):
+        shapes = {"u_lb": (2,), "u_ub": (2,), "du_lb": (self.N, 2),
+                  "du_ub": (self.N, 2), "weights": (5,)}
+        for name, shape in shapes.items():
+            if np.shape(getattr(self, name)) != shape:
+                raise ValueError(f"{name} must have shape {shape}")
+        object.__setattr__(self, "_tables", {})
+
+    def _consts(self):
+        """(h, h/2, h/6) of one RK4 step over T, in double as
+        ``ops.integrators.rk4_step`` computes them."""
+        return self.T, 0.5 * self.T, self.T / 6.0
+
+    def packed(self) -> np.ndarray:
+        """float32 [h, h/2, h/6, L, N + 1, l1..l5, u_lb, u_ub], the
+        kernels' layout."""
+        return np.concatenate([
+            np.asarray(self._consts()), [self.L, self.N + 1],
+            np.asarray(self.weights, np.float64), np.ravel(self.u_lb),
+            np.ravel(self.u_ub)]).astype(np.float32)
+
+    def packed_ints(self) -> np.ndarray:
+        """int32 [N]."""
+        return np.array([self.N], np.int32)
+
+    # --- the kernel's formulas in PyTorch (batched over leading dims) -------
+    def rhs(self, x, u, p):
+        """``models/frenet.py``'s f(x, u, p)."""
+        y, phi, v = x[..., 0], x[..., 1], x[..., 2]
+        yt, phit, kt = p[..., 0], p[..., 1], p[..., 2]
+        e = phi - phit
+        return torch.stack([
+            v * torch.sin(e),
+            v * (torch.tan(u[..., 0] / self.L)
+                 - (kt / (1.0 - (y - yt) * kt)) * torch.cos(e)),
+            u[..., 1]], dim=-1)
+
+    def step(self, z, w, p):
+        h, hh, h6 = self._consts()
+        x, u = z[..., :3], z[..., 3:] + w
+        k1 = self.rhs(x, u, p)
+        k2 = self.rhs(x + hh * k1, u, p)
+        k3 = self.rhs(x + hh * k2, u, p)
+        k4 = self.rhs(x + h * k3, u, p)
+        xn = x + h6 * (((k1 + 2.0 * k2) + 2.0 * k3) + k4)
+        return torch.cat([xn, u], dim=-1)
+
+    def stage_cost(self, z, w, p):
+        l1, l2, l3, l4, l5 = self.weights
+        y, phi, v = z[..., 0], z[..., 1], z[..., 2]
+        u = z[..., 3:] + w
+        zt = torch.tan(u[..., 0]) - self.L * p[..., 2]
+        return ((((l1 * (v - p[..., 3]) ** 2 + l2 * (y - p[..., 0]) ** 2)
+                  + l3 * (phi - p[..., 1]) ** 2) + l4 * u[..., 1] ** 2)
+                + l5 * zt ** 2) / (self.N + 1)
 
 
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
@@ -668,8 +795,9 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
 
     Same arguments and results as ``linesearch_forward_torch``, which is
     what runs when the tensors lie on the CPU.  On the card the kernel
-    evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel`` or a
-    ``LinearRateDeviceModel``); an OCP without one raises
+    evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel``, a
+    ``LinearRateDeviceModel`` or a ``FrenetRateDeviceModel``); an OCP
+    without one raises
     ``NotImplementedError``.  CUDA tensors must be contiguous float32.
     The kernel's variant is ``linesearch_launch_plan``'s choice for the
     shape; ``variant`` forces another for a comparison on the card (the

@@ -4,6 +4,11 @@ Port of ``mpc_verde_tpu.ops.linearize``: ``jacfwd`` on the discrete dynamics
 and a forward-over-reverse Hessian of the stage cost, batched with ``vmap``
 over every stage of every problem at once.  Same dict keys and layouts as the
 JAX package.
+
+``jacfwd`` can return float64 for float32 inputs: forward mode promotes the
+tangent of a 0-d tensor times a Python float (``u[0] / L`` in the Frenet
+model) to float64 (torch 2.13).  Every forward-mode result is cast back to
+the inputs' type, as JAX keeps it.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ def linearize_dynamics(F: Callable):
     def lin(x, u, p):
         fx = jacfwd(F, argnums=0)(x, u, p)
         fu = jacfwd(F, argnums=1)(x, u, p)
-        return fx, fu
+        return fx.to(x.dtype), fu.to(x.dtype)
 
     return lin
 
@@ -35,7 +40,7 @@ def quadratize_cost(l: Callable):
             return l(zz[:nx], zz[nx:], p)
 
         g = grad(lz)(z)
-        H = jacfwd(grad(lz))(z)
+        H = jacfwd(grad(lz))(z).to(z.dtype)
         return g[:nx], g[nx:], H[:nx, :nx], H[nx:, nx:], H[nx:, :nx]
 
     return quad
@@ -52,7 +57,7 @@ def dynamics_hessians(F: Callable):
         def Fz(zz):
             return F(zz[:nx], zz[nx:], p)
 
-        H = jacfwd(jacfwd(Fz))(z)  # (nx_out, nz, nz)
+        H = jacfwd(jacfwd(Fz))(z).to(z.dtype)  # (nx_out, nz, nz)
         return H[:, :nx, :nx], H[:, nx:, :nx], H[:, nx:, nx:]
 
     return hess
@@ -111,7 +116,7 @@ def trajectory_derivatives(ocp, xs, us, ps, second_order: bool):
         gN = vmap(grad(lf))(xs[:, N], ps[:, N])
         # jacfwd lays the Hessian out transposed; the kernels take it
         # contiguous
-        HN = vmap(jacfwd(grad(lf)))(xs[:, N], ps[:, N]).contiguous()
+        HN = vmap(jacfwd(grad(lf)))(xs[:, N], ps[:, N]).to(xs.dtype).contiguous()
     if cb is None:
         lbs = torch.full_like(us, -torch.inf)
         ubs = torch.full_like(us, torch.inf)

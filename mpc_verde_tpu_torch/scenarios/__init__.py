@@ -1,14 +1,13 @@
 """Scenario suite (port of ``mpc_verde_tpu.scenarios``): the diff-drive and
-circular-track families, the method comparison, the fleet, and the linear
+circular-track families, the method comparison, the fleet, the linear
 rate-form families (LTI and LTV lane change, leitura, the dynamic bicycle,
-the cart pendulum).
+the cart pendulum), the nonlinear Frenet family and the curvature-cost LTV
+family: every family of the JAX package.
 
 Each ``build_*`` function returns a dict with the configured OCP, the
 closed-loop runner, the problem tensors and the spec; ``run_*`` runs the
 closed loop and returns the JAX package's metrics under the same keys.
 Every entry point runs on the CUDA device unless given ``device="cpu"``.
-Not ported yet: the Frenet and curvature families (they need a nonlinear
-device model with dual-number derivatives of their own).
 """
 from .diffdrive import build_diffdrive, run_diffdrive
 from .circular import build_circular_tracking, run_circular_tracking
@@ -18,3 +17,5 @@ from .lane_change import build_lane_change_lti, run_lane_change_lti
 from .ltv import build_lane_change_ltv, build_leitura, run_lane_change_ltv
 from .dynamic_bicycle import build_dynamic_bicycle, run_dynamic_bicycle
 from .pendulum import build_pendulum, run_pendulum
+from .frenet import build_frenet, run_frenet
+from .curvature import build_curvature_ltv, run_curvature_ltv

@@ -761,3 +761,91 @@ def test_linear_family_20_steps_on_the_card(dev, family):
     else:
         assert float(((x - x64).abs() / x64.abs().clamp(min=1.0)).max()) <= (
             PEND_STATE_TOL)
+
+
+# The Frenet and curvature families' models (chip_smoke.py phase 10's path
+# cases at B = 1 and 301), held to the float64 twin as the linear model is.
+PATH_LABELS = ["frenet", "curvature"]
+
+
+@pytest.mark.parametrize("B", [1, 301])
+@pytest.mark.parametrize("label", PATH_LABELS)
+def test_linesearch_kernel_on_the_path_models(dev, label, B):
+    """K2 on the Frenet model and the curvature cost, every variant: the pick
+    is a first minimum of the float64 twin's candidates, and its cost and
+    trajectory are that candidate's."""
+    from chip_smoke import _hold_k2_f64, _k2_candidates, _path_case, _to64
+
+    ocp, ocp64, (x0, xs, us, kff, K), ps = _path_case(dev, B, label,
+                                                      seed=53 + B)
+    alphas = tuple(0.4 ** i for i in range(8))
+    data = (x0, xs, us, ps, kff, K)
+    cand32 = _k2_candidates(data, alphas, ocp)
+    cand64 = _k2_candidates(_to64(*data), alphas, ocp64)
+    for variant in LINESEARCH_VARIANTS:
+        by_variant = dict(linesearch_forward.launches_by_variant)
+        out = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
+        torch.cuda.synchronize()
+        assert _launched(linesearch_forward, by_variant) == {variant: 1}
+        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64,
+                     ocp.device_model)
+
+
+@pytest.mark.parametrize("use_ddp", [True, False])
+@pytest.mark.parametrize("B", [1, 301])
+@pytest.mark.parametrize("label", PATH_LABELS)
+def test_fused_kernel_on_the_path_models(dev, label, B, use_ddp):
+    """K3 on the Frenet model (its five-seed duals scattered to (z, w)) and
+    on the curvature cost, both variants, and K1 at the model's (nx, nu),
+    (5, 2) and (4, 1), on the twin's derivatives of the same trajectories,
+    each against the float64 twin."""
+    from chip_smoke import _hold_f64, _path_case, _to64
+    from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
+
+    ocp, ocp64, (_, xs, us, _, _), ps = _path_case(dev, B, label, seed=57 + B)
+    args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
+            torch.ones((B,), device=dev))
+    ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+    ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+    for variant in FUSED_VARIANTS:
+        by_variant = dict(fused_backward.launches_by_variant)
+        out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp, variant=variant)
+        torch.cuda.synchronize()
+        assert _launched(fused_backward, by_variant) == {variant: 1}
+        assert all(bool(torch.isfinite(o).all()) for o in out)
+        _hold_f64(out, ref, ref64, "k3", f"{label} B={B} {variant}")
+    kw = dict(nx=ocp.nx, nu=ocp.nu, use_ddp=use_ddp)
+    d, gN, HN, dlb, dub = trajectory_derivatives(ocp, xs, us, ps, use_ddp)
+    d64, gN64, HN64, dlb64, dub64 = trajectory_derivatives(
+        ocp64, *_to64(xs, us, ps), use_ddp)
+    rargs = (d, dlb.contiguous(), dub.contiguous(), gN, HN, *args[3:])
+    ref1 = riccati_backward_torch(*rargs, **kw)
+    ref1_64 = riccati_backward_torch(d64, dlb64, dub64, gN64, HN64,
+                                     *_to64(*args[3:]), **kw)
+    for variant in ("warps", "thread"):
+        out = riccati_backward(*rargs, variant=variant, **kw)
+        _hold_f64(out, ref1, ref1_64, "k1", f"{label} B={B} {variant}")
+
+
+@pytest.mark.parametrize("family", PATH_LABELS)
+def test_path_family_20_steps_on_the_card(dev, family):
+    """20 closed-loop steps at B = 1 on the default device and backend
+    ("cuda_fused") from sample 110 of the lane change's course, against the
+    float64 "torch" run on the CPU within chip_smoke.py's LC_STATE_TOL
+    (absolute)."""
+    from chip_smoke import LC_START, LC_STATE_TOL
+    from mpc_verde_tpu_torch import scenarios as sc
+    from mpc_verde_tpu_torch.refgen import synthetic_lane_change
+
+    path = {k: np.asarray(v)[LC_START:]
+            for k, v in synthetic_lane_change().items()}
+    build, run = ((sc.build_frenet, sc.run_frenet) if family == "frenet"
+                  else (sc.build_curvature_ltv, sc.run_curvature_ltv))
+    go = lambda **kw: run(build(path=path, n_steps=20, **kw))
+    k2, k3 = linesearch_forward.launches, fused_backward.launches
+    m = go()
+    assert fused_backward.launches > k3 and linesearch_forward.launches > k2
+    assert m["result"].xs.is_cuda
+    m64 = go(device="cpu", dtype=torch.float64)
+    x, x64 = m["result"].xs.double().cpu(), m64["result"].xs
+    assert float((x - x64).abs().max()) <= LC_STATE_TOL
