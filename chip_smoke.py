@@ -4,7 +4,8 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
-  2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc.
+  2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc; phase
+              20, which launches no kernel, runs meanwhile.
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
               card: random problems for every instantiated (nx, nu), DDP on
               and off, and the bench OCP's derivatives at B=1024, N=40 (DDP
@@ -99,9 +100,46 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               (300 steps; mse_y < 1.0, mse_phi < 0.2); 60 steps of each from
               the maneuver held against CPU float64 and "cuda" (K1 at (5, 2)
               and (4, 1)).
-Phases 5, 8, 9 and 11 to 17 each set every kernel launch count to 0 just
+ 18. scan:    the associative-scan backward (ops/parallel_riccati.py): its
+              doubling form against its sequential fold in float32 on
+              random LQT problems at B=1024, N=40, 512, 2048 (W6;
+              tolerance 1e-4 of max(1, |fold|)); lq_backward_parallel
+              against K1's twin (bench derivatives, infinite bounds) and
+              against K1 at N=40, 128, 512, 2048, each timed beside K1 (the
+              crossover table); backend="scan" (torch.func derivatives, the
+              scan backward, K2) in make_barrier_solver without crossover on
+              phase 5's first 1024 problems against the same call on "cuda"
+              (converged_frac >= 0.99 on each, costs to 1e-3), and on the
+              bench OCP without its box at N=512 over 256 starts against
+              "cuda" (at most 800 iterations: converged_frac >= 0.99 on
+              each, converged agree >= 0.99, median cost gap <= 1e-4, and
+              each converged "scan" answer a float64 optimum: a float64
+              "torch" solve from it converges and lowers its cost by at
+              most 1e-4 of it).
+ 19. solvers: FDDP (make_batched_ms_solver, plain PyTorch) on the bench OCP
+              over 1024 starts from the constant-x0 lifted guess (final gaps
+              < 1e-5, costs against phase 8's DDP answers: median gap <=
+              1e-4 and a share >= 0.99 within 1e-4); solve_condensed (float64) at the pendulum's SPEC over
+              1024 starts against the batched solver's first control on
+              "cuda_fused" (5e-2 of max(1, |u0|)) and on "torch" in float64
+              (1e-5); make_lqr_warm_start over phase 5's queue (K1 and K2 at
+              A=1, one launch each; controls inside the box; its first 256
+              within 1e-3 of CPU float64), then the streaming solve from it
+              (iterations printed, not gated); make_nlpsol over 1024 bounded
+              Rosenbrock problems in float64 against CPU float64.
+ 20. compat:  the mpctools pendulum script (tests/test_compat.py, its
+              constants; 200 of its 400 steps) and the CasADi
+              single-shooting v1 loop at N=10 (until 0.1 from the target, at
+              most 100 steps) on the card in float64, with the JAX tests'
+              gates, and the ms per nlpsol call (the node graph evaluated
+              eagerly); run beside the build (phase 2), and after phase 19
+              their first steps held within 1e-6 of the same scripts in
+              float64 on the CPU.
+Phases 5, 8, 9 and 11 to 20 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
-variants the launch plans choose for the shape.  Then one JSON line of
+variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
+K1 and K2 once each for the warm start, none for FDDP, the condensed QP and
+the NLP solver; 20: none).  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
 this run's shapes, and beside its one-thread-per-problem variant's time),
 the nvidia-smi name/power-limit line, and last the JSON status line.
@@ -115,6 +153,7 @@ import multiprocessing
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from types import SimpleNamespace
@@ -176,8 +215,8 @@ def _bound(n_bytes, flops):
 def _opts(**kw):
     from mpc_verde_tpu_torch import ILQROptions
 
-    return ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
-                       n_alphas=8, alpha_decay=0.4, **kw)
+    return ILQROptions(**{**dict(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                                 n_alphas=8, alpha_decay=0.4), **kw})
 
 
 def _queue(M, N, seed=0):
@@ -671,7 +710,7 @@ def phase_main_fused(dev, gpu, ref, M=QUEUE, W=WIDTH, N=BENCH_N):
                                ("fused_backward", "linesearch_forward"),
                                "main-fused", M, W, N)
     _hold_paths("main-fused vs phase 5", res, ref)
-    return launches
+    return launches, res
 
 
 def phase_cross(dev, M=CROSS, N=BENCH_N):
@@ -1647,9 +1686,12 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
     """In a child process: the float64 "torch" runs on the CPU that phases
     13 and 17 hold the card's closed loops against (the circular track's
     first ``hold_circ`` steps, the Frenet and curvature families' first
-    ``hold_path`` steps from sample ``lc_start`` of the lane change).  They
-    need no card, so they run beside phases 3-16; puts {name: (xs, us,
-    mean iterations, seconds)} on ``queue``, or the error's traceback."""
+    ``hold_path`` steps from sample ``lc_start`` of the lane change), and
+    the float64 CPU runs of phases 19 and 20 (the warm start, the NLP batch,
+    the compat scripts' first steps).  They need no card, so they run
+    beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
+    {name: {array name: array, "seconds": s}} on ``queue``, or the error's
+    traceback."""
     try:
         torch.set_num_threads(2)
         from mpc_verde_tpu_torch.refgen import synthetic_lane_change
@@ -1673,6 +1715,21 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
             out[name] = (res.xs.numpy(), res.us.numpy(),
                          float(res.iterations.double().mean()),
                          time.perf_counter() - t0)
+        f64 = torch.float64
+        raw = {   # phases 19 and 20
+            "warm": lambda: {"us": _warm_start_us(
+                WARM_HOLD, "cpu", f64, backend="torch").numpy()},
+            "nlp": lambda: _numpy_fields(_rosenbrock(NLP_B, "cpu"),
+                                         ("x", "converged")),
+            "compat_pendulum": lambda: {
+                "xcl": _compat_pendulum("cpu", COMPAT_PEND_HOLD)[0]},
+            "casadi_v1": lambda: dict(zip(
+                ("states", "secs"),
+                _casadi_v1("cpu", CASADI_N, CASADI_HOLD)[::5])),
+        }
+        for name, run in raw.items():
+            t0 = time.perf_counter()
+            out[name] = {**run(), "seconds": time.perf_counter() - t0}
         queue.put(out)
     except Exception:   # the parent raises it where it reads the result
         queue.put(traceback.format_exc())
@@ -1692,13 +1749,23 @@ class CpuReferences:
         self._proc.start()
         self._out = None
 
-    def get(self, tag, name, timeout=1200):
+    def _wait(self, timeout=1200):
         if self._out is None:
             self._out = self._queue.get(timeout=timeout)
         if isinstance(self._out, str):
             raise AssertionError(f"the CPU float64 references failed: "
                                  f"{self._out}")
-        xs, us, iters, seconds = self._out[name]
+        return self._out
+
+    def raw(self, tag, name):
+        """One of phases 19 and 20's references: a dict of numpy arrays."""
+        out = self._wait()[name]
+        print(f"[{tag}] float64 on the CPU (a child process beside the card's "
+              f"phases): {out['seconds']:.1f} s", flush=True)
+        return out
+
+    def get(self, tag, name):
+        xs, us, iters, seconds = self._wait()[name]
         print(f"[{tag}] float64 \"torch\" on the CPU (a child process beside "
               f"the card's phases): {seconds:.1f} s, mean iterations "
               f"{iters:.3f}", flush=True)
@@ -1948,6 +2015,657 @@ def phase_frenet_curvature(dev, gpu, refs, n_frenet=120, n_dlc=60,
     return by_path, ms
 
 
+# --- phases 18-20: the "scan" backend, the other solvers, the front ends ---
+
+SCAN_B, SCAN_NS, SCAN_W6_NS = 1024, (40, 128, 512, 2048), (40, 512, 2048)
+# Phase 18 (d): at N = 512 about half the starts need more than the 60
+# iterations of _opts on either path; SCAN_LONG_ITERS lets both converge.
+# Without its box the problem has many local optima and float32 round-off
+# decides which one a start reaches (the two paths part from the first
+# iterations on some starts), so the "scan" answers are held one by one to
+# the float64 problem: a float64 "torch" solve with the same options from
+# an answer must converge and lower its cost by at most
+# SCAN_LONG_POLISH_TOL of it (on the card 2.7e-5 at most).
+SCAN_LONG_N, SCAN_LONG_B, SCAN_LONG_ITERS = 512, 256, 800
+SCAN_LONG_POLISH_TOL = 1e-4
+# Phase 18 (a): the float32 doubling form against the float32 sequential
+# fold of the same combine, max |diff| / max(1, |fold|) over J and eta.  The
+# two orders of the same products differ by float32 round-off, which grows
+# with the span a combine covers; on the card the worst was 4.1e-6, at
+# N = 2048.
+SCAN_W6_TOL = 1e-4
+# Phase 19: the warm start's first WARM_HOLD problems against the float64
+# twin on the CPU, max |u diff| (the controls are within [-1, 1]); the card
+# was 3.3e-6 from it
+WARM_HOLD, WARM_U_TOL = 256, 1e-3
+# the condensed QP (float64 on the card) against the batched solver's first
+# control, |u0 diff| / max(1, |u0|): on "cuda_fused" (float32) at phase 16's
+# pendulum tolerance (float32 round-off on the unstable plant; the card was
+# 1.26e-2 off), and on "torch" in float64, where both are exact (the card:
+# 2.5e-6)
+COND_B, COND_U0_TOL, COND_U0_TOL64 = 1024, 5e-2, 1e-5
+# the NLP solver in float64 on the card against the same solve on the CPU:
+# max |x diff|, and the converged shares within NLP_CONV_GAP.  From random
+# starts in the box about 8% of the problems end, after 500 inner
+# iterations, at a few times the 1e-8 stationarity tolerance (the JAX solver
+# too), and on which side of it one lands depends on the summation order:
+# the flags of single problems differ between devices, the answers do not.
+NLP_B, NLP_X_TOL, NLP_CONV_GAP = 1024, 1e-6, 0.02
+# Phase 20: the mpctools pendulum script's 400 steps and the CasADi
+# single-shooting loop at N = 10, each held for its first steps against the
+# same script in float64 on the CPU (max |x diff|).
+# The pendulum script runs 200 of the JAX test's 400 steps (0.64 s a step on
+# the card, float64, the plain solvers): at step 200 the cart stood at 3.59
+# on the card, past the test's gate of 3.
+COMPAT_PEND_STEPS, COMPAT_PEND_HOLD, CASADI_N, CASADI_HOLD = 200, 10, 10, 3
+CASADI_STEPS = 100   # the reference loop: until 0.1 from the target or 20 s
+COMPAT_X_TOL = 1e-6
+
+
+def _random_lqt(rng, B, N, nx, nu, dev, dtype=torch.float32):
+    """Random LQT problems as tests/test_parallel_riccati.py makes them."""
+    eye = lambda n: np.eye(n)[None, None]
+    a = (eye(nx) + 0.05 * rng.normal(size=(B, N, nx, nx)),
+         0.1 * rng.normal(size=(B, N, nx)),
+         0.3 * rng.normal(size=(B, N, nx, nu)),
+         eye(nx) * rng.uniform(0.1, 2.0, (B, N, 1, 1)),
+         rng.normal(size=(B, N, nx)),
+         eye(nu) * rng.uniform(0.5, 2.0, (B, N, 1, 1)),
+         np.broadcast_to(2.0 * np.eye(nx), (B, nx, nx)),
+         rng.normal(size=(B, nx)))
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                 device=dev) for x in a)
+
+
+def _random_lq(rng, B, N, nx, nu, dev, dtype=torch.float32):
+    """Random LQ stage data as tests/test_parallel_riccati.py's
+    lq_backward test makes it: (derivs, gN, HN, reg)."""
+    lxx = 2 * np.eye(nx) + 0.1 * rng.normal(size=(B, N, nx, nx))
+    d = {"fx": np.eye(nx) + 0.05 * rng.normal(size=(B, N, nx, nx)),
+         "fu": 0.3 * rng.normal(size=(B, N, nx, nu)),
+         "lx": rng.normal(size=(B, N, nx)), "lu": rng.normal(size=(B, N, nu)),
+         "lxx": 0.5 * (lxx + lxx.transpose(0, 1, 3, 2)),
+         "luu": np.broadcast_to(np.eye(nu), (B, N, nu, nu)),
+         "lux": 0.2 * rng.normal(size=(B, N, nu, nx))}
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                  device=dev)
+    return ({k: t(v) for k, v in d.items()}, t(rng.normal(size=(B, nx))),
+            t(np.broadcast_to(1.5 * np.eye(nx), (B, nx, nx))),
+            torch.full((B,), 1e-6, dtype=dtype, device=dev))
+
+
+def _check_variants(tag, launches, twin_calls, expect, counts=None,
+                    twins=False):
+    """Each kernel of ``expect`` ({name: variants}) launched, in those
+    variants only (and ``counts`` {name: n} times where given); no other
+    kernel launched, and no twin ran on CUDA unless ``twins`` (a path that
+    runs the plain versions by request: backend="torch")."""
+    if counts and any(launches[k] != n for k, n in counts.items()):
+        raise AssertionError(f"{tag}: launches {launches}, expected {counts}")
+    kernels, _ = _path_counters()
+    for f in kernels:
+        k = f.__name__
+        want = expect.get(k, set())
+        ran = {v for v in f.launches_by_variant if launches[f"{k}.{v}"]}
+        if (launches[k] < 1) if want else (launches[k] != 0):
+            raise AssertionError(f"{tag}: {k} launched {launches[k]} times "
+                                 f"(expected {'some' if want else 'none'})")
+        if want and not ran <= want:
+            raise AssertionError(f"{tag}: {k} ran variants {ran}, the plans "
+                                 f"give {want}")
+    if not twins and max(twin_calls.values()) > 0:
+        raise AssertionError(f"{tag}: a twin ran on CUDA tensors: {twin_calls}")
+
+
+def _solver_variants(N, npar, A, B, k1=True):
+    """The variants the plans give a Gauss-Newton batched solve's K1 (if
+    ``k1``) and K2 (line search over ``A`` alphas and the pre-roll)."""
+    from mpc_verde_tpu_torch.ops.cuda.riccati import riccati_launch_plan
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_launch_plan
+
+    out = {"linesearch_forward": {linesearch_launch_plan(N, a, npar).variant
+                                  for a in (A, 1)}}
+    if k1:
+        out["riccati_backward"] = {
+            riccati_launch_plan(N, 3, 2, False, B).variant}
+    return out
+
+
+def _solve_paths(tag, gpu, solvers, args, check=None):
+    """Drive each (label, solve, expected variants) of ``solvers`` on
+    ``args`` with its counts; returns {label: (result, launches)}."""
+    out = {}
+    for label, solve, expect in solvers:
+        res, wall, launches, twin_calls = _drive(lambda: solve(*args))
+        conv = float(res.converged.float().mean())
+        print(f"[{tag}] {label}: B={res.cost.shape[0]} "
+              f"N={res.us.shape[1]}: {wall:.3f} s, converged_frac "
+              f"{conv:.4f}, mean_iterations "
+              f"{float(res.iterations.double().mean()):.3f}, launches "
+              f"{launches}, twin calls on CUDA {twin_calls} | GPU {gpu}",
+              flush=True)
+        _check_result(res, res.cost.shape[0], res.us.shape[1])
+        _check_variants(f"{tag} {label}", launches, twin_calls, expect)
+        if check is not None:
+            check(label, res)
+        out[label] = (res, launches)
+    return out
+
+
+def _polish_f64(ocp, res, x0, ps):
+    """A float64 "torch" solve from the answers of ``res`` with phase 18
+    (d)'s options; returns (cost drop relative to the float64 cost,
+    converged)."""
+    from mpc_verde_tpu_torch import make_batched_ilqr_solver
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    f64 = torch.float64
+    solve = make_batched_ilqr_solver(
+        bench_ocp(ocp.N, ocp.device, f64, box=False),
+        _opts(use_ddp=False, max_iters=50), backend="torch")
+    pol = solve(x0.astype(np.float64), ps.astype(np.float64), res.us.to(f64))
+    return (res.cost.to(f64) - pol.cost) / pol.cost.abs(), pol.converged
+
+
+def phase_scan(dev, gpu, queue):
+    """Phase 18: the associative-scan backward on the card (W6: the doubling
+    form against the sequential fold, float32), its time against K1's on the
+    same derivatives, and backend="scan" in the barrier solver and on the
+    unboxed bench OCP at N = 512, each against "cuda"."""
+    from mpc_verde_tpu_torch import make_barrier_solver, make_batched_ilqr_solver
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.ops.cuda.riccati import (
+        riccati_backward, riccati_backward_torch, riccati_launch_plan)
+    from mpc_verde_tpu_torch.ops.parallel_riccati import (
+        _assoc_fold, _lqt_elements, _value_functions, lq_backward_parallel)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    for N in SCAN_W6_NS:
+        elems, term = _lqt_elements(*_random_lqt(rng, SCAN_B, N, 3, 2, dev))
+        t0 = time.perf_counter()
+        J, eta = _value_functions(elems, term, 1)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        Jf, etaf = _value_functions(elems, term, 1, prefix=_assoc_fold)
+        torch.cuda.synchronize()
+        err = max(_rel_err(J, Jf), _rel_err(eta, etaf))
+        print(f"[scan] W6 B={SCAN_B} N={N} float32: doubling form against "
+              f"the sequential fold, max |diff| / max(1, |fold|) {err:.3e} "
+              f"(tolerance {SCAN_W6_TOL}); doubling {t1 - t0:.3f} s, fold "
+              f"{time.perf_counter() - t1:.3f} s (wall, first call)",
+              flush=True)
+        if not err <= SCAN_W6_TOL:
+            raise AssertionError(f"scan W6 N={N}: {err}")
+
+    args = _bench_backward_inputs(bench_ocp(BENCH_N, dev), SCAN_B, dev)
+    d, inf = args[0], torch.full_like(args[1], torch.inf)
+    lq = lambda d, gN, HN, reg: lq_backward_parallel(
+        d["fx"], d["fu"], d["lx"], d["lu"], d["lxx"], d["luu"], d["lux"], gN,
+        HN, reg)
+    _hold(lq(d, *args[3:6]), riccati_backward_torch(
+        d, -inf, inf, *args[3:6], nx=3, nu=2, use_ddp=False), "scan",
+          f"lq_backward_parallel vs K1's twin, bench B={SCAN_B} N={BENCH_N} "
+          "infinite bounds")
+
+    table = []
+    for N in SCAN_NS:
+        d, gN, HN, reg = _random_lq(rng, SCAN_B, N, 3, 2, dev)
+        inf = torch.full((SCAN_B, N, 2), torch.inf, device=dev)
+        k1 = lambda: riccati_backward(d, -inf, inf, gN, HN, reg, nx=3, nu=2,
+                                      use_ddp=False)
+        _hold(lq(d, gN, HN, reg), k1(), "scan",
+              f"lq_backward_parallel vs K1, random B={SCAN_B} N={N}")
+        scan_ms = _time_ms(lambda: lq(d, gN, HN, reg), reps=3, warmup=1,
+                           queued=False)
+        k1_ms = _time_ms(k1, reps=10)
+        variant = riccati_launch_plan(N, 3, 2, False, SCAN_B).variant
+        table.append({"N": N, "scan_ms": scan_ms, "k1_ms": k1_ms,
+                      "k1_variant": variant})
+        print(f"[scan] backward B={SCAN_B} N={N} (nx, nu) = (3, 2): "
+              f"lq_backward_parallel {scan_ms:.4f} ms, K1 \"{variant}\" "
+              f"{k1_ms:.4f} ms, ratio {scan_ms / k1_ms:.2f} | GPU {gpu}",
+              flush=True)
+
+    x0q, psq, us0q = (a[:SCAN_B] for a in queue)
+    ocp = bench_ocp(BENCH_N, dev)
+    solvers = [(b, make_barrier_solver(ocp, _opts(use_ddp=False), backend=b,
+                                       crossover=False),
+                _solver_variants(BENCH_N, 4, 8, SCAN_B, k1=b == "cuda"))
+               for b in ("scan", "cuda")]
+
+    def converged(label, res):
+        conv = float(res.converged.float().mean())
+        if conv < 0.99:
+            raise AssertionError(f"scan {label}: converged_frac {conv}")
+
+    by_path = {}
+    out = _solve_paths("scan_barrier", gpu, solvers, (x0q, psq, us0q),
+                       converged)
+    _hold_paths("scan_barrier scan vs cuda", out["scan"][0], out["cuda"][0])
+    by_path["scan_barrier"] = out["scan"][1]
+    ocp = bench_ocp(SCAN_LONG_N, dev, box=False)
+    solvers = [(b, make_batched_ilqr_solver(
+                    ocp, _opts(use_ddp=False, max_iters=SCAN_LONG_ITERS),
+                    backend=b),
+                _solver_variants(SCAN_LONG_N, 3, 8, SCAN_LONG_B,
+                                 k1=b == "cuda"))
+               for b in ("scan", "cuda")]
+    x0l, psl, us0l = _queue(SCAN_LONG_B, SCAN_LONG_N)
+    out = _solve_paths("scan_long", gpu, solvers, (x0l, psl, us0l),
+                       converged)
+    rs, rc = out["scan"][0], out["cuda"][0]
+    agree = float((rs.converged == rc.converged).float().mean())
+    p50, p99, worst, share = _cost_gap(rs, rc)
+    print(f"[scan_long] scan vs cuda: converged agree {agree:.4f}; |relative "
+          f"cost gap| p50 {p50:.2e} p99 {p99:.2e} max {worst:.2e}, share "
+          f"within 1e-4 {share:.4f} (the local optimum a start reaches)",
+          flush=True)
+    t0 = time.perf_counter()
+    drop, conv = _polish_f64(ocp, rs, x0l, psl)
+    ok = (conv & (drop <= SCAN_LONG_POLISH_TOL))[rs.converged]
+    print(f"[scan_long] scan's answers polished in float64 (\"torch\", the "
+          f"same options): {time.perf_counter() - t0:.1f} s, converged "
+          f"{float(conv.float().mean()):.4f}, cost lowered by max "
+          f"{float(drop.max()):.2e} p99 {float(drop.quantile(0.99)):.2e} of "
+          f"itself; float64 optima (tolerance {SCAN_LONG_POLISH_TOL}) "
+          f"{float(ok.float().mean()):.4f} of its converged answers",
+          flush=True)
+    if not ok.all():
+        raise AssertionError(f"scan_long: {int((~ok).sum())} converged "
+                             f"answers are no float64 optimum")
+    if not (agree >= 0.99 and p50 <= 1e-4):
+        raise AssertionError(f"scan_long: agree {agree}, p50 {p50}")
+    by_path["scan_long"] = out["scan"][1]
+    print(f"[scan] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, table
+
+
+def _pendulum_condensed_starts(B, seed=43):
+    """Rate-form pendulum starts z0 = [x, xdot, theta, thetadot, u_prev]."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.uniform(-1.0, 1.0, (B, 2)),
+                           rng.uniform(-0.1, 0.1, (B, 2)),
+                           rng.uniform(-20.0, 20.0, (B, 1))], axis=1)
+
+
+def _condensed_pendulum(z0s, device, dtype):
+    """The pendulum's SPEC step as the condensed QP: the rate-form OCP's
+    cost on x_1..x_{N-1} (QN = 0: the rate form has no terminal cost), the
+    Du weight r_du^2 on the Ntu free moves, the force box on every move.
+    Returns the absolute controls (B, N, nu)."""
+    from mpc_verde_tpu_torch.models import cart_pendulum_linear
+    from mpc_verde_tpu_torch.ops import c2d
+    from mpc_verde_tpu_torch.scenarios.pendulum import SPEC as s
+    from mpc_verde_tpu_torch.solver import condense, solve_condensed
+
+    m = cart_pendulum_linear(device="cpu", dtype=torch.float64)
+    Ad, Bd = c2d(m.Ac, m.Bc, s["T"])
+    data = condense(Ad.to(device, dtype), Bd.to(device, dtype),
+                    np.diag([s["q_x"] ** 2, 0.0, s["q_theta"] ** 2, 0.0]),
+                    np.zeros((1, 1)), s["N"], QN=np.zeros((4, 4)),
+                    Ntu=s["Ntu"], du_weight=s["r_du"] ** 2)
+    z0 = torch.as_tensor(z0s, dtype=dtype, device=device)
+    xref = torch.tensor([s["x_target"], 0.0, 0.0, 0.0], dtype=dtype,
+                        device=device).expand(s["N"], 4)
+    us, _ = solve_condensed(data, z0[:, :4], xref, u_prev=z0[:, 4:],
+                            u_lb=[-s["u_max"]], u_ub=[s["u_max"]])
+    return us
+
+
+def _warm_start_us(M, device, dtype, backend=None):
+    """The LQR warm start over phase 5's queue's first M problems."""
+    from mpc_verde_tpu_torch.solver import make_lqr_warm_start
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    x0q, psq, _ = _queue(QUEUE, BENCH_N)
+    warm = make_lqr_warm_start(bench_ocp(BENCH_N, device, dtype),
+                               xref_fn=lambda p: p[:3], backend=backend)
+    return warm(x0q[:M], psq[:M])
+
+
+def _rosenbrock_batch(B, seed=47):
+    """Bounded Rosenbrock problems (tests/test_nlp.py:79) with a shifted
+    minimum a problem: sum 100 (x_{i+1} - x_i^2)^2 + (1 + p - x_i)^2 on the
+    box [-0.5, 0.8]^4, from random starts in the box."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-0.5, 0.8, (B, 4)), rng.uniform(-0.2, 0.2, (B, 1))
+
+
+def _numpy_fields(res, names):
+    return {n: getattr(res, n).cpu().numpy() for n in names}
+
+
+def _rosenbrock(B, device):
+    from mpc_verde_tpu_torch.solver import make_nlpsol
+
+    def f(x, p):
+        return (100.0 * (x[1:] - x[:-1] ** 2) ** 2
+                + (1.0 + p[0] - x[:-1]) ** 2).sum()
+
+    x0, p = _rosenbrock_batch(B)
+    solve = make_nlpsol(f, None, 4, 0, device=device)
+    return solve(x0, p, lbx=np.full(4, -0.5), ubx=np.full(4, 0.8))
+
+
+def phase_solvers(dev, gpu, queue, ref_fused, refs):
+    """Phase 19: FDDP, the condensed QP, the LQR warm start (K1 and K2) and
+    the NLP solver, each against its reference."""
+    from mpc_verde_tpu_torch import (ILQROptions, make_batched_ilqr_solver,
+                                     make_streaming_solver)
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.ops.cuda.riccati import riccati_launch_plan
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_launch_plan
+    from mpc_verde_tpu_torch.scenarios.pendulum import SPEC, pendulum_ocp
+    from mpc_verde_tpu_torch.solver import make_batched_ms_solver
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    x0q, psq, us0q = (a[:SCAN_B] for a in queue)
+    ocp = bench_ocp(BENCH_N, dev)
+    res, wall, launches, twin_calls = _drive(
+        lambda: make_batched_ms_solver(ocp, _opts())(x0q, psq, us0q))
+    _check_result(res, SCAN_B, BENCH_N)
+    _check_variants("fddp", launches, twin_calls, {})
+    by_path["fddp"] = launches
+    gap = float(res.max_violation.max())
+    ref = type(ref_fused)(**{k: v[:SCAN_B] for k, v in ref_fused.__dict__.items()})
+    p50, p99, worst, share = _cost_gap(res, ref)
+    print(f"[fddp] B={SCAN_B} N={BENCH_N} from the constant-x0 lifted guess: "
+          f"{wall:.3f} s, converged_frac {float(res.converged.float().mean()):.4f}, "
+          f"mean_iterations {float(res.iterations.double().mean()):.3f}, max "
+          f"final gap {gap:.3e} (gate 1e-5); cost vs phase 8's DDP answers: "
+          f"|relative gap| p50 {p50:.2e} p99 {p99:.2e} max {worst:.2e}, share "
+          f"within 1e-4 {share:.4f}; launches {launches} | GPU {gpu}",
+          flush=True)
+    if not (gap < 1e-5 and p50 <= 1e-4 and share >= 0.99):
+        raise AssertionError(f"fddp: gap {gap}, cost gap p50 {p50}, share "
+                             f"within 1e-4 {share}")
+
+    z0s = _pendulum_condensed_starts(COND_B)
+    t0 = time.perf_counter()
+    us_qp = _condensed_pendulum(z0s, dev, torch.float64)
+    torch.cuda.synchronize()
+    qp_s = time.perf_counter() - t0
+    u0_qp = us_qp[:, 0, 0]
+    print(f"[condensed] pendulum SPEC N={SPEC['N']} Ntu={SPEC['Ntu']} over "
+          f"{COND_B} starts: solve_condensed float64 {qp_s:.3f} s (wall, first "
+          f"call), share of starts at the force box "
+          f"{float((us_qp.abs() >= SPEC['u_max'] - 1e-6).any(1).float().mean()):.4f}",
+          flush=True)
+    for backend, dtype, opts, tol, expect in (
+            ("cuda_fused", torch.float32, _opts(), COND_U0_TOL,
+             {"fused_backward": {"staged", "thread"},
+              "linesearch_forward": {"lanes", "lanes_reroll", "thread"}}),
+            ("torch", torch.float64, ILQROptions(max_iters=60), COND_U0_TOL64,
+             {})):
+        pocp, _ = pendulum_ocp(SPEC["N"], SPEC["Ntu"], dev, dtype)
+        solve = make_batched_ilqr_solver(pocp, opts, backend=backend)
+        rp, wall, launches, twin_calls = _drive(lambda: solve(z0s, None, None))
+        _check_variants(f"condensed {backend}", launches, twin_calls, expect,
+                        twins=backend == "torch")
+        u0_ddp = rp.xs[:, 0, 4].double() + rp.us[:, 0, 0].double()
+        err = float(((u0_ddp - u0_qp).abs() / u0_qp.abs().clamp(min=1.0)).max())
+        plan = rp.xs[:, :1, 4:5].double() + rp.us.double().cumsum(1)
+        print(f"[condensed] against \"{backend}\" {str(dtype)[6:]}: {wall:.3f} "
+              f"s, converged_frac {float(rp.converged.float().mean()):.4f}, "
+              f"mean_iterations {float(rp.iterations.double().mean()):.3f}; "
+              f"first control |diff| / max(1, |u0|) {err:.3e} (tolerance "
+              f"{tol}), whole plan max |u diff| "
+              f"{float((plan - us_qp).abs().max()):.3e} | GPU {gpu}",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"condensed vs {backend}: {err}")
+
+    (us_w, wall, launches, twin_calls) = _drive(
+        lambda: _warm_start_us(QUEUE, dev, torch.float32))
+    expect = {"riccati_backward": {riccati_launch_plan(BENCH_N, 3, 2, False,
+                                                       QUEUE).variant},
+              "linesearch_forward": {linesearch_launch_plan(BENCH_N, 1, 3).variant}}
+    _check_variants("warm", launches, twin_calls, expect,
+                    counts={"riccati_backward": 1, "linesearch_forward": 1})
+    box = torch.tensor([1.0, np.pi / 4], device=dev)
+    inside = bool((us_w.abs() <= box * (1 + 1e-6)).all())
+    w64 = refs.raw("warm", "warm")
+    du = float((us_w[:WARM_HOLD].double().cpu() - torch.as_tensor(w64["us"])
+                ).abs().max())
+    by_path["warm"] = launches
+    print(f"[warm] make_lqr_warm_start over {QUEUE} problems: {wall:.3f} s, "
+          f"K1 {expect['riccati_backward']} and K2 {expect['linesearch_forward']}"
+          f" at A=1, launches {launches}; controls inside the box {inside}; "
+          f"first {WARM_HOLD} against CPU float64: max |u diff| {du:.3e} "
+          f"(tolerance {WARM_U_TOL}) | GPU {gpu}", flush=True)
+    if not (inside and du <= WARM_U_TOL):
+        raise AssertionError(f"warm start: inside {inside}, |u diff| {du}")
+    solve = make_streaming_solver(ocp, _opts(), backend="cuda_fused",
+                                  batch_width=WIDTH, restarts=2)
+    x0f, psf, _ = queue
+    res, wall, by_path["warm_streaming"], _ = _drive(lambda: solve(
+        x0f, psf, us_w, max_iters=60, restarts_n=2))
+    print(f"[warm] streaming \"cuda_fused\" from the warm start over {QUEUE}: "
+          f"{wall:.3f} s, converged_frac {float(res.converged.float().mean()):.4f}"
+          f", mean_iterations {float(res.iterations.double().mean()):.3f} (not "
+          f"gated; from us = 0, phase 8: {float(ref_fused.converged.float().mean()):.4f}"
+          f", {float(ref_fused.iterations.double().mean()):.3f}) | GPU {gpu}",
+          flush=True)
+
+    r, wall, launches, twin_calls = _drive(
+        lambda: _rosenbrock(NLP_B, dev))
+    _check_variants("nlp", launches, twin_calls, {})
+    by_path["nlp"] = launches
+    r64 = refs.raw("nlp", "nlp")
+    dx = float((r.x.cpu() - torch.as_tensor(r64["x"])).abs().max())
+    agree = float((r.converged.cpu().numpy() == r64["converged"]).mean())
+    conv, conv64 = float(r.converged.float().mean()), float(r64["converged"].mean())
+    print(f"[nlp] make_nlpsol over {NLP_B} bounded Rosenbrock problems, "
+          f"float64 on the card: {wall:.3f} s, converged_frac {conv:.4f} (CPU "
+          f"{conv64:.4f}, tolerance {NLP_CONV_GAP}; flags alike in "
+          f"{agree:.4f}), mean inner iterations "
+          f"{float(r.iterations.double().mean()):.2f}; against CPU float64: "
+          f"max |x diff| {dx:.3e} (tolerance {NLP_X_TOL}) | GPU {gpu}",
+          flush=True)
+    if not (abs(conv - conv64) <= NLP_CONV_GAP and dx <= NLP_X_TOL):
+        raise AssertionError(f"nlp: converged {conv} / {conv64}, |x diff| {dx}")
+    print(f"[solvers] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path
+
+
+def _compat_pendulum(device, nsim):
+    """tests/test_compat.py:36-95 verbatim: the mpctools pendulum script
+    through the compat layer; returns (xcl (4, nsim+1), ucl (1, nsim),
+    statuses, wall s)."""
+    import mpc_verde_tpu_torch.compat as mpc
+
+    Nx, Nu = 4, 1
+    T, Nt = 0.01, 50
+    Ac = np.array([[0, 0, 0, 0], [1, -10, 0, -20],
+                   [0, 9.81, 0, 39.24], [0, 0, 1, 0]]).T
+    Bc = np.array([[0.0], [1.0], [0.0], [2.0]])
+    A, B = mpc.util.c2d(Ac, Bc, T)
+    A, B = np.asarray(A), np.asarray(B)
+
+    def ffunc(x, u):
+        return mpc.mtimes(A, x) + mpc.mtimes(B, u)
+
+    f = mpc.getCasadiFunc(ffunc, [Nx, Nu], ["x", "u"], "f")
+    umax = 200
+    Dulb = np.tile(-np.inf, (5, 1))
+    Duub = np.tile(np.inf, (5, 1))
+    Dub = np.tile(0, (45, 1))
+    lb = {"u": np.array([-umax]), "Du": np.vstack((Dulb, Dub))}
+    ub = {"u": np.array([umax]), "Du": np.vstack((Duub, Dub))}
+    xt = np.array([10, 0, 0, 0])
+    Q = np.diag([1.2, 0, 1, 0])
+    R1 = 0.01
+
+    def lfunc(x, u, du):
+        return ((Q[0, 0] * (x[0] - xt[0])) ** 2 + (Q[2, 2] * x[2]) ** 2
+                + (R1 * du[0]) ** 2)
+
+    l = mpc.getCasadiFunc(lfunc, [Nx, Nu, Nu], ["x", "u", "Du"])
+    x0 = np.array([0.0, 0, 0, 0])
+    N = {"x": Nx, "u": Nu, "t": Nt}
+    solver = mpc.nmpc(f, l, N, x0, lb, ub, isQP=True, verbosity=0,
+                      uprev=np.array([0.0]), funcargs={"l": ["x", "u", "Du"]},
+                      device=device)
+    xcl = np.zeros((Nx, nsim + 1))
+    xcl[:, 0] = x0
+    ucl = np.zeros((Nu, nsim))
+    statuses = []
+    t0 = time.perf_counter()
+    for k in range(nsim):
+        solver.fixvar("x", 0, x0)
+        sol = mpc.callSolver(solver)
+        statuses.append(sol["status"])
+        xcl[:, k] = sol["x"][0, :]
+        ucl[:, k] = sol["u"][0, :]
+        x0 = ffunc(x0, ucl[:, k])
+    xcl[:, nsim] = x0
+    return xcl, ucl, statuses, time.perf_counter() - t0
+
+
+def _casadi_v1(device, N, max_steps):
+    """tests/test_casadi_compat.py:88-158 at horizon N: the single-shooting
+    v1 program through the CasADi layer and its closed loop toward (1.5,
+    1.5, 0); returns the states (steps+1, 3), the applied controls, the
+    distances to the target, each step's success, the max |plant - Xpred|
+    and the nlpsol calls' wall seconds."""
+    import mpc_verde_tpu_torch.compat.casadi as ca
+    from mpc_verde_tpu_torch.compat.casadi import DM, SX, cos, sin
+
+    T_STEP, n_states, n_controls = 0.2, 3, 2
+    x, y, theta = SX.sym("x"), SX.sym("y"), SX.sym("theta")
+    states = ca.vertcat(x, y, theta)
+    v, omega = SX.sym("v"), SX.sym("omega")
+    controls = ca.vertcat(v, omega)
+    rhs = ca.vertcat(v * cos(theta), v * sin(theta), omega)
+    f = ca.Function("f", [states, controls], [rhs], ["x", "u"], ["rhs"])
+    P = ca.SX.sym("P", 2 * n_states)
+    U = ca.SX.sym("U", n_controls, N)
+    X = ca.SX.sym("X", n_states, N + 1)
+    X[:, 0] = P[:n_states]
+    for k in range(N):
+        st, con = X[:, k], U[:, k]
+        X[:, k + 1] = st + f(st, con) * T_STEP
+    ff = ca.Function("ff", [U, P], [X])
+    Q = ca.diagcat(1.0, 5.0, 0.1)
+    R = ca.diagcat(0.5, 0.05)
+    obj = 0
+    for k in range(N):
+        st, con = X[:, k], U[:, k]
+        e = st - P[n_states:]
+        obj = obj + (e.T @ Q @ e + con.T @ R @ con)
+    g = ca.reshape(X, (N + 1) * n_states, 1)
+    nlp_prob = {"f": obj[0, 0], "x": ca.vertcat(U.reshape((-1, 1))), "g": g,
+                "p": P}
+    solver = ca.nlpsol("solver", "ipopt", nlp_prob,
+                       {"ipopt": {"acceptable_tol": 1e-8}}, device=device)
+    lbx = DM.zeros((n_controls * N, 1))
+    ubx = DM.zeros((n_controls * N, 1))
+    lbx[0: n_controls * N: n_controls] = -0.6
+    ubx[0: n_controls * N: n_controls] = 0.6
+    lbx[1: n_controls * N: n_controls] = -np.pi / 4
+    ubx[1: n_controls * N: n_controls] = np.pi / 4
+    state_init = ca.DM([0.0, 0.0, 0.0])
+    state_target = ca.DM([1.5, 1.5, 0.0])
+    u0 = ca.DM.zeros((2, N))
+    states_cl, us_cl, ok, secs = [state_init.full().ravel()], [], [], []
+    errs = [ca.norm_2(state_init - state_target)]
+    pred_err = 0.0
+    for _ in range(max_steps):
+        if ca.norm_2(state_init - state_target) <= 1e-1:
+            break
+        p = ca.vertcat(state_init, state_target)
+        t0 = time.perf_counter()
+        sol = solver(x0=ca.reshape(u0, 2 * N, 1), lbx=lbx, ubx=ubx,
+                     lbg=-ca.inf, ubg=ca.inf, p=p)
+        secs.append(time.perf_counter() - t0)
+        ok.append(solver.stats()["success"])
+        u = ca.reshape(sol["x"], 2, N)
+        uf = u.full()
+        if not ((np.abs(uf[0]) <= 0.6 + 1e-9).all()
+                and (np.abs(uf[1]) <= np.pi / 4 + 1e-9).all()):
+            raise AssertionError(f"casadi v1: controls outside the box: {uf}")
+        Xpred = ff(u, p)
+        state_init = ca.DM.full(state_init + (T_STEP * f(state_init, u[:, 0])))
+        pred_err = max(pred_err, float(np.abs(
+            Xpred.full()[:, 1] - np.ravel(state_init)).max()))
+        u0 = ca.horzcat(u[:, 1:], ca.reshape(u[:, -1], -1, 1))
+        states_cl.append(np.ravel(state_init))
+        us_cl.append(uf[:, 0])
+        errs.append(ca.norm_2(state_init - state_target))
+    return (np.array(states_cl), np.array(us_cl), errs, ok, pred_err,
+            np.array(secs))
+
+
+def phase_compat(dev, gpu):
+    """Phase 20: the mpctools pendulum script and the CasADi single-shooting
+    v1 loop on the card (float64, their Python functions through the plain
+    PyTorch solvers: no kernel), with the JAX tests' gates.  It launches no
+    kernel, so ``main`` runs it beside the kernels' build; returns the
+    paths' counts, the ms per nlpsol call and the first steps that
+    ``hold_compat`` holds against the CPU float64 runs after phase 19."""
+    t_phase = time.perf_counter()
+    by_path = {}
+    (xcl, ucl, statuses, _), wall, launches, twin_calls = _drive(
+        lambda: _compat_pendulum(dev, COMPAT_PEND_STEPS))
+    _check_variants("compat_pendulum", launches, twin_calls, {}, twins=True)
+    n_ok = sum(s == "Solve_Succeeded" for s in statuses)
+    print(f"[compat_pendulum] mpctools script, {COMPAT_PEND_STEPS} steps at "
+          f"N=50 on the card (float64, beside the build): "
+          f"{1e3 * wall / COMPAT_PEND_STEPS:.2f} ms a step ({wall:.3f} s), "
+          f"Solve_Succeeded {n_ok}/{len(statuses)}, max |u| "
+          f"{np.abs(ucl).max():.4f}, x final {xcl[0, -1]:.4f}, max |theta| "
+          f"{np.abs(xcl[2]).max():.4f} | GPU {gpu}", flush=True)
+    gates = (n_ok == len(statuses) and np.abs(ucl).max() <= 200 + 1e-6
+             and xcl[0, -1] > 3.0 and np.abs(xcl[2]).max() < 1.2
+             and abs(xcl[0, -1] - 10) < abs(xcl[0, COMPAT_PEND_STEPS // 4] - 10))
+    if not gates:
+        raise AssertionError("compat pendulum gates failed")
+    by_path["compat_pendulum"] = launches
+
+    out, wall, launches, twin_calls = _drive(
+        lambda: _casadi_v1(dev, CASADI_N, CASADI_STEPS))
+    states, us, errs, ok, pred_err, secs = out
+    _check_variants("casadi_v1", launches, twin_calls, {})
+    print(f"[casadi_v1] single shooting v1 at N={CASADI_N} on the card "
+          f"(float64, beside the build): {len(ok)} steps, {wall:.3f} s, "
+          f"nlpsol {1e3 * secs.mean():.1f} ms a call (first "
+          f"{1e3 * secs[0]:.1f}, median {1e3 * np.median(secs):.1f}), "
+          f"success {sum(ok)}/{len(ok)}, distance to target {errs[0]:.4f} -> "
+          f"{errs[-1]:.4f}, max |plant - Xpred| {pred_err:.2e} | GPU {gpu}",
+          flush=True)
+    if not (all(ok) and errs[-1] <= 1e-1 and errs[-1] < errs[0] / 10
+            and pred_err <= 1e-8):
+        raise AssertionError("casadi v1 gates failed")
+    by_path["casadi_v1"] = launches
+    print(f"[compat] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    first = {"compat_pendulum": xcl[:, :COMPAT_PEND_HOLD + 1],
+             "casadi_v1": states[:CASADI_HOLD + 1]}
+    return by_path, 1e3 * float(secs.mean()), first
+
+
+def hold_compat(first, refs):
+    """Phase 20's first steps on the card against the same scripts in
+    float64 on the CPU (``CpuReferences``)."""
+    ref = refs.raw("compat_pendulum", "compat_pendulum")
+    dx = float(np.abs(first["compat_pendulum"] - ref["xcl"]).max())
+    print(f"[compat_pendulum] first {COMPAT_PEND_HOLD} steps against CPU "
+          f"float64: max |x diff| {dx:.3e} (tolerance {COMPAT_X_TOL})",
+          flush=True)
+    ref = refs.raw("casadi_v1", "casadi_v1")
+    dx_c = float(np.abs(first["casadi_v1"]
+                        - ref["states"][:CASADI_HOLD + 1]).max())
+    print(f"[casadi_v1] first {CASADI_HOLD} steps against CPU float64 "
+          f"(nlpsol {1e3 * ref['secs'].mean():.1f} ms a call there): max |x "
+          f"diff| {dx_c:.3e} (tolerance {COMPAT_X_TOL})", flush=True)
+    if not (dx <= COMPAT_X_TOL and dx_c <= COMPAT_X_TOL):
+        raise AssertionError(f"compat holds: pendulum {dx}, casadi {dx_c}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -1966,8 +2684,25 @@ def main() -> int:
           f"{gpu} | torch {torch.__version__} CUDA "
           f"{info['torch_cuda']} | {info['nvcc']}", flush=True)
 
+    # phase 20 launches no kernel: it runs while the kernels build
     t0 = time.perf_counter()
-    built = build()
+    outcome = {}
+
+    def run_build():
+        try:
+            outcome["built"] = build()
+        except BaseException as exc:   # raised below, in the main thread
+            outcome["error"] = exc
+
+    build_thread = threading.Thread(target=run_build)
+    build_thread.start()
+    try:
+        compat = phase_compat(dev, gpu)
+    finally:
+        build_thread.join()
+    if "error" in outcome:
+        raise outcome["error"]
+    built = outcome["built"]
     load_library()
     per_source = " ".join(line[3:] for line in built.log.splitlines()
                           if line.startswith("== "))
@@ -1979,7 +2714,7 @@ def main() -> int:
 
     refs = CpuReferences(CIRC_HOLD_STEPS, LC_HOLD, LC_START)
     try:
-        kernels = _phases(dev, gpu, refs)
+        kernels = _phases(dev, gpu, refs, compat)
     finally:
         refs.stop()
     print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
@@ -1995,15 +2730,16 @@ def main() -> int:
     return 0
 
 
-def _phases(dev, gpu, refs):
-    """Phases 3-17; returns the kernels' JSON entries."""
+def _phases(dev, gpu, refs, compat):
+    """Phases 3-19 and the hold of phase 20 (``compat``: what
+    ``phase_compat`` returned); returns the kernels' JSON entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
     by_path = {}
     by_path["main"], res_main = phase_main(dev, gpu)
     phase_cross(dev)
     meas["fused_backward"] = phase_k3(dev)
-    by_path["main_fused"] = phase_main_fused(dev, gpu, res_main)
+    by_path["main_fused"], res_fused = phase_main_fused(dev, gpu, res_main)
     by_path["fleet"] = phase_fleet(dev, gpu)
     terms = phase_terms(dev)
     for name, t in terms.items():
@@ -2016,6 +2752,18 @@ def _phases(dev, gpu, refs):
         paths, _ = phase(dev, gpu)
         by_path.update(paths)
     by_path.update(phase_frenet_curvature(dev, gpu, refs)[0])
+    t0 = time.perf_counter()
+    queue = _queue(QUEUE, BENCH_N)
+    paths, meas["riccati_backward"]["scan_crossover"] = phase_scan(dev, gpu,
+                                                                   queue)
+    by_path.update(paths)
+    by_path.update(phase_solvers(dev, gpu, queue, res_fused, refs))
+    paths, nlpsol_ms, first = compat
+    hold_compat(first, refs)
+    by_path.update(paths)
+    print(f"[18-19] phases 18-19 and the hold of 20 wall "
+          f"{time.perf_counter() - t0:.1f} s; nlpsol {nlpsol_ms:.1f} ms a "
+          "call", flush=True)
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

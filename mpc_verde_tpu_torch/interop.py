@@ -273,17 +273,20 @@ def curvature_rate_ocp(N: int, device, dtype=torch.float32, *, Ntu: int,
 
 
 def bench_ocp(N: int, device, dtype=torch.float32, *, x_lb=None,
-              x_ub=None) -> OCP:
+              x_ub=None, box: bool = True) -> OCP:
     """The bench OCP: unicycle, RK4 at T = 0.2, Q = diag(1, 5, 0.1),
     R = diag(0.5, 0.05), target in p[:3], box v in [-1, 1] and
     omega in [-pi/4, pi/4], no terminal cost (``unicycle_ocp``); with
     ``x_lb`` / ``x_ub`` ((3,), +-inf for no bound) also the state box, which
-    the solvers enforce by their augmented Lagrangian."""
+    the solvers enforce by their augmented Lagrangian.  ``box=False`` drops
+    the control box (the JAX side: ``dataclasses.replace(bench.build_ocp(N),
+    control_bounds=None)``), the problem the ``"scan"`` backend takes."""
     f32 = lambda a: np.array(a, dtype=np.float32)
+    lb, ub = ((f32([-1.0, -np.pi / 4]), f32([1.0, np.pi / 4])) if box
+              else (None, None))
     ocp = unicycle_ocp(N, device, dtype, dt=BENCH_DT,
                        Q=np.diag(f32([1.0, 5.0, 0.1])),
-                       R=np.diag(f32([0.5, 0.05])),
-                       lb=f32([-1.0, -np.pi / 4]), ub=f32([1.0, np.pi / 4]))
+                       R=np.diag(f32([0.5, 0.05])), lb=lb, ub=ub)
     if x_lb is None and x_ub is None:
         return ocp
     box = lambda b: None if b is None else torch.as_tensor(

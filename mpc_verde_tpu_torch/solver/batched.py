@@ -22,8 +22,17 @@ Backends:
     compiler, so here the line-search kernel stands in for it: it computes
     the same function as the twin it is tested against.
 
-On CPU tensors every kernel wrapper runs its twin, so ``"cuda"`` and
-``"cuda_fused"`` on the CPU give the ``"torch"`` results.
+  * ``"scan"`` — the associative-scan backward pass
+    (``ops/parallel_riccati.lq_backward_parallel``, O(log N) depth, plain
+    PyTorch as the JAX package leaves it to XLA) and the line-search kernel
+    of ``"cuda"``.  Gauss-Newton on the unbounded LQ subproblem: an OCP
+    with a control box raises (compose bounds with the barrier or AL
+    solvers), and ``use_ddp`` is forced off.  On a CUDA device it needs a
+    float32 OCP with a ``device_model``, as the line search does.
+
+On CPU tensors every kernel wrapper runs its twin, so ``"cuda"``,
+``"cuda_fused"`` and ``"scan"`` on the CPU give the ``"torch"`` results
+(``"scan"`` up to the round-off of its other backward pass).
 
 ``backend=None``, the default of the solver factories that reach a kernel
 in the JAX package (there ``"pallas_bw"``), resolves by ``resolve_backend``:
@@ -33,8 +42,6 @@ State box bounds (``ocp.x_lb`` / ``x_ub``) run the augmented-Lagrangian
 outer loop (``options.al_iters`` PHR rounds): the multipliers ride the
 per-stage param tensor of a derived OCP (``_augment_ocp_al``), so every
 inner round is the unmodified iteration, kernels included.
-
-Not ported yet: ``backend="scan"``.
 """
 from __future__ import annotations
 
@@ -51,9 +58,10 @@ from ..ops.cuda.riccati import (SUPPORTED, riccati_backward,
                                 riccati_backward_torch)
 from ..ops.cuda.rollout import linesearch_forward, linesearch_forward_torch
 from ..ops.linearize import trajectory_derivatives
+from ..ops.parallel_riccati import lq_backward_parallel
 from .ilqr import ILQROptions, ILQRResult
 
-BACKENDS = ("torch", "cuda", "cuda_fused")
+BACKENDS = ("torch", "cuda", "cuda_fused", "scan")
 
 
 @dataclasses.dataclass
@@ -104,6 +112,28 @@ def _check_ocp(ocp: OCP, backend: str):
         if (ocp.nx, ocp.nu) not in SUPPORTED:
             raise NotImplementedError(
                 f"no Riccati kernel for (nx, nu) = ({ocp.nx}, {ocp.nu})")
+    if backend == "scan":
+        if ocp.control_bounds is not None:
+            raise NotImplementedError(
+                "backend='scan' solves the unbounded LQ subproblem; use "
+                "'torch'/'cuda' for exact control boxes, or compose bounds "
+                "via the IPM/AL outer loops")
+        if ocp.device.type == "cuda" and ocp.device_model is None:
+            raise NotImplementedError(
+                "backend='scan' on a CUDA device runs the line-search kernel, "
+                "which needs ocp.device_model")
+        if ocp.device.type == "cuda" and ocp.dtype != torch.float32:
+            raise TypeError("backend='scan' on a CUDA device runs the float32 "
+                            f"line-search kernel, not {ocp.dtype}")
+
+
+def backend_options(opt: ILQROptions, backend: str) -> ILQROptions:
+    """``opt`` as ``backend`` runs it: ``"scan"`` is Gauss-Newton by
+    construction (the Vx fxx recursion is sequential), so it runs with
+    ``use_ddp=False`` and computes no second-order derivatives."""
+    if backend == "scan" and opt.use_ddp:
+        return dataclasses.replace(opt, use_ddp=False)
+    return opt
 
 
 def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
@@ -112,6 +142,13 @@ def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
     alphas = tuple(float(opt.alpha_decay) ** i for i in range(opt.n_alphas))
     if backend == "torch":
         bw_fn, ls_fn = riccati_backward_torch, linesearch_forward_torch
+    elif backend == "scan":
+        def bw_fn(d, dlb, dub, gN, HN, reg, ddp_scale, **_):
+            return lq_backward_parallel(d["fx"], d["fu"], d["lx"], d["lu"],
+                                        d["lxx"], d["luu"], d["lux"], gN, HN,
+                                        reg)
+
+        ls_fn = linesearch_forward
     else:
         bw_fn, ls_fn = riccati_backward, linesearch_forward
 
@@ -341,6 +378,7 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             "batched solver with state bounds needs options.al_iters >= 1")
     ocp_in = ocp
     backend = resolve_backend(ocp, backend)
+    opt = backend_options(opt, backend)
     if has_xb:
         cvals = _al_cvals(ocp)
         ocp = _augment_ocp_al(ocp)

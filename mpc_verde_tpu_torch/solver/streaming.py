@@ -38,7 +38,7 @@ from ..ocp.spec import OCP
 from .batched import (_accept_and_update, _al_cvals, _as_tensor,
                       _augment_ocp_al, _broadcast_params, _lam_update,
                       _make_parts, _search_direction, _trajectory_cost,
-                      _violation, resolve_backend)
+                      _violation, backend_options, resolve_backend)
 from .ilqr import ILQROptions, ILQRResult
 
 
@@ -100,6 +100,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                          "(state bounds install the AL continuation)")
     ocp_in = ocp
     backend = resolve_backend(ocp, backend)
+    opt = backend_options(opt, backend)
     npar = max(ocp_in.npar, 1)
     if has_xb:
         # the PHR multipliers [lam (2 nx), mu] ride the slot params, and the

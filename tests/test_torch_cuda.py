@@ -849,3 +849,72 @@ def test_path_family_20_steps_on_the_card(dev, family):
     m64 = go(device="cpu", dtype=torch.float64)
     x, x64 = m["result"].xs.double().cpu(), m64["result"].xs
     assert float((x - x64).abs().max()) <= LC_STATE_TOL
+
+
+def _kernels_ran(run):
+    """Run ``run`` and return (its result, the kernels it launched); every
+    twin's count of CUDA calls must stay 0."""
+    counts = {f: f.launches for f in (riccati_backward, linesearch_forward,
+                                      fused_backward)}
+    for twin in (riccati_backward_torch, linesearch_forward_torch,
+                 fused_backward_torch):
+        twin.cuda_calls = 0
+    out = run()
+    torch.cuda.synchronize()
+    assert max(t.cuda_calls for t in (riccati_backward_torch,
+                                      linesearch_forward_torch,
+                                      fused_backward_torch)) == 0
+    return out, {f.__name__ for f, n in counts.items() if f.launches > n}
+
+
+def test_scan_backend_runs_k2_and_matches_torch_float64(dev):
+    """backend="scan" on the card: the associative-scan backward in plain
+    PyTorch and K2's line search (no K1, no K3), on the bench OCP without
+    its box, against the float64 "torch" solve on the CPU: converged alike,
+    costs to 1e-3 relative (chip_smoke.py's float32 tolerance between
+    paths)."""
+    N, B = 16, 8
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4, use_ddp=False)
+    rng = np.random.default_rng(18)
+    x0 = rng.uniform(-1, 1, (B, 3))
+    ps = np.broadcast_to(np.array([3.0, 3.0, 0.0]), (B, N + 1, 3)).copy()
+    rs, ran = _kernels_ran(lambda: mt.make_batched_ilqr_solver(
+        bench_ocp(N, dev, box=False), opts, backend="scan")(x0, ps))
+    assert ran == {"linesearch_forward"}
+    rt = mt.make_batched_ilqr_solver(
+        bench_ocp(N, "cpu", torch.float64, box=False), opts,
+        backend="torch")(x0, ps)
+    assert bool(rs.converged.all()) and bool(rt.converged.all())
+    assert float(((rs.cost.double().cpu() - rt.cost).abs()
+                  / rt.cost.abs()).max()) <= 1e-3
+
+
+def test_scan_backend_needs_a_device_model_on_the_card(dev):
+    ocp = dataclasses.replace(bench_ocp(8, dev, box=False), device_model=None)
+    with pytest.raises(NotImplementedError):
+        mt.make_batched_ilqr_solver(ocp, mt.ILQROptions(), backend="scan")
+
+
+def test_lqr_warm_start_runs_k1_and_k2(dev):
+    """make_lqr_warm_start on the card: one K1 launch (infinite bounds, no
+    DDP, gN = HN = 0) and one K2 launch (alpha 1, x_nom = xref, u_nom =
+    uref); controls inside the box and within 1e-3 of the float64 twins on
+    the CPU (chip_smoke.py phase 19's tolerance)."""
+    from mpc_verde_tpu_torch.solver import make_lqr_warm_start
+
+    N, B = 40, 301
+    rng = np.random.default_rng(19)
+    x0 = rng.uniform(-2, 2, (B, 3))
+    ps = np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy()
+    k1, k2 = riccati_backward.launches, linesearch_forward.launches
+    us, ran = _kernels_ran(lambda: make_lqr_warm_start(
+        bench_ocp(N, dev), xref_fn=lambda p: p[:3])(x0, ps))
+    assert ran == {"riccati_backward", "linesearch_forward"}
+    assert (riccati_backward.launches - k1, linesearch_forward.launches - k2) \
+        == (1, 1)
+    box = torch.tensor([1.0, np.pi / 4], device=dev)
+    assert bool((us.abs() <= box * (1 + 1e-6)).all())
+    u64 = make_lqr_warm_start(bench_ocp(N, "cpu", torch.float64),
+                              xref_fn=lambda p: p[:3])(x0, ps)
+    assert float((us.double().cpu() - u64).abs().max()) <= 1e-3
