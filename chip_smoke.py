@@ -135,7 +135,26 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               eagerly); run beside the build (phase 2), and after phase 19
               their first steps held within 1e-6 of the same scripts in
               float64 on the CPU.
-Phases 5, 8, 9 and 11 to 20 each set every kernel launch count to 0 just
+ 21. host:    the tools and the scale-out layer.  (a) K2 and K3 on the
+              weight term (Q[0, 0] = p[4]: LinearRateDeviceModel's q_param)
+              at (3, 1), N 20, npar 5, B 1024 against the float64 twin, as
+              phase 10 holds the linear cases; then the tuning sweep
+              (sweep.py) at the JAX package's defaults: five Q_y at B = 5,
+              horizons 3-20, 300 steps, max_iters 30 on "cuda_fused", each
+              row printed, converged_frac >= 0.9, the rows at horizons 3 and
+              20 within 2% of the port's float64 CPU sweep.  (b) One horizon
+              of it under utils.device_trace (torch.profiler): the Chrome
+              trace names K2's and K3's kernels as often as their wrappers
+              counted launches.  (c) make_sharded_solver at world size 1
+              over NCCL (a FileStore) on the bench OCP at B = 1024, N = 40
+              on "cuda_fused" and "cuda": equal to the bit to the unsharded
+              solve, BatchStats equal to the local reductions.  (d) The
+              diff-drive family's 84 steps in SegmentedRun segments of 28,
+              cut off on the third and resumed from its checkpoint, against
+              the monolithic run (1e-6), which records its predicted
+              horizons (each starts at its step's state); (e) that run
+              exported to .csv and .xlsx and read back exactly.
+Phases 5, 8, 9 and 11 to 21 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
 K1 and K2 once each for the warm start, none for FDDP, the condensed QP and
@@ -236,16 +255,17 @@ PTXAS_SOURCES = ("riccati_warps_3x2.cu", "riccati_warps_4x1.cu",
 
 def _kernel_name(mangled):
     """kernel<args> from a kernel template's mangled name: the model (the
-    unicycle, the Frenet model, or the linear model or its curvature-cost
-    variant with its (nx0, nu)) and the int and bool arguments; the mangled
-    name where it does not parse."""
+    unicycle, the Frenet model, or the linear model or its curvature-cost or
+    weighted variant with its (nx0, nu)) and the int and bool arguments;
+    the mangled name where it does not parse."""
     t = re.search(r"\d([a-z_]+_kernel)I(.+)", mangled)
     if not t:
         return mangled
     targs = t.group(2).split("Ev")[0]
     args = []
     model = re.search(r"(UnicycleModel|FrenetRateModel|LinearRateModel|"
-                      r"CurvatureRateModel)(?:ILi(\d+)ELi(\d+)EE)?", targs)
+                      r"CurvatureRateModel|WeightedRateModel)"
+                      r"(?:ILi(\d+)ELi(\d+)EE)?", targs)
     if model:
         args.append(model.group(1) + (f"<{model.group(2)},{model.group(3)}>"
                                       if model.group(2) else ""))
@@ -1687,8 +1707,8 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
     13 and 17 hold the card's closed loops against (the circular track's
     first ``hold_circ`` steps, the Frenet and curvature families' first
     ``hold_path`` steps from sample ``lc_start`` of the lane change), and
-    the float64 CPU runs of phases 19 and 20 (the warm start, the NLP batch,
-    the compat scripts' first steps).  They need no card, so they run
+    the float64 CPU runs of phases 19, 20 and 21 (the warm start, the NLP
+    batch, the compat scripts' first steps, the sweep at horizons 3 and 20).  They need no card, so they run
     beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
     {name: {array name: array, "seconds": s}} on ``queue``, or the error's
     traceback."""
@@ -1696,6 +1716,7 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
         torch.set_num_threads(2)
         from mpc_verde_tpu_torch.refgen import synthetic_lane_change
         from mpc_verde_tpu_torch import scenarios as sc
+        from mpc_verde_tpu_torch.sweep import sweep_lane_change
 
         path = {k: np.asarray(v)[lc_start:]
                 for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
@@ -1726,6 +1747,9 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
             "casadi_v1": lambda: dict(zip(
                 ("states", "secs"),
                 _casadi_v1("cpu", CASADI_N, CASADI_HOLD)[::5])),
+            "sweep": lambda: {"rows": sweep_lane_change(
+                SWEEP_Q_Y, SWEEP_HOLD_HORIZONS, n_steps=SWEEP_STEPS,
+                max_iters=SWEEP_ITERS, device="cpu", dtype=f64)},
         }
         for name, run in raw.items():
             t0 = time.perf_counter()
@@ -2666,6 +2690,321 @@ def hold_compat(first, refs):
         raise AssertionError(f"compat holds: pendulum {dx}, casadi {dx_c}")
 
 
+# Phase 21: the host tools and the scale-out layer.  The sweep at the JAX
+# package's defaults: five Q_y weights at B = 5 per horizon, 300 steps,
+# max_iters 30; each row's mean_y and mean_path_dist held within
+# SWEEP_REL_TOL of the port's float64 CPU sweep at SWEEP_HOLD_HORIZONS.
+SWEEP_Q_Y = (0.01, 0.1, 1.0, 10.0, 100.0)
+SWEEP_HORIZONS = (3, 5, 8, 10, 15, 20)
+SWEEP_STEPS, SWEEP_ITERS, SWEEP_HOLD_HORIZONS = 300, 30, (3, 20)
+SWEEP_REL_TOL = 0.02
+# the share of converged solves each row must reach, set from float32 runs:
+# the stiffest rows (q_y = 100 at N = 5-10) stop at max_iters on some steps.
+# The card's least was 0.8967 (N = 8 and 10, q_y = 100), JAX's float32 sweep
+# on the CPU 0.89 (N = 5 and 10, q_y = 100); float64 converges every step
+SWEEP_CONV_GATE = 0.85
+# the weight term alone: K2 and K3 at (3, 1), N 20, npar 5, B 1024 against
+# the float64 twin; it adds a compare and a select of the weight per stage
+TERM_FLOPS["q_param"] = (2, 2)
+# (b) traces one horizon at fewer steps: torch.profiler records every
+# host-side op, and the whole 300 steps would make a trace of hundreds of MiB
+SWEEP_TRACE_HORIZON, SWEEP_TRACE_STEPS = 5, 40
+# the segmented run: the diff-drive family at B = 1, cut off on its third
+# segment and resumed, against the monolithic run
+SEG_STEPS, SEG_LEN, SEG_TOL = 84, 28, 1e-6
+SHARD_B, SHARD_BACKEND = 1024, "nccl"
+
+
+def _sweep_model(dev, dtype=torch.float32):
+    """(Ad, Bd, refs) of the sweep's lane change: the SPEC model at the
+    synthetic course's mean speed, discretized in float64."""
+    from mpc_verde_tpu_torch.models.bicycle import lateral_error_lti
+    from mpc_verde_tpu_torch.ops import c2d
+    from mpc_verde_tpu_torch.refgen import (lateral_error_references,
+                                            synthetic_lane_change)
+    from mpc_verde_tpu_torch.scenarios.lane_change import SPEC
+
+    path = synthetic_lane_change(n=500, dt=SPEC["T"])
+    model = lateral_error_lti(float(np.mean(path["uref"])), SPEC["ar"],
+                              SPEC["br"], device="cpu", dtype=torch.float64)
+    Ad, Bd = (m.numpy() for m in c2d(model.Ac, model.Bc, SPEC["T"]))
+    return Ad, Bd, lateral_error_references(path, SPEC["T"], SPEC["ar"],
+                                            SPEC["br"])
+
+
+def _sweep_case(dev, B, N, seed=41):
+    """(OCP, its float64 twin, (x0, xs, us, kff, K), ps) of the sweep's
+    OCP at horizon N: params drawn from its own table (the stage
+    references of the 300 steps, each row with one of the five Q_y)."""
+    from mpc_verde_tpu_torch.refgen import stage_param_tensor
+    from mpc_verde_tpu_torch.sweep import sweep_ocp
+
+    Ad, Bd, refs = _sweep_model(dev)
+    ocp = sweep_ocp(N, Ad, Bd, dev, torch.float32)
+    ocp64 = sweep_ocp(N, Ad, Bd, dev, torch.float64)
+    par = stage_param_tensor(refs, N + 1, SWEEP_STEPS)
+    q = np.resize(np.asarray(SWEEP_Q_Y), SWEEP_STEPS)
+    table = np.concatenate([par, np.broadcast_to(
+        q[:, None, None], (SWEEP_STEPS, N + 1, 1))], axis=2)
+    data, ps = _linear_inputs(ocp, table, B, 0.5, 0.35, dev, seed=seed)
+    return ocp, ocp64, data, ps
+
+
+def _sweep_variants(B, N, opt):
+    """The variants the plans give the sweep's K3 and K2 at horizon N."""
+    from mpc_verde_tpu_torch.ops.cuda.fused import fused_launch_plan
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_launch_plan
+
+    return {"fused_backward": {fused_launch_plan(
+                N, opt.use_ddp, None, B, nx=4, nu=1).variant},
+            "linesearch_forward": {linesearch_launch_plan(
+                N, a, 5, nx=4, nu=1).variant for a in (opt.n_alphas, 1)}}
+
+
+def _hold_sweep_rows(rows, ref):
+    """The card's rows at the reference's horizons against CPU float64:
+    mean_y and mean_path_dist within SWEEP_REL_TOL relative."""
+    worst = 0.0
+    for r64 in ref:
+        r = next(r for r in rows if (r["horizon"], r["q_y"]) ==
+                 (r64["horizon"], r64["q_y"]))
+        for k in ("mean_y", "mean_path_dist"):
+            rel = abs(r[k] - r64[k]) / max(abs(r64[k]), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= SWEEP_REL_TOL:
+                raise AssertionError(f"sweep N={r['horizon']} q_y={r['q_y']} "
+                                     f"{k}: {r[k]} vs float64 {r64[k]}")
+    return worst
+
+
+def _hold_trace(trace, launches):
+    """K2's and K3's launches in a Chrome trace, by kernel symbol, equal to
+    their wrappers' counts (and at least one each); returns them."""
+    count = lambda part: sum(n for name, n in trace.kernels.items()
+                             if part in name)
+    counted = {"linesearch_forward": count("linesearch_"),
+               "fused_backward": count("fused_")}
+    if any(counted[k] != launches[k] or counted[k] < 1 for k in counted):
+        raise AssertionError(f"trace counts {counted} against {launches}")
+    return counted
+
+
+def phase_host(dev, gpu, refs, meas):
+    """Phase 21: the weight term alone, the sweep, its trace, the sharded
+    solve over NCCL, the segmented run and its export; returns the paths'
+    launch counts."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mpc_verde_tpu_torch import (ILQROptions, make_batched_ilqr_solver)
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.parallel import (distributed_init,
+                                              gather_result,
+                                              make_sharded_solver)
+    from mpc_verde_tpu_torch.runtime import make_receding_horizon
+    from mpc_verde_tpu_torch.runtime.checkpoint import SegmentedRun
+    from mpc_verde_tpu_torch.runtime.export import (export_diffdrive_run,
+                                                    load_run)
+    from mpc_verde_tpu_torch.scenarios import build_diffdrive
+    from mpc_verde_tpu_torch.sweep import sweep_lane_change
+    from mpc_verde_tpu_torch.utils import device_trace
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    # (a) the weight term alone, then the sweep
+    err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
+    ocp, ocp64, data, ps = _sweep_case(dev, WIDTH, 20)
+    k2f, k3f = _linear_flops(3, 1)
+    row2, row3 = _hold_linear_case(
+        "sweep q_param", ocp, ocp64, data, ps, tuple(0.4 ** i for i in range(8)),
+        err, (k2f + TERM_FLOPS["q_param"][0], k3f + TERM_FLOPS["q_param"][1]))
+    for name, row in (("linesearch_forward", row2), ("fused_backward", row3)):
+        t = meas[name]["terms"]
+        t["by_case"]["sweep q_param"] = row
+        t["max_abs_err"] = max(t["max_abs_err"], err[name])
+    print(f"[host] weight term (3,1) N=20 npar=5 B={WIDTH}: K2 "
+          f"{row2['ms']:.4f} ms (bound {row2['bound_ms']:.4f}), K3 "
+          f"{row3['ms']:.4f} ms (bound {row3['bound_ms']:.4f}); max abs err "
+          f"vs float64 K2 {err['linesearch_forward']:.3e} K3 "
+          f"{err['fused_backward']:.3e}", flush=True)
+
+    opt = ILQROptions(max_iters=SWEEP_ITERS)
+    B = len(SWEEP_Q_Y)
+    sweep = lambda horizons, n=SWEEP_STEPS: sweep_lane_change(
+        SWEEP_Q_Y, horizons, n_steps=n, max_iters=SWEEP_ITERS, device=dev)
+    rows, wall, launches, twin_calls = _drive(lambda: sweep(SWEEP_HORIZONS))
+    expect = {}
+    for N in SWEEP_HORIZONS:
+        for k, v in _sweep_variants(B, N, opt).items():
+            expect.setdefault(k, set()).update(v)
+    _check_variants("sweep", launches, twin_calls, expect)
+    by_path["sweep"] = launches
+    print(f"[sweep] B={B} (q_y {SWEEP_Q_Y}) x horizons {SWEEP_HORIZONS}, "
+          f"{SWEEP_STEPS} steps, max_iters {SWEEP_ITERS} on \"cuda_fused\": "
+          f"{wall:.3f} s ({1e3 * wall / (SWEEP_STEPS * len(SWEEP_HORIZONS)):.2f}"
+          f" ms a batched step), launches {launches} | GPU {gpu}", flush=True)
+    for r in rows:
+        print(f"[sweep] N={r['horizon']:2d} q_y={r['q_y']:g}: mean_y "
+              f"{r['mean_y']:.6e} mean_phi {r['mean_phi']:.6e} mean_path_dist "
+              f"{r['mean_path_dist']:.6e} converged_frac "
+              f"{r['converged_frac']:.4f}", flush=True)
+    if len(rows) != B * len(SWEEP_HORIZONS) or not all(
+            np.isfinite([r[k] for k in ("mean_y", "mean_phi",
+                                        "mean_path_dist")]).all() for r in rows):
+        raise AssertionError("sweep: rows missing or not finite")
+    conv = min(r["converged_frac"] for r in rows)
+    if conv < SWEEP_CONV_GATE:
+        raise AssertionError(f"sweep: converged_frac {conv} < "
+                             f"{SWEEP_CONV_GATE}")
+    worst = _hold_sweep_rows(rows, refs.raw("sweep", "sweep")["rows"])
+    print(f"[sweep] min converged_frac {conv:.4f} (gate {SWEEP_CONV_GATE}); "
+          f"rows at horizons {SWEEP_HOLD_HORIZONS} against CPU float64: worst "
+          f"rel err {worst:.3e} (tolerance {SWEEP_REL_TOL})", flush=True)
+
+    # (b) one horizon of the sweep under the profiler: the trace names K2's
+    # and K3's kernels as often as their wrappers counted launches
+    with tempfile.TemporaryDirectory() as logdir:
+        def traced():
+            with device_trace(logdir) as tr:
+                sweep((SWEEP_TRACE_HORIZON,), SWEEP_TRACE_STEPS)
+            return tr
+
+        tr, wall, launches, twin_calls = _drive(traced)
+        _check_variants("sweep_trace", launches, twin_calls,
+                        _sweep_variants(B, SWEEP_TRACE_HORIZON, opt))
+        size = os.path.getsize(tr.path)
+        counted = _hold_trace(tr, launches)
+    by_path["sweep_trace"] = launches
+    print(f"[trace] N={SWEEP_TRACE_HORIZON}, {SWEEP_TRACE_STEPS} steps under "
+          f"device_trace: {wall:.3f} s, trace {size / 2**20:.1f} MiB, kernel "
+          f"launches in the trace {counted}, wrapper counts "
+          f"{ {k: launches[k] for k in counted} }, kernel symbols "
+          f"{sorted(tr.kernels)}", flush=True)
+
+    # (c) the sharded solve at world size 1 over NCCL
+    x0q, psq, us0q = (torch.as_tensor(a, device=dev)
+                      for a in _queue(SHARD_B, BENCH_N))
+    with tempfile.TemporaryDirectory() as d:
+        distributed_init(store=dist.FileStore(os.path.join(d, "store"), 1),
+                         world_size=1, rank=0, backend=SHARD_BACKEND)
+        try:
+            if dist.get_backend() != SHARD_BACKEND:
+                raise AssertionError(f"backend {dist.get_backend()}")
+            for backend in ("cuda_fused", "cuda"):
+                solve = make_batched_ilqr_solver(
+                    bench_ocp(BENCH_N, dev, torch.float32), _opts(),
+                    backend=backend)
+                ref = solve(x0q, psq, us0q)
+                (res, stats), wall, launches, twin_calls = _drive(
+                    lambda: make_sharded_solver(solve, batched=True)(
+                        x0q, psq, us0q))
+                full = gather_result(res)
+                kern = (("fused_backward", "linesearch_forward")
+                        if backend == "cuda_fused"
+                        else ("riccati_backward", "linesearch_forward"))
+                _check_variants(f"sharded {backend}", launches, twin_calls,
+                                {k: set(PLANNED[k]) for k in kern})
+                same = all(torch.equal(getattr(res, f), getattr(ref, f))
+                           and torch.equal(getattr(full, f), getattr(ref, f))
+                           for f in ("xs", "us", "cost", "iterations",
+                                     "converged", "grad_norm"))
+                local = {"n_total": SHARD_B,
+                         "n_converged": int(ref.converged.sum()),
+                         "mean_cost": float(ref.cost.sum() / SHARD_B),
+                         "max_grad_norm": float(ref.grad_norm.max()),
+                         "max_iterations": int(ref.iterations.max())}
+                got = {k: type(v)(getattr(stats, k).item())
+                       for k, v in local.items()}
+                by_path[f"sharded_{backend}"] = launches
+                print(f"[sharded] {backend} world 1 over "
+                      f"{dist.get_backend()}: B={SHARD_B} N={BENCH_N} "
+                      f"{wall:.3f} s, equal to the unsharded solve {same}, "
+                      f"stats {got} (local {local}), launches {launches}",
+                      flush=True)
+                if not same or got != local:
+                    raise AssertionError(f"sharded {backend}: equal {same}, "
+                                         f"stats {got} vs {local}")
+        finally:
+            dist.destroy_process_group()
+
+    # (d) the segmented run, cut off on its third segment and resumed;
+    # (e) its export read back
+    b = build_diffdrive(n_steps=SEG_STEPS, device=dev)
+    s = b["spec"]
+    params = np.broadcast_to(np.array(s["target"]), (SEG_STEPS, s["N"] + 1, 3))
+    make = lambda n, record=False: make_receding_horizon(
+        b["ocp"], b["solve"], b["plant"], n, record_predictions=record)
+    mono, _, launches, twin_calls = _drive(
+        lambda: make(SEG_STEPS, True)(np.array(s["x0"]), params))
+    _check_path(launches, twin_calls, FUSED_PATH)
+    by_path["segmented_monolithic"] = launches
+    # the monolithic run records each step's predicted horizon, which
+    # starts at that step's state
+    pred = mono.predicted
+    d0 = float((pred[:, 0] - mono.xs[:-1]).abs().max())
+    print(f"[segmented] monolithic run's predictions {tuple(pred.shape)}, "
+          f"max |predicted[t, 0] - x_t| {d0:.3e}", flush=True)
+    if (tuple(pred.shape) != (SEG_STEPS, s["N"] + 1, 3)
+            or not bool(torch.isfinite(pred).all()) or not d0 <= SEG_TOL):
+        raise AssertionError(f"predictions {tuple(pred.shape)}, {d0}")
+    calls = []
+
+    def cut_on_third(n):
+        run = make(n)
+
+        def cut(*a):
+            calls.append(n)
+            if len(calls) == 3:
+                raise RuntimeError("cut off")
+            return run(*a)
+        return cut
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "run.npz")
+        try:
+            SegmentedRun(cut_on_third, SEG_LEN, ck).run(np.array(s["x0"]),
+                                                        params)
+            raise AssertionError("the cut-off run was not cut off")
+        except RuntimeError as exc:
+            if str(exc) != "cut off":
+                raise
+        out, wall, launches, twin_calls = _drive(
+            lambda: SegmentedRun(make, SEG_LEN, ck).run(
+                np.array(s["x0"]), params, resume=True))
+        _check_path(launches, twin_calls, FUSED_PATH)
+        by_path["segmented_resumed"] = launches
+        dx = float(np.abs(out["xs"] - mono.xs.cpu().numpy()).max())
+        du = float(np.abs(out["us"] - mono.us.cpu().numpy()).max())
+        bits = (np.array_equal(out["xs"], mono.xs.cpu().numpy())
+                and np.array_equal(out["us"], mono.us.cpu().numpy()))
+        print(f"[segmented] diff-drive {SEG_STEPS} steps in segments of "
+              f"{SEG_LEN}, cut off on the third, resumed ({wall:.3f} s, "
+              f"launches {launches}): max |x diff| {dx:.3e}, max |u diff| "
+              f"{du:.3e} against the monolithic run (tolerance {SEG_TOL}), "
+              f"bit-equal {bits}", flush=True)
+        if not (dx <= SEG_TOL and du <= SEG_TOL
+                and out["xs"].shape == (SEG_STEPS + 1, 3)):
+            raise AssertionError(f"segmented run: {dx}, {du}")
+        exact = {}
+        for ext in (".csv", ".xlsx"):
+            table = load_run(export_diffdrive_run(
+                os.path.join(d, "run" + ext), out["xs"], out["us"], s["T"]))
+            us = np.append(out["us"], out["us"][-1:], axis=0)
+            exact[ext] = all(np.array_equal(table[c], col) for c, col in (
+                ("x", out["xs"][:, 0]), ("y", out["xs"][:, 1]),
+                ("theta", out["xs"][:, 2]), ("v", us[:, 0]), ("w", us[:, 1]),
+                ("t", np.arange(SEG_STEPS + 1) * s["T"])))
+        print(f"[export] the resumed run to .csv and .xlsx and back: exact "
+              f"{exact}", flush=True)
+        if not all(exact.values()):
+            raise AssertionError(f"export round trip: {exact}")
+    print(f"[host] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
@@ -2731,8 +3070,9 @@ def main() -> int:
 
 
 def _phases(dev, gpu, refs, compat):
-    """Phases 3-19 and the hold of phase 20 (``compat``: what
-    ``phase_compat`` returned); returns the kernels' JSON entries."""
+    """Phases 3-19, the hold of phase 20 (``compat``: what
+    ``phase_compat`` returned) and phase 21; returns the kernels' JSON
+    entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
     by_path = {}
@@ -2764,6 +3104,7 @@ def _phases(dev, gpu, refs, compat):
     print(f"[18-19] phases 18-19 and the hold of 20 wall "
           f"{time.perf_counter() - t0:.1f} s; nlpsol {nlpsol_ms:.1f} ms a "
           "call", flush=True)
+    by_path.update(phase_host(dev, gpu, refs, meas))
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

@@ -14,7 +14,7 @@ augmented-Lagrangian rounds, and the interior-point solvers
 
 __version__ = "0.1.0"
 
-from .ocp import OCP, box_bounds
+from .ocp import OCP, box_bounds, to_rate_form
 from .solver import (ILQROptions, ILQRResult, make_barrier_solver,
                      make_batched_ilqr_solver, make_ilqr_solver,
                      make_streaming_barrier_solver, make_streaming_solver)

@@ -9,9 +9,9 @@ with the same call shapes:
     solver.fixvar("x", 0, x0); solver.solve(); u0 = solver.var["u", 0, :]
 
 The CasADi-compatible symbolic layer (SX / DM / Function / nlpsol) is
-``mpc_verde_tpu_torch.compat.casadi``.  The JAX package's ``compat.plots``
-waits for the port of ``viz/``.
+``mpc_verde_tpu_torch.compat.casadi``, and ``mpc.plots.mpcplot`` /
+``showandsave`` draw as ``mpctools.plots`` does (``viz``).
 """
-from . import casadi
+from . import casadi, plots
 from .nmpc import (DiscreteSimulator, NMPCSolver, callSolver, getCasadiFunc,
                    mtimes, nmpc, util)

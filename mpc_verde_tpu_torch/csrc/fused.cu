@@ -49,9 +49,10 @@ __device__ __forceinline__ void model_terminal_value(const UnicycleModel& m, con
 
 #include "fused.cuh"
 
-// fused_linear.cu: model kind 1 (nx0 3, nu 1), 2 (nx0 4, nu 1) or 4 (the
-// curvature cost at nx0 3, nu 1), from the host arrays of linear_rate.cuh's
-// unpack_linear / unpack_curvature and the device tables.
+// fused_linear.cu: model kind 1 (nx0 3, nu 1), 2 (nx0 4, nu 1), 4 (the
+// curvature cost at nx0 3, nu 1) or 5 (the state weight from the params at
+// nx0 3, nu 1), from the host arrays of linear_rate.cuh's unpack_linear /
+// unpack_curvature / unpack_weighted and the device tables.
 cudaError_t mv_fused_linear(int kind, const float* model, const int* ints, const float* tables,
                             const FusedArgs& g, bool use_ddp, int variant, int problems,
                             int threads, const int* strides, long long* clocks, cudaStream_t s);
@@ -71,7 +72,8 @@ cudaError_t mv_fused_frenet(const float* model, const int* ints, const float* ta
 // unpack_linear, `tables` the device array of its per-stage rate bounds), 3
 // the Frenet rate-form model at (5, 2) (frenet_rate.cuh's unpack_frenet,
 // `tables` as for the linear model), 4 the linear model with the curvature
-// cost at (4, 1) (unpack_curvature).
+// cost at (4, 1) (unpack_curvature), 5 the linear model at (4, 1) with a
+// state weight from the params (unpack_weighted).
 // `variant` is 0 "thread" or 1 "staged"; for "staged", `problems` is the
 // number of problems a block takes, `threads` its size and `strides` a host
 // array of StagedLayout's three per-problem strides, as fused_launch_plan
@@ -88,7 +90,7 @@ extern "C" int mv_fused_backward(int kind, int use_ddp, int B, int N, int npar, 
                                  float* K, float* dV1, float* dV2, float* gmax, int variant,
                                  int problems, int threads, const int* strides, void* clocks,
                                  void* stream) {
-  if (kind < 0 || kind > 4 || variant < 0 || variant > 1) return cudaErrorInvalidValue;
+  if (kind < 0 || kind > 5 || variant < 0 || variant > 1) return cudaErrorInvalidValue;
   const UnicycleModel m = kind == 0 ? unpack_model(model, model_ints) : UnicycleModel{};
   if (kind == 0 && !model_fits(m, npar)) return cudaErrorInvalidValue;
   if (B == 0) return 0;

@@ -28,6 +28,13 @@
 // It derives from LinearRateModel, whose step, box and terminal value it
 // keeps; its own stage_cost overload is the only new code, so the quadratic
 // instantiations compile as they did.
+//
+// WeightedRateModel (nx0 3, nu 1) is the quadratic model whose diagonal
+// state weight Q[q_row][q_row] is the stage parameter p[q_col] in place of
+// the constant, so that each problem of a batch sets its own (the tuning
+// sweep of sweep.py: Q = diag(p[4], Q1, Q2)).  Its stage_cost selects that
+// weight and otherwise computes as LinearRateModel's; a model kind of its
+// own, so that the constant-weight instantiations keep their code.
 
 #pragma once
 
@@ -46,7 +53,7 @@ struct LinearRateModel {
   float Ad[NX0 * NX0], Bd[NX0 * NU], Q[NX0 * NX0], R[NU * NU], Rdu[NU * NU];
   float target[NX0], ulb[NU], uub[NU];
   const float *dlb, *dub;  // device (N, NU)
-  int ab_col, x_ref, u_ref, N;
+  int ab_col, x_ref, u_ref, N, q_row, q_col;
 
   // Stage k's box at state z (the state being rolled in K2, the nominal one
   // in K3): jnp.maximum / jnp.minimum of the rate bound and the magnitude
@@ -147,9 +154,9 @@ __device__ __forceinline__ void model_terminal_value(const LinearRateModel<NX0, 
 }
 
 // `f` is a host array of kFloats floats (LinearRateDeviceModel.packed() in
-// ops/cuda/rollout.py), `ints` one of 4: ab_col, x_ref, u_ref (-1 for none)
-// and N, the rows of `tables`, a device array of the rate bounds dlb then
-// dub, (N, NU) each.
+// ops/cuda/rollout.py), `ints` one of 6: ab_col, x_ref, u_ref (-1 for none),
+// N, the rows of `tables`, a device array of the rate bounds dlb then dub,
+// (N, NU) each, and q_row, q_col (-1 for none).
 template <int NX0, int NU>
 inline LinearRateModel<NX0, NU> unpack_linear(const float* f, const int* ints,
                                               const float* tables) {
@@ -167,6 +174,8 @@ inline LinearRateModel<NX0, NU> unpack_linear(const float* f, const int* ints,
   m.x_ref = ints[1];
   m.u_ref = ints[2];
   m.N = ints[3];
+  m.q_row = ints[4];
+  m.q_col = ints[5];
   m.dlb = tables;
   m.dub = tables + (size_t)m.N * NU;
   return m;
@@ -203,6 +212,48 @@ inline CurvatureRateModel<NX0, NU> unpack_curvature(const float* f, const int* i
   return m;
 }
 
+template <int NX0, int NU>
+struct WeightedRateModel : LinearRateModel<NX0, NU> {
+  static_assert(NX0 == 3 && NU == 1, "the parameter weight is the sweep's (3, 1) model's");
+};
+
+// v' W v as quad_form, with the diagonal entry (qi, qi) of W replaced by qv
+template <int n, class T>
+__device__ __forceinline__ T quad_form_weighted(const float* W, const T (&v)[n], int qi,
+                                                float qv) {
+  T c = 0.0f;
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    T vW = 0.0f;
+#pragma unroll
+    for (int i = 0; i < n; ++i) vW = vW + v[i] * (i == j && i == qi ? qv : W[i * n + j]);
+    c = c + vW * v[j];
+  }
+  return c;
+}
+
+template <class T, int NX0, int NU>
+__device__ __forceinline__ T stage_cost(const WeightedRateModel<NX0, NU>& m,
+                                        const T (&z)[NX0 + NU], const T (&w)[NU],
+                                        const float* p) {
+  T e[NX0], du[NU];
+#pragma unroll
+  for (int i = 0; i < NX0; ++i) e[i] = z[i] - (m.x_ref >= 0 ? p[m.x_ref + i] : m.target[i]);
+#pragma unroll
+  for (int a = 0; a < NU; ++a)
+    du[a] = (z[NX0 + a] + w[a]) - (m.u_ref >= 0 ? p[m.u_ref + a] : 0.0f);
+  return (quad_form_weighted<NX0>(m.Q, e, m.q_row, p[m.q_col]) + quad_form<NU>(m.R, du)) +
+         quad_form<NU>(m.Rdu, w);
+}
+
+template <int NX0, int NU>
+inline WeightedRateModel<NX0, NU> unpack_weighted(const float* f, const int* ints,
+                                                  const float* tables) {
+  WeightedRateModel<NX0, NU> m;
+  static_cast<LinearRateModel<NX0, NU>&>(m) = unpack_linear<NX0, NU>(f, ints, tables);
+  return m;
+}
+
 // The columns of p the model reads lie below npar, and its tables cover the
 // horizon N.
 template <int NX0, int NU>
@@ -211,13 +262,22 @@ inline bool model_fits(const LinearRateModel<NX0, NU>& m, int npar, int N) {
   if (m.ab_col < -1 || (m.ab_col >= 0 && m.ab_col + NX0 * (NX0 + NU) > npar)) return false;
   if (m.x_ref < -1 || (m.x_ref >= 0 && m.x_ref + NX0 > npar)) return false;
   if (m.u_ref < -1 || (m.u_ref >= 0 && m.u_ref + NU > npar)) return false;
-  return true;
+  return m.q_row == -1;   // a weight from the params is WeightedRateModel's
 }
 
 // The curvature cost reads p[0:4] besides the linear model's columns.
 template <int NX0, int NU>
 inline bool model_fits(const CurvatureRateModel<NX0, NU>& m, int npar, int N) {
   return npar >= 4 && model_fits(static_cast<const LinearRateModel<NX0, NU>&>(m), npar, N);
+}
+
+// The weighted model reads p[q_col] besides the linear model's columns.
+template <int NX0, int NU>
+inline bool model_fits(const WeightedRateModel<NX0, NU>& m, int npar, int N) {
+  if (m.q_row < 0 || m.q_row >= NX0 || m.q_col < 0 || m.q_col >= npar) return false;
+  LinearRateModel<NX0, NU> base = m;
+  base.q_row = -1;
+  return model_fits(base, npar, N);
 }
 
 }  // namespace

@@ -11,9 +11,10 @@
 #include "unicycle.cuh"
 #include "rollout.cuh"
 
-// rollout_linear.cu: model kind 1 (nx0 3, nu 1), 2 (nx0 4, nu 1) or 4 (the
-// curvature cost at nx0 3, nu 1), from the host arrays of linear_rate.cuh's
-// unpack_linear / unpack_curvature and the device tables.
+// rollout_linear.cu: model kind 1 (nx0 3, nu 1), 2 (nx0 4, nu 1), 4 (the
+// curvature cost at nx0 3, nu 1) or 5 (the state weight from the params at
+// nx0 3, nu 1), from the host arrays of linear_rate.cuh's unpack_linear /
+// unpack_curvature / unpack_weighted and the device tables.
 cudaError_t mv_linesearch_linear(int kind, const float* model, const int* ints,
                                  const float* tables, const RolloutArgs& g, const Alphas& al,
                                  int variant, const LanesLayout& L, cudaStream_t s);
@@ -33,7 +34,9 @@ cudaError_t mv_linesearch_frenet(const float* model, const int* ints, const floa
 // linear_rate.cuh's unpack_linear, `tables` the device array of its
 // per-stage rate bounds), 3 the Frenet rate-form model at (5, 2)
 // (frenet_rate.cuh's unpack_frenet, `tables` as for the linear model), 4 the
-// linear model with the curvature cost at (4, 1) (unpack_curvature).  `alphas` is a host array of n_alphas floats.
+// linear model with the curvature cost at (4, 1) (unpack_curvature), 5 the
+// linear model at (4, 1) with a state weight from the params
+// (unpack_weighted).  `alphas` is a host array of n_alphas floats.
 // `variant` is 0 "thread", 1 "lanes" or 2 "lanes_reroll"; for the lanes
 // variants `problems` is the number of problems a block takes and `layout`
 // a host array of the 9 ints of LanesLayout from `xs` on, as
@@ -48,7 +51,7 @@ extern "C" int mv_linesearch_forward(int kind, int B, int N, int npar, const flo
                                      const float* alphas, int n_alphas, float* xs_out,
                                      float* us_out, float* cost_out, int* best_out, int variant,
                                      int problems, const int* layout, void* stream) {
-  if (n_alphas < 1 || n_alphas > kMaxAlphas || kind < 0 || kind > 4)
+  if (n_alphas < 1 || n_alphas > kMaxAlphas || kind < 0 || kind > 5)
     return cudaErrorInvalidValue;
   if (variant < 0 || variant > 2) return cudaErrorInvalidValue;
   const UnicycleModel m = kind == 0 ? unpack_model(model, model_ints) : UnicycleModel{};

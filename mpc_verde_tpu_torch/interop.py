@@ -143,7 +143,7 @@ def unicycle_ocp(N: int, device, dtype=torch.float32, *, dt: float, Q, R,
 def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
                     u_lb=None, u_ub=None, du_lb=None, du_ub=None, Ad=None,
                     Bd=None, ab_col=None, x_ref=None, target=None,
-                    u_ref=None, curvature=None) -> OCP:
+                    u_ref=None, curvature=None, q_param=None) -> OCP:
     """The rate form (``to_rate_form``) of the linear plant ``x' = Ad x +
     Bd u`` with the cost ``(x - r)' Q (x - r) + (u - u_r)' R (u - u_r) + du'
     R_du du``, and its matching ``LinearRateDeviceModel``, from one set of
@@ -153,7 +153,9 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
     ``ab_col`` each stage's params hold them (``Ad`` row-major from column
     ``ab_col``, then ``Bd``).  ``r`` is ``p[x_ref : x_ref + nx0]`` or the
     constant ``target`` (zeros by default), ``u_r`` is ``p[u_ref : u_ref +
-    nu]`` or zero; ``R_du`` defaults to zeros.  ``u_lb`` / ``u_ub`` (nu,) and
+    nu]`` or zero; ``R_du`` defaults to zeros.  ``q_param = (i, col)``
+    makes the weight ``Q[i, i]`` the stage parameter ``p[col]`` (the
+    constant's entry is then unused).  ``u_lb`` / ``u_ub`` (nu,) and
     ``du_lb`` / ``du_ub`` ((nu,) or (N, nu)) are the magnitude and rate
     boxes (+-inf where None).  ``curvature = (L, lambda1, lambda2,
     lambda3)`` replaces the quadratic cost with the curvature family's
@@ -179,7 +181,8 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
         Ad=None if Ad is None else num(Ad), Bd=None if Bd is None else num(Bd),
         ab_col=ab_col, x_ref=x_ref,
         target=None if target is None else num(target), u_ref=u_ref,
-        curvature=None if curvature is None else tuple(map(float, curvature)))
+        curvature=None if curvature is None else tuple(map(float, curvature)),
+        q_param=None if q_param is None else tuple(map(int, q_param)))
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Qt, Rt, Rdt = t(Qn), t(Rn), t(R_dun)
     rt = t(np.zeros(nx0) if target is None else num(target))
@@ -195,10 +198,17 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
             B = p[ab_col + nx0 * nx0:ab_col + nx0 * (nx0 + nu)].reshape(nx0, nu)
             return A @ x + B @ u
 
+    if q_param is not None:   # Q[i, i] = p[col]: a mask, which torch.func takes
+        Mq = torch.zeros_like(Qt)
+        Mq[q_param[0], q_param[0]] = 1.0
+
+    def Q_of(p):
+        return Qt if q_param is None else Qt * (1.0 - Mq) + p[q_param[1]] * Mq
+
     def l(x, u, p, du):
         e = x - (rt if x_ref is None else p[x_ref:x_ref + nx0])
         eu = u if u_ref is None else u - p[u_ref:u_ref + nu]
-        return e @ Qt @ e + eu @ Rt @ eu + du @ Rdt @ du
+        return e @ Q_of(p) @ e + eu @ Rt @ eu + du @ Rdt @ du
 
     if curvature is not None:
         L, lam1, lam2, lam3 = model.curvature

@@ -421,9 +421,11 @@ class UnicycleDeviceModel:
 
 # (nx0, nu) of the linear rate-form instantiations -> their model kind in
 # the kernels' C entry points (csrc/rollout_linear.cu, fused_linear.cu); the
-# curvature cost's instantiation at (3, 1) is kind 4, the Frenet model kind 3
+# curvature cost's instantiation at (3, 1) is kind 4, the one with a state
+# weight from the params (q_param) at (3, 1) kind 5, the Frenet model kind 3
 LINEAR_KINDS = {(3, 1): 1, (4, 1): 2}
 CURVATURE_KIND = 4
+WEIGHTED_KIND = 5
 
 
 class _RateFormModel:
@@ -491,7 +493,10 @@ class LinearRateDeviceModel(_RateFormModel):
     instead ``l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l1 (r R_t - v_des)^2 +
     R_t (tan(delta) - L kappa_t)^2`` over ``x = (y, phi, r)``, ``delta = u``,
     ``p[:4] = (y_t, phi_t, kappa_t, v_des)`` and ``R_t = 1 / kappa_t``; Q, R
-    and R_du are then unused.  No terminal cost.  Stage k's box is
+    and R_du are then unused.  With ``q_param = (i, col)`` (quadratic cost
+    only) the state weight's diagonal entry ``Q[i, i]`` is ``p[col]`` at
+    every stage in place of the constant, a weight each problem of a batch
+    sets for itself (the tuning sweep, ``sweep.py``).  No terminal cost.  Stage k's box is
     ``max(du_lb[k], u_lb - u_prev) <= w <= min(du_ub[k], u_ub - u_prev)``,
     the ``w_bounds`` of ``to_rate_form``; the kernels evaluate it on the
     state being rolled (K2) and on the nominal state (K3), and read the
@@ -501,7 +506,8 @@ class LinearRateDeviceModel(_RateFormModel):
     ``with_al`` return None, so the OCPs the interior-point and state-bound
     solvers derive from a rate-form OCP have no device model, and run on the
     card only with ``backend="torch"``.  The kernels exist for (nx0, nu) in
-    ``LINEAR_KINDS``, and with the curvature cost for (3, 1).
+    ``LINEAR_KINDS``, and with the curvature cost or ``q_param`` for (3,
+    1).
     """
 
     N: int
@@ -519,9 +525,16 @@ class LinearRateDeviceModel(_RateFormModel):
     target: Optional[np.ndarray] = None
     u_ref: Optional[int] = None
     curvature: Optional[tuple] = None
+    q_param: Optional[tuple] = None
 
     def __post_init__(self):
         nx0, nu = np.shape(self.Q)[0], np.shape(self.R)[0]
+        if self.q_param is not None:
+            i, col = self.q_param
+            if self.curvature is not None or not (0 <= i < nx0 and col >= 0):
+                raise ValueError("q_param = (i, col) is a diagonal entry of "
+                                 "the quadratic cost's Q, 0 <= i < nx0, and "
+                                 "a column index >= 0")
         if (self.ab_col is None) == (self.Ad is None or self.Bd is None):
             raise ValueError("give the constant Ad and Bd, or ab_col")
         if self.x_ref is not None and self.target is not None:
@@ -562,6 +575,13 @@ class LinearRateDeviceModel(_RateFormModel):
         """The kernels' model kind; raises for sizes without kernels."""
         if self.curvature is not None:
             return CURVATURE_KIND
+        if self.q_param is not None:
+            if (self.nx0, self.nu) != (3, 1):
+                raise NotImplementedError(
+                    "the kernels take a state weight from the params "
+                    f"(q_param) at (nx0, nu) = (3, 1) only, not ({self.nx0}, "
+                    f"{self.nu})")
+            return WEIGHTED_KIND
         if (self.nx0, self.nu) not in LINEAR_KINDS:
             raise NotImplementedError(
                 f"no linear rate-form kernels for (nx0, nu) = ({self.nx0}, "
@@ -578,6 +598,8 @@ class LinearRateDeviceModel(_RateFormModel):
             cols.append(self.x_ref + self.nx0)
         if self.u_ref is not None:
             cols.append(self.u_ref + self.nu)
+        if self.q_param is not None:
+            cols.append(self.q_param[1] + 1)
         return max(cols)
 
     def packed(self) -> np.ndarray:
@@ -595,10 +617,12 @@ class LinearRateDeviceModel(_RateFormModel):
                        np.float64)]).astype(np.float32)
 
     def packed_ints(self) -> np.ndarray:
-        """int32 [ab_col, x_ref, u_ref (-1 for none), N]."""
+        """int32 [ab_col, x_ref, u_ref (-1 for none), N, q_row, q_col (-1,
+        -1 without ``q_param``)]."""
         c = lambda v: -1 if v is None else v
+        q_row, q_col = (-1, -1) if self.q_param is None else self.q_param
         return np.array([c(self.ab_col), c(self.x_ref), c(self.u_ref),
-                         self.N], np.int32)
+                         self.N, q_row, q_col], np.int32)
 
     # --- the kernel's formulas in PyTorch (batched over leading dims) -------
     def _matrices(self, p, like):
@@ -633,6 +657,18 @@ class LinearRateDeviceModel(_RateFormModel):
         return ((l2 * (y - yt) ** 2 + l3 * (phi - phit) ** 2) + l1 * e_r ** 2
                 ) + Rt * zt * zt
 
+    def state_weight(self, p, like):
+        """Q as each stage reads it: the constant, with ``Q[i, i] = p[col]``
+        under ``q_param = (i, col)`` (leading dims of p).  Masks, not an
+        in-place write, so that torch.func differentiates it."""
+        Q = self._t(self.Q, like)
+        if self.q_param is None:
+            return Q
+        i, col = self.q_param
+        M = torch.zeros_like(Q)
+        M[i, i] = 1.0
+        return Q * (1.0 - M) + p[..., col, None, None] * M
+
     def stage_cost(self, z, w, p):
         if self.curvature is not None:
             return self._curvature_cost(z, w, p)
@@ -644,7 +680,7 @@ class LinearRateDeviceModel(_RateFormModel):
         du = z[..., nx0:] + w
         if self.u_ref is not None:
             du = du - p[..., self.u_ref:self.u_ref + nu]
-        return ((self._quad(self._t(self.Q, z), z[..., :nx0] - r)
+        return ((self._quad(self.state_weight(p, z), z[..., :nx0] - r)
                  + self._quad(self._t(self.R, z), du))
                 + self._quad(self._t(self.R_du, z), w))
 

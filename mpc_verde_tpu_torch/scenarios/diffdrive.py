@@ -43,8 +43,9 @@ def build_diffdrive(integrator: str = "rk4", max_iters: int = 40,
                     n_steps: int = 100, cost: str = "discrete",
                     plant: str = "euler", M: int = 1, device=None,
                     backend=None, dtype=torch.float32):
-    """The diff-drive OCP, solver and closed-loop runner, across the Casadi/
-    family's variants.
+    """The diff-drive OCP, solver, plant step and closed-loop runner, across
+    the Casadi/ family's variants (``plant``, ``(x, u, p_plant) -> x_next``,
+    builds runners of other lengths, as ``runtime.SegmentedRun`` needs).
 
     ``integrator``: the controller's dynamics, "rk4" with ``M`` substeps or
     "euler".  ``cost="discrete"``: the per-stage sum
@@ -66,10 +67,10 @@ def build_diffdrive(integrator: str = "rk4", max_iters: int = 40,
                              backend=backend)
     pstep = (euler_step(unicycle.f, s["T"]) if plant == "euler"
              else rk4_step(unicycle.f, s["T"], M=M))
-    run = make_receding_horizon(ocp, solve, lambda x, u, pp: pstep(x, u, None),
-                                n_steps)
+    plant_step = lambda x, u, pp: pstep(x, u, None)
+    run = make_receding_horizon(ocp, solve, plant_step, n_steps)
     return {"ocp": ocp, "solve": solve, "run": run, "spec": s,
-            "n_steps": n_steps}
+            "n_steps": n_steps, "plant": plant_step}
 
 
 def run_diffdrive(built=None, **kw):

@@ -918,3 +918,75 @@ def test_lqr_warm_start_runs_k1_and_k2(dev):
     u64 = make_lqr_warm_start(bench_ocp(N, "cpu", torch.float64),
                               xref_fn=lambda p: p[:3])(x0, ps)
     assert float((us.double().cpu() - u64).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("B", [5, 1000])
+@pytest.mark.parametrize("N", [3, 20])
+def test_kernels_on_the_sweep_weight_term(dev, N, B):
+    """K2 (every variant) and K3 (DDP on and off, both variants) on the
+    sweep's OCP, whose Q[0, 0] is p[4] (``q_param``), against the float64
+    twin (chip_smoke.py phase 21 (a) at these shapes)."""
+    from chip_smoke import (_hold_f64, _hold_k2_f64, _k2_candidates,
+                            _sweep_case, _to64)
+
+    ocp, ocp64, (x0, xs, us, kff, K), ps = _sweep_case(dev, B, N, seed=53 + N)
+    assert ocp.device_model.q_param == (0, 4) and ps.shape[-1] == 5
+    alphas = tuple(0.4 ** i for i in range(8))
+    data = (x0, xs, us, ps, kff, K)
+    cand32 = _k2_candidates(data, alphas, ocp)
+    cand64 = _k2_candidates(_to64(*data), alphas, ocp64)
+    for variant in LINESEARCH_VARIANTS:
+        by_variant = dict(linesearch_forward.launches_by_variant)
+        out = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
+        torch.cuda.synchronize()
+        assert _launched(linesearch_forward, by_variant) == {variant: 1}
+        _hold_k2_f64(f"sweep N={N} B={B} {variant}", out, cand32, cand64,
+                     ocp.device_model)
+    args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
+            torch.ones((B,), device=dev))
+    for use_ddp in (True, False):
+        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+        ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+        for variant in FUSED_VARIANTS:
+            by_variant = dict(fused_backward.launches_by_variant)
+            out = fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                 variant=variant)
+            torch.cuda.synchronize()
+            assert _launched(fused_backward, by_variant) == {variant: 1}
+            _hold_f64(out, ref, ref64, "k3",
+                      f"sweep N={N} B={B} DDP={use_ddp} {variant}")
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "cuda"])
+def test_sharded_solver_over_nccl_at_world_size_one(dev, tmp_path, backend):
+    """make_sharded_solver at world size 1 over NCCL: the unsharded solve's
+    results to the bit, the statistics its local reductions."""
+    import torch.distributed as dist
+
+    from mpc_verde_tpu_torch.parallel import (distributed_init, gather_result,
+                                              make_sharded_solver)
+
+    B, N = 256, 20
+    rng = np.random.default_rng(29)
+    x0 = torch.as_tensor(rng.uniform(-2, 2, (B, 3)), dtype=torch.float32,
+                         device=dev)
+    ps = torch.tensor([10.0, 10.0, 0.0], device=dev).expand(B, N + 1, 3)
+    us = torch.zeros((B, N, 2), device=dev)
+    solve = mt.make_batched_ilqr_solver(bench_ocp(N, dev), backend=backend)
+    ref = solve(x0, ps, us)
+    distributed_init(store=dist.FileStore(str(tmp_path / "store"), 1),
+                     world_size=1, rank=0, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        res, stats = make_sharded_solver(solve, batched=True)(x0, ps, us)
+        full = gather_result(res)
+    finally:
+        dist.destroy_process_group()
+    for f in ("xs", "us", "cost", "iterations", "converged", "grad_norm"):
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+        assert torch.equal(getattr(full, f), getattr(ref, f)), f
+    assert int(stats.n_total) == B
+    assert int(stats.n_converged) == int(ref.converged.sum())
+    assert float(stats.mean_cost) == float(ref.cost.sum() / B)
+    assert float(stats.max_grad_norm) == float(ref.grad_norm.max())
+    assert int(stats.max_iterations) == int(ref.iterations.max())

@@ -200,7 +200,7 @@ def test_device_model_packing():
     assert curv.packed().shape == (2 * 9 + 3 + 1 + 1 + 3 + 2 + 4,)
     np.testing.assert_array_equal(curv.packed()[-4:],
                                   np.float32([3.5, 2.5, 1.75, 2.5]))
-    np.testing.assert_array_equal(curv.packed_ints(), [4, -1, -1, 20])
+    np.testing.assert_array_equal(curv.packed_ints(), [4, -1, -1, 20, -1, -1])
     np.testing.assert_array_equal(curv.tables("cpu")[1, :, 0].numpy(),
                                   [np.inf] * 3 + [0.0] * 17)
     with pytest.raises(ValueError, match="curvature"):

@@ -57,3 +57,71 @@ def test_chip_smoke_fails_without_gpu(tmp_path, where):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_sources_name_no_jax_import():
+    """No line of the port or of chip_smoke.py imports jax, flax or the JAX
+    package (what the walk above sees only for modules it imports)."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|mpc_verde_tpu)(\.|\s|$)")
+    files = sorted((ROOT / "mpc_verde_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    bad = [f"{f.relative_to(ROOT)}:{i}" for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(line)]
+    assert not bad, bad
+
+
+def test_viz_and_export_import_without_matplotlib_or_pandas(tmp_path):
+    """With matplotlib and pandas unimportable, viz, compat and
+    runtime.export import, CSV and xlsx runs round-trip, and only legacy
+    Excel asks for pandas."""
+    code = (
+        "import sys, importlib.abc\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('matplotlib', 'pandas'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np\n"
+        "import mpc_verde_tpu_torch.viz, mpc_verde_tpu_torch.compat\n"
+        "from mpc_verde_tpu_torch.runtime import export as e\n"
+        f"d = {str(tmp_path)!r}\n"
+        "xs = np.arange(12.0).reshape(4, 3) / 7; us = np.ones((3, 2)) / 3\n"
+        "for ext in ('.csv', '.xlsx'):\n"
+        "    t = e.load_run(e.export_diffdrive_run(d + '/r' + ext, xs, us, 0.2))\n"
+        "    assert np.array_equal(t['x'], xs[:, 0]), t\n"
+        "try:\n"
+        "    e.load_run(d + '/r.xls')\n"
+        "except ImportError as exc:\n"
+        "    assert 'pandas' in str(exc)\n"
+        "else:\n"
+        "    raise AssertionError('.xls read without pandas')\n"
+        "assert not {'matplotlib', 'pandas'} & set(sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("pkg", ["", ".utils", ".runtime", ".parallel",
+                                 ".viz", ".compat"])
+def test_packages_export_the_jax_names(pkg):
+    """Each package exports the names its JAX counterpart's __init__ binds
+    (the JAX-only force_cpu / force_tpu aside), read from the source: a
+    package's attributes also hold whatever submodule another import
+    loaded."""
+    import ast
+    import importlib
+
+    init = ROOT / "mpc_verde_tpu" / pkg.lstrip(".") / "__init__.py"
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    names -= {"force_cpu", "force_tpu", "annotations"}
+    tmod = importlib.import_module("mpc_verde_tpu_torch" + pkg)
+    missing = sorted(n for n in names if not hasattr(tmod, n))
+    assert not missing, missing

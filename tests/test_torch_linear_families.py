@@ -125,7 +125,7 @@ def test_device_model_packing_and_derived_ocps():
     model = ocp.device_model
     assert model.packed().dtype == np.float32
     assert model.packed().shape == (2 * 9 + 3 + 1 + 1 + 3 + 2,)
-    np.testing.assert_array_equal(model.packed_ints(), [4, 0, 3, 5])
+    np.testing.assert_array_equal(model.packed_ints(), [4, 0, 3, 5, -1, -1])
     tab = model.tables("cpu")
     assert tab.shape == (2, 5, 1) and tab.dtype == torch.float32
     assert tab is model.tables("cpu")   # made once a device
@@ -138,7 +138,7 @@ def test_device_model_packing_and_derived_ocps():
     assert _augment_ocp_al(boxed).device_model is None
     pend = _built("pendulum", ts, n_steps=2)["ocp"].device_model
     assert pend.min_npar == 0 and pend.kind == 2
-    np.testing.assert_array_equal(pend.packed_ints(), [-1, -1, -1, 50])
+    np.testing.assert_array_equal(pend.packed_ints(), [-1, -1, -1, 50, -1, -1])
     with pytest.raises(ValueError, match="ab_col"):
         LinearRateDeviceModel(N=2, Q=np.eye(3), R=np.eye(1), R_du=np.eye(1),
                               u_lb=[-1.0], u_ub=[1.0], du_lb=np.zeros((2, 1)),
