@@ -4,16 +4,22 @@
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
-  2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc; phase
-              20, which launches no kernel, runs meanwhile.
+  2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc: the
+              kernels library (K2, K3) and K1's library at each size of
+              HELD_SIZES, one nvcc process a unit, all started together;
+              phase 20, which launches no kernel, runs meanwhile.
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
-              card: random problems for every instantiated (nx, nu), DDP on
+              card: random problems at every (nx, nu) of HELD_SIZES (the
+              seven sizes of the package's models and the JAX kernel's
+              tests, and (2, 1), (6, 2), (6, 3)), DDP on
               and off, and the bench OCP's derivatives at B=1024, N=40 (DDP
               on and off, half the problems with ddp_scale 0, infinite
               bounds), B=1000, N=10 and B=16384; each under the planned
               variant and under the other ("warps" / "thread"), the two
               against each other, and the cycles of the "warps" variant's
-              parts.
+              parts; then random problems at B=1024, N=40 at every size of
+              HELD_SIZES under both variants, held to the float64 twin and
+              timed.
   4. K2:      line-search kernel vs its twin on the bench OCP, random gains,
               at B=1024, N=40, A=8 (the plan's "lanes" variant), and at A=5,
               A=1 (the pre-roll, "lanes_reroll"), B=1000 and an all-ties
@@ -154,11 +160,29 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               the monolithic run (1e-6), which records its predicted
               horizons (each starts at its step's state); (e) that run
               exported to .csv and .xlsx and read back exactly.
-Phases 5, 8, 9 and 11 to 21 each set every kernel launch count to 0 just
+ 22. bw:      backend=None on OCPs without a device model or in float64,
+              which resolves to "cuda_bw" (torch.func derivatives, K1, the
+              line search's plain PyTorch version on the OCP's callables; the
+              counterpart of JAX's default "pallas_bw"): (a) the bench OCP
+              built from its callables, make_streaming_solver over the first
+              2048 starts of phase 5's queue at width 1024 with phase 5's
+              options, converged_frac >= 0.99, held against phase 5's
+              answers; (b) three user OCPs written here from plain callables
+              at B=1024, N=40 through make_batched_ilqr_solver: the double
+              integrator (2, 1), Drake's planar quadrotor (6, 2), the 3-D
+              point mass (6, 3), each converged_frac >= JAX float32's on
+              the CPU less 0.01 and within 1e-3 relative cost of CPU float64
+              on its first 64 where both converged, and K1 under both
+              variants on the derivatives along its answers, held to the
+              float64 twin on the float64 derivatives; (c) the bench OCP in
+              float64 at B=1024, K1 on float32 copies, within 1e-4 relative
+              cost of a float64 "torch" solve on the card.  Each path
+              launches K1 and neither K2 nor K3.
+Phases 5, 8, 9 and 11 to 22 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
 K1 and K2 once each for the warm start, none for FDDP, the condensed QP and
-the NLP solver; 20: none).  Then one JSON line of
+the NLP solver; 20: none; 22: K1 alone).  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
 this run's shapes, and beside its one-thread-per-problem variant's time),
 the nvidia-smi name/power-limit line, and last the JSON status line.
@@ -247,8 +271,7 @@ def _queue(M, N, seed=0):
     return x0q, psq, np.zeros((M, N, 2), np.float32)
 
 
-PTXAS_SOURCES = ("riccati_warps_3x2.cu", "riccati_warps_4x1.cu",
-                 "riccati_warps_5x1.cu", "riccati_warps_5x2.cu", "rollout.cu",
+PTXAS_SOURCES = ("riccati_", "rollout.cu",
                  "rollout_linear.cu", "rollout_frenet.cu", "fused.cu",
                  "fused_linear.cu", "fused_frenet.cu")
 
@@ -380,7 +403,7 @@ def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N, B_ragged=1000,
              N_fleet=10, B_wide=QUEUE):
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.ops.cuda.riccati import (
-        CLOCK_PARTS, RICCATI_VARIANTS, SUPPORTED, riccati_backward,
+        CLOCK_PARTS, HELD_SIZES, RICCATI_VARIANTS, riccati_backward,
         riccati_backward_torch, riccati_launch_plan, riccati_stage_clocks)
 
     rng = np.random.default_rng(7)
@@ -435,10 +458,15 @@ def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N, B_ragged=1000,
             worst["same"] = min(worst["same"], same)
         return outs[planned]
 
-    for nx, nu in sorted(SUPPORTED):
+    for nx, nu in sorted(HELD_SIZES):
         for use_ddp in (True, False):
             compare(_random_riccati(rng, B_rand, N_rand, nx, nu, dev), nx, nu,
                     f"random B={B_rand} N={N_rand}", use_ddp)
+    by_size = {}
+    for nx, nu in sorted(HELD_SIZES):   # every size at the bench shape
+        by_size[f"{nx}x{nu}"] = _time_k1(
+            _random_riccati(rng, B, N, nx, nu, dev), nx, nu,
+            f"random B={B} N={N}")
     ocp = bench_ocp(N, dev, torch.float32)
     args = _bench_backward_inputs(ocp, B, dev)
     out = compare(args, 3, 2, f"bench B={B} N={N}")
@@ -478,7 +506,55 @@ def phase_k1(dev, B_rand=1000, N_rand=6, B=WIDTH, N=BENCH_N, B_ragged=1000,
             "variant": plan.variant, "thread_variant_ms": thread_ms,
             "max_abs_diff_vs_thread": worst["diff"],
             "same_pattern_share": worst["same"],
-            "block_cycles": cycles, "cycles_per_stage": per_stage}
+            "block_cycles": cycles, "cycles_per_stage": per_stage,
+            "by_size": by_size}
+
+
+def _k1_flops(B, N, nx, nu):
+    """K1's operations: K1_STAGE_FLOPS a stage at (3, 2), scaled by the
+    stage's nx^2 (nx + nu) products."""
+    return B * N * K1_STAGE_FLOPS * (nx * nx * (nx + nu)) // (9 * 5)
+
+
+def _time_k1(args, nx, nu, label):
+    """K1 on ``args`` (DDP) under the planned variant and under "thread",
+    each held against the float64 twin (``_hold_f64``: the recursion over N
+    = 40 stages moves the float32 twin too); their times, the twin's and the
+    bound: one row of phase 3's table."""
+    from mpc_verde_tpu_torch.ops.cuda.riccati import (
+        riccati_backward, riccati_backward_torch, riccati_launch_plan)
+
+    B, N = args[0]["fx"].shape[:2]
+    kw = dict(nx=nx, nu=nu)
+    plan = riccati_launch_plan(N, nx, nu, True, B)
+    ref = riccati_backward_torch(*args, **kw)
+    ref64 = riccati_backward_torch(
+        {k: v.double() for k, v in args[0].items()}, *_to64(*args[1:]), **kw)
+    for variant in dict.fromkeys((plan.variant, "thread")):
+        used, out = _variants_used(
+            riccati_backward,
+            lambda: riccati_backward(*args, variant=variant, **kw))
+        if used != {variant}:
+            raise AssertionError(f"K1 {label} ran variants {used}")
+        _hold_f64(out, ref, ref64, "k1",
+                  f"{label} ({nx},{nu}) DDP variant {variant}")
+    ms = _time_ms(lambda: riccati_backward(*args, **kw), reps=50)
+    thread_ms = ms if plan.variant == "thread" else _time_ms(
+        lambda: riccati_backward(*args, variant="thread", **kw), reps=50)
+    plain_ms = _time_ms(lambda: riccati_backward_torch(*args, **kw), reps=3,
+                        warmup=1, queued=False)
+    n_in = sum(a.numel() for a in args[1:]) + sum(
+        v.numel() for v in args[0].values())
+    row = {"nx": nx, "nu": nu, "ms": ms, "plain_ms": plain_ms,
+           "variant": plan.variant, "problems": plan.problems,
+           "thread_variant_ms": thread_ms,
+           **_bound(4 * (n_in + sum(o.numel() for o in out)),
+                    _k1_flops(B, N, nx, nu))}
+    print(f"[k1] {label} ({nx},{nu}) DDP: kernel {ms:.4f} ms "
+          f"({plan.variant}, {plan.problems} a block), \"thread\" "
+          f"{thread_ms:.4f} ms, twin {plain_ms:.2f} ms, bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']}", flush=True)
+    return row
 
 
 def _k2_inputs(dev, B, N, seed=3):
@@ -1271,7 +1347,7 @@ def _k1_on_case(label, ocp, ocp64, data, ps):
                         warmup=1, queued=False)
     n_in = sum(a.numel() for a in args[1:]) + sum(v.numel() for v in d.values())
     n_out = sum(o.numel() for o in out)
-    flops = B * N * K1_STAGE_FLOPS * (nx * nx * (nx + nu)) // (9 * 5)
+    flops = _k1_flops(B, N, nx, nu)
     row = {"case": label, "nx": nx, "nu": nu, "ms": ms, "plain_ms": plain_ms,
            "variant": plan.variant, "thread_variant_ms": thread_ms,
            **_bound(4 * (n_in + n_out), flops)}
@@ -1708,8 +1784,9 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
     first ``hold_circ`` steps, the Frenet and curvature families' first
     ``hold_path`` steps from sample ``lc_start`` of the lane change), and
     the float64 CPU runs of phases 19, 20 and 21 (the warm start, the NLP
-    batch, the compat scripts' first steps, the sweep at horizons 3 and 20).  They need no card, so they run
-    beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
+    batch, the compat scripts' first steps, the sweep at horizons 3 and 20)
+    and of phase 22 (the user OCPs' first USER_HOLD problems).  They need no
+    card, so they run beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
     {name: {array name: array, "seconds": s}} on ``queue``, or the error's
     traceback."""
     try:
@@ -1750,6 +1827,8 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
             "sweep": lambda: {"rows": sweep_lane_change(
                 SWEEP_Q_Y, SWEEP_HOLD_HORIZONS, n_steps=SWEEP_STEPS,
                 max_iters=SWEEP_ITERS, device="cpu", dtype=f64)},
+            **{f"user_{name}": (lambda name=name: _user_f64(name))
+               for name in USER_OCPS},   # phase 22
         }
         for name, run in raw.items():
             t0 = time.perf_counter()
@@ -1757,6 +1836,17 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
         queue.put(out)
     except Exception:   # the parent raises it where it reads the result
         queue.put(traceback.format_exc())
+
+
+def _user_f64(name):
+    """The float64 "torch" solve on the CPU of the first USER_HOLD problems
+    of user OCP ``name`` (phase 22 (b))."""
+    from mpc_verde_tpu_torch import make_batched_ilqr_solver
+
+    x0, ps, us0 = (a[:USER_HOLD] for a in user_queue(name, USER_B))
+    res = make_batched_ilqr_solver(user_ocp(name, "cpu", torch.float64),
+                                   _opts(), backend="torch")(x0, ps, us0)
+    return {"converged": res.converged.numpy(), "cost": res.cost.numpy()}
 
 
 class CpuReferences:
@@ -3005,12 +3095,298 @@ def phase_host(dev, gpu, refs, meas):
     return by_path
 
 
+# Phase 22: "cuda_bw", the counterpart of JAX's default "pallas_bw": K1 on
+# an OCP's own callables, with torch.func derivatives and the line search's
+# plain PyTorch version.  (a) the bench OCP without its device model, (b)
+# three user OCPs at sizes K1 had no library for before it was built per
+# size, (c) the bench OCP in float64.
+BW_QUEUE = 2048   # 4096 took phase 22 past its 60 s
+BW_PATH = ("riccati_backward",)
+# (b): written here from plain callables; they are no model of the package,
+# nor of the JAX package.  The tests build the same problems in JAX from
+# these numbers.  The 1-D double integrator (2, 1); the planar quadrotor of
+# Drake's PlanarQuadrotor (Tedrake, Underactuated Robotics, ch. 3) at (6, 2):
+# state (x, y, theta, and their rates), the two rotors' thrusts, each boxed in
+# [0, m g], hover at the origin; the 3-D point mass (6, 3).  Each stage costs
+# x'Qx + (u - u_ref)'R(u - u_ref), the terminal state 10 x'Qx; each is
+# discretized with RK4 (the quadrotor) or exactly (linear_model and c2d).
+USER_N, USER_B, USER_HOLD = 40, 1024, 64
+QUADROTOR = dict(m=0.486, arm=0.25, I=0.00383, g=9.81)
+_HOVER = QUADROTOR["m"] * QUADROTOR["g"]
+USER_OCPS = {
+    "double_integrator": dict(nx=2, nu=1, dt=0.1, Q=(1.0, 0.1), R=(0.01,),
+                              lb=(-1.0,), ub=(1.0,), start=(2.0, 1.0)),
+    "quadrotor": dict(nx=6, nu=2, dt=0.05, Q=(10.0, 10.0, 10.0, 1.0, 1.0, 1.0),
+                      R=(0.1, 0.1), lb=(0.0, 0.0), ub=(_HOVER, _HOVER),
+                      start=(1.0, 1.0, 0.3, 0.0, 0.0, 0.0)),
+    "point_mass": dict(nx=6, nu=3, dt=0.1, Q=(1.0, 1.0, 1.0, 0.1, 0.1, 0.1),
+                       R=(0.1, 0.1, 0.1), lb=(-1.0,) * 3, ub=(1.0,) * 3,
+                       start=(2.0, 2.0, 2.0, 0.5, 0.5, 0.5)),
+}
+USER_QF = 10.0
+# converged_frac of JAX float32 "xla" on the CPU over the first USER_B starts
+# of user_queue (PYTHONPATH=. python tests/test_torch_bw.py --band: 1.0 each,
+# at 10.04 / 11.78 / 7.69 mean iterations); the card must reach each less
+# 0.01
+USER_JAX_BAND = {"double_integrator": 1.0, "quadrotor": 1.0,
+                 "point_mass": 1.0}
+BW_COST_TOL, BW_F64_COST_TOL = 1e-3, 1e-4
+
+
+def quadrotor_rhs(x, u, xp):
+    """Drake's PlanarQuadrotor: d/dt (x, y, theta, x', y', theta') for the
+    rotors' thrusts u, in the array module ``xp`` (torch or jax.numpy)."""
+    m, arm, inertia, g = (QUADROTOR[k] for k in ("m", "arm", "I", "g"))
+    thrust = u[0] + u[1]
+    return xp.stack([x[3], x[4], x[5], -xp.sin(x[2]) * thrust / m,
+                     xp.cos(x[2]) * thrust / m - g,
+                     arm * (u[0] - u[1]) / inertia])
+
+
+def user_linear(name):
+    """(Ac, Bc) of the double integrator and of the 3-D point mass."""
+    n = USER_OCPS[name]["nu"]
+    Ac = np.zeros((2 * n, 2 * n))
+    Ac[:n, n:] = np.eye(n)
+    return Ac, np.vstack([np.zeros((n, n)), np.eye(n)])
+
+
+def user_u_ref(name):
+    return np.full(2, _HOVER / 2) if name == "quadrotor" else np.zeros(
+        USER_OCPS[name]["nu"])
+
+
+def user_ocp(name, device, dtype=torch.float32):
+    """The user OCP ``name`` of ``USER_OCPS`` in the port, from callables
+    (no device model)."""
+    from mpc_verde_tpu_torch import OCP, box_bounds
+    from mpc_verde_tpu_torch.models import linear_model
+    from mpc_verde_tpu_torch.ops import rk4_step
+    from mpc_verde_tpu_torch.ops.integrators import c2d
+
+    s = USER_OCPS[name]
+    z = dict(dtype=dtype, device=device)
+    if name == "quadrotor":
+        F = rk4_step(lambda x, u, p: quadrotor_rhs(x, u, torch), s["dt"])
+    else:
+        lm = linear_model(*user_linear(name), device=device,
+                          dtype=torch.float64)
+        Ad, Bd = (a.to(dtype) for a in c2d(lm.Ac, lm.Bc, s["dt"]))
+
+        def F(x, u, p):
+            return Ad @ x + Bd @ u
+    Q, R = (torch.diag(torch.tensor(s[k], **z)) for k in ("Q", "R"))
+    ur = torch.as_tensor(user_u_ref(name), **z)
+
+    def l(x, u, p):
+        du = u - ur
+        return x @ Q @ x + du @ R @ du
+
+    def lf(x, p):
+        return USER_QF * (x @ Q @ x)
+
+    return OCP(dynamics=F, stage_cost=l, terminal_cost=lf, N=USER_N,
+               nx=s["nx"], nu=s["nu"], npar=0,
+               control_bounds=box_bounds(s["lb"], s["ub"], device=device,
+                                         dtype=dtype),
+               device=torch.device(device), dtype=dtype)
+
+
+def user_queue(name, B, seed=52):
+    """B random starts in +-start of ``USER_OCPS[name]``, zero params and
+    the reference controls as the first guess (float64 numpy)."""
+    s = USER_OCPS[name]
+    x0 = np.random.default_rng(seed).uniform(-1, 1, (B, s["nx"])) * s["start"]
+    return (x0, np.zeros((B, USER_N + 1, 1)),
+            np.broadcast_to(user_u_ref(name), (B, USER_N, s["nu"])).copy())
+
+
+def _bw_path(tag, gpu, run, ocp):
+    """Drive one "cuda_bw" path with every count set to 0 just before and
+    read just after: K1 launched and no other kernel, no K1 or K3 twin on
+    CUDA tensors (the line search's twin is this backend's own); returns
+    (result, wall, launches)."""
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
+
+    backend = resolve_backend(ocp, None)
+    if backend != "cuda_bw":
+        raise AssertionError(f"{tag}: backend=None resolved to {backend!r}")
+    res, wall, launches, twin_calls = _drive(run)
+    print(f"[{tag}] backend=None -> {backend!r}: {wall:.3f} s, launches "
+          f"{launches}, twin calls on CUDA {twin_calls} | GPU {gpu}",
+          flush=True)
+    if (launches["riccati_backward"] < 1 or launches["linesearch_forward"]
+            or launches["fused_backward"]):
+        raise AssertionError(f"{tag}: K1 alone must launch: {launches}")
+    if (twin_calls["riccati_backward_torch"]
+            or twin_calls["fused_backward_torch"]
+            or twin_calls["linesearch_forward_torch"] < 1):
+        raise AssertionError(f"{tag}: twins on CUDA {twin_calls}")
+    if launches["riccati_backward.warps"] + launches["riccati_backward.thread"] \
+            != launches["riccati_backward"]:
+        raise AssertionError(f"{tag}: K1 variants {launches}")
+    return res, wall, launches
+
+
+# (a) and (c) hold two answers to one queue whose paths differ in the line
+# search (K2 against its twin) or in K1's precision: a start may end in
+# another local optimum of the bench OCP (as FDDP's does in phase 19, a gap
+# of about 1e-1).  So the share of starts whose costs agree within the
+# tolerance must be >= 0.99, and each start outside it must have both
+# answers float64 optima: a float64 "torch" solve from each converges and
+# lowers its cost by at most BW_POLISH_TOL of it.
+BW_POLISH_TOL = 1e-4
+
+
+def _polish(ocp64, us, cost, x0, ps):
+    """A float64 "torch" solve of ``ocp64`` from the controls ``us``:
+    (the cost it drops, relative to its own cost; converged)."""
+    from mpc_verde_tpu_torch import make_batched_ilqr_solver
+
+    f64 = torch.float64
+    pol = make_batched_ilqr_solver(ocp64, _opts(), backend="torch")(
+        x0.to(f64), ps.to(f64), us.to(f64))
+    return (cost.to(f64) - pol.cost) / pol.cost.abs(), pol.converged
+
+
+def _hold_optima(tag, res, ref, ocp64, x0, ps, tol):
+    """``res`` against ``ref`` on the queue (x0, ps) by the rule above:
+    converged agree >= 0.99; where both converged, costs within ``tol``
+    relative on >= 0.99 of the starts; both answers of every other start
+    float64 optima of ``ocp64``."""
+    agree = float((res.converged == ref.converged).float().mean())
+    both = res.converged & ref.converged
+    gap = ((res.cost.double() - ref.cost.double()).abs()
+           / ref.cost.double().abs())
+    share = float((gap[both] <= tol).float().mean())
+    off = torch.nonzero(both & (gap > tol)).flatten()
+    drops, polished = [], True
+    for r in (res, ref):
+        if len(off):
+            drop, conv = _polish(ocp64, r.us[off], r.cost[off], x0[off],
+                                 ps[off])
+            drops.append(float(drop.max()))
+            polished &= bool(conv.all()) and float(drop.max()) <= BW_POLISH_TOL
+    print(f"[{tag}] converged agree {agree:.4f}; where both converged "
+          f"({int(both.sum())}): median cost gap {float(gap[both].median()):.2e}, "
+          f"max {float(gap[both].max()):.2e}, within {tol:g} {share:.4f}; "
+          f"{len(off)} start(s) outside, "
+          + (f"costs {res.cost[off][:4].tolist()} against "
+             f"{ref.cost[off][:4].tolist()}, each answer polished in float64 "
+             f"(max drop {drops}, tolerance {BW_POLISH_TOL}): float64 optima "
+             f"{polished}" if len(off) else "none"), flush=True)
+    if agree < 0.99 or share < 0.99 or not polished:
+        raise AssertionError(f"{tag}: agree {agree}, share {share}, "
+                             f"polished {polished}")
+
+
+def _rel_cost_gap(res, ref):
+    """max relative cost gap where both converged, and that share."""
+    both = res.converged.cpu() & ref.converged.cpu()
+    gap = ((res.cost.double().cpu() - ref.cost.double().cpu()).abs()
+           / ref.cost.double().cpu().abs().clamp(min=1e-30))[both]
+    return (float(gap.max()) if both.any() else float("nan"),
+            float(both.float().mean()))
+
+
+def phase_bw(dev, gpu, ref_main, refs, M=BW_QUEUE, W=WIDTH, N=BENCH_N,
+             B=USER_B):
+    """Phase 22 (see the module docstring); returns the paths' launches and
+    K1's rows on the user OCPs' own derivatives."""
+    from mpc_verde_tpu_torch import (make_batched_ilqr_solver,
+                                     make_streaming_solver)
+    from mpc_verde_tpu_torch.interop import bench_ocp
+
+    t_phase = time.perf_counter()
+    by_path, k1_rows = {}, []
+    # (a) the bench OCP from its callables: phase 5's queue and options
+    ocp = dataclasses.replace(bench_ocp(N, dev, torch.float32),
+                              device_model=None)
+    solve = make_streaming_solver(ocp, _opts(), backend=None, batch_width=W,
+                                  restarts=2)
+    x0q, psq, us0q = (a[:M] for a in _queue(QUEUE, N))
+    solve(x0q[:W], psq[:W], us0q[:W], max_iters=60, restarts_n=2)
+    torch.cuda.synchronize()
+    res, wall, by_path["bw_bench"] = _bw_path(
+        "bw-bench", gpu, lambda: solve(x0q, psq, us0q, max_iters=60,
+                                       restarts_n=2), ocp)
+    _check_result(res, M, N)
+    conv = float(res.converged.float().mean())
+    print(f"[bw-bench] streaming W={W} M={M} N={N}: {M / wall:.1f} solves/s, "
+          f"converged_frac {conv:.4f}, mean_iterations "
+          f"{float(res.iterations.double().mean()):.3f}", flush=True)
+    if conv < 0.99:
+        raise AssertionError(f"bw-bench: converged_frac {conv} < 0.99")
+    t = lambda a: torch.as_tensor(a, device=dev)
+    _hold_optima("bw-bench vs phase 5", res, SimpleNamespace(
+        converged=ref_main.converged[:M], cost=ref_main.cost[:M],
+        us=ref_main.us[:M]), bench_ocp(N, dev, torch.float64), t(x0q),
+        t(psq), BW_COST_TOL)
+
+    # (b) the user OCPs at (2, 1), (6, 2), (6, 3), each against JAX float32's
+    # band and the port's float64 "torch" solve of its first USER_HOLD
+    for name in USER_OCPS:
+        uocp = user_ocp(name, dev)
+        solve = make_batched_ilqr_solver(uocp, _opts(), backend=None)
+        x0, ps, us0 = user_queue(name, B)
+        res, wall, by_path[f"bw_{name}"] = _bw_path(
+            f"bw-{name}", gpu, lambda: solve(x0, ps, us0), uocp)
+        if not all(bool(torch.isfinite(getattr(res, k)).all())
+                   for k in ("xs", "us", "cost")):
+            raise AssertionError(f"bw-{name}: non-finite results")
+        conv = float(res.converged.float().mean())
+        band = USER_JAX_BAND[name]
+        ref = refs.raw(f"bw-{name}", f"user_{name}")
+        gap, both = _rel_cost_gap(
+            SimpleNamespace(converged=res.converged[:USER_HOLD],
+                            cost=res.cost[:USER_HOLD]),
+            SimpleNamespace(converged=torch.as_tensor(ref["converged"]),
+                            cost=torch.as_tensor(ref["cost"])))
+        print(f"[bw-{name}] (nx, nu) = ({uocp.nx}, {uocp.nu}), B={B} N="
+              f"{USER_N}: {wall:.3f} s, converged_frac {conv:.4f} (JAX float32 "
+              f"on the CPU {band}, gate {band - 0.01:.4f}), mean_iterations "
+              f"{float(res.iterations.double().mean()):.3f}; against CPU "
+              f"float64 over {USER_HOLD}: both converged {both:.4f}, max "
+              f"rel cost gap {gap:.3e} (tol {BW_COST_TOL})", flush=True)
+        if not conv >= band - 0.01 or not gap <= BW_COST_TOL:
+            raise AssertionError(f"bw-{name}: converged_frac {conv}, gap {gap}")
+        # K1 at this path's shape, on the derivatives along its answers
+        k1_rows.append(_k1_on_case(
+            f"bw-{name}", uocp, user_ocp(name, dev, torch.float64),
+            (None, res.xs, res.us, None, None),
+            torch.as_tensor(ps, dtype=torch.float32, device=dev)))
+
+    # (c) the bench OCP in float64 on the card: K1 on float32 copies
+    ocp64 = bench_ocp(N, dev, torch.float64)
+    x0, ps, us0 = (torch.as_tensor(a[:B], dtype=torch.float64, device=dev)
+                   for a in _queue(QUEUE, N))
+    solve = make_batched_ilqr_solver(ocp64, _opts(), backend=None)
+    res, wall, by_path["bw_float64"] = _bw_path(
+        "bw-float64", gpu, lambda: solve(x0, ps, us0), ocp64)
+    ref = make_batched_ilqr_solver(ocp64, _opts(), backend="torch")(x0, ps,
+                                                                     us0)
+    conv = float(res.converged.float().mean())
+    print(f"[bw-float64] B={B} N={N}: {wall:.3f} s, converged_frac {conv:.4f} "
+          f"(\"torch\" float64 {float(ref.converged.float().mean()):.4f}), "
+          f"mean_iterations {float(res.iterations.double().mean()):.3f}, "
+          f"cost {res.cost.dtype}", flush=True)
+    if res.cost.dtype != torch.float64 or conv < 0.99:
+        raise AssertionError(f"bw-float64: {res.cost.dtype}, converged_frac "
+                             f"{conv}")
+    _hold_optima("bw-float64 vs \"torch\"", res, ref, ocp64, x0, ps,
+                 BW_F64_COST_TOL)
+    print(f"[bw] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, k1_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)
         return 1
     from mpc_verde_tpu_torch.ops.cuda.build import build, load_library
+    from mpc_verde_tpu_torch.ops.cuda.riccati import HELD_SIZES
     from mpc_verde_tpu_torch.utils import gpu_info
 
     t_start = time.perf_counter()
@@ -3023,13 +3399,15 @@ def main() -> int:
           f"{gpu} | torch {torch.__version__} CUDA "
           f"{info['torch_cuda']} | {info['nvcc']}", flush=True)
 
-    # phase 20 launches no kernel: it runs while the kernels build
+    # phase 20 launches no kernel: it runs while the kernels build, the
+    # kernels library and K1 at every size phase 3 holds, every nvcc process
+    # started together
     t0 = time.perf_counter()
     outcome = {}
 
     def run_build():
         try:
-            outcome["built"] = build()
+            outcome["built"] = build(HELD_SIZES)
         except BaseException as exc:   # raised below, in the main thread
             outcome["error"] = exc
 
@@ -3041,15 +3419,17 @@ def main() -> int:
         build_thread.join()
     if "error" in outcome:
         raise outcome["error"]
-    built = outcome["built"]
     load_library()
-    per_source = " ".join(line[3:] for line in built.log.splitlines()
-                          if line.startswith("== "))
-    print(f"[build] {built.path.name}: nvcc {built.seconds:.1f} s "
-          f"({per_source}), load {time.perf_counter() - t0:.1f} s total",
-          flush=True)
-    for line in _ptxas_summary(built.log):
-        print(f"[build] ptxas {line}", flush=True)
+    for name, built in outcome["built"].items():
+        per_source = " ".join(line[3:] for line in built.log.splitlines()
+                              if line.startswith("== ") and "(" in line)
+        print(f"[build] {name} {built.path.name}: nvcc and link "
+              f"{built.seconds:.1f} s ({per_source})", flush=True)
+    print(f"[build] every library built and the kernels library loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for built in outcome["built"].values():
+        for line in _ptxas_summary(built.log):
+            print(f"[build] ptxas {line}", flush=True)
 
     refs = CpuReferences(CIRC_HOLD_STEPS, LC_HOLD, LC_START)
     try:
@@ -3071,7 +3451,7 @@ def main() -> int:
 
 def _phases(dev, gpu, refs, compat):
     """Phases 3-19, the hold of phase 20 (``compat``: what
-    ``phase_compat`` returned) and phase 21; returns the kernels' JSON
+    ``phase_compat`` returned), phases 21 and 22; returns the kernels' JSON
     entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
@@ -3105,6 +3485,9 @@ def _phases(dev, gpu, refs, compat):
           f"{time.perf_counter() - t0:.1f} s; nlpsol {nlpsol_ms:.1f} ms a "
           "call", flush=True)
     by_path.update(phase_host(dev, gpu, refs, meas))
+    paths, meas["riccati_backward"]["bw_cases"] = phase_bw(dev, gpu, res_main,
+                                                           refs)
+    by_path.update(paths)
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

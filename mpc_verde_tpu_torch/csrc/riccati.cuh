@@ -1,7 +1,7 @@
 // Batched box-constrained Riccati backward pass (K1), CUDA C++ for sm_90a:
-// the kernel template.  Each riccati_<nx>x<nu>.cu instantiates one shape in
-// its own translation unit, so the shapes compile in parallel; riccati.cu
-// holds the C entry point.
+// the kernel template.  ops/cuda/build.py generates the translation units of
+// one (nx, nu) when that size is first used (riccati_entry.cuh) and compiles
+// them into a library of that size alone.
 //
 // Replaces the Pallas TPU kernel riccati_backward_pallas
 // (mpc_verde_tpu/ops/pallas/riccati.py, body _backward_stage / _make_kernel).
@@ -29,7 +29,7 @@
 //
 // Variants, chosen by the caller from the shape (riccati_launch_plan in
 // ops/cuda/riccati.py, which also computes the shared-memory layout):
-//   "warps" (riccati_warps.cuh, instantiated in riccati_warps_<nx>x<nu>.cu):
+//   "warps" (riccati_warps.cuh, in its own generated unit a size):
 //   a block stages its problems' derivative slabs in shared memory with
 //   coalesced 16-byte copies and gives each problem one lane in each of its
 //   warps; a warp per share of the active-set patterns solves the candidates
@@ -611,29 +611,3 @@ cudaError_t riccati_launch(const RiccatiArgs& a, bool ddp, cudaStream_t stream) 
 }
 
 }  // namespace
-
-// One launcher per variant and instantiated (nx, nu), each in its own
-// riccati_<nx>x<nu>.cu or riccati_warps_<nx>x<nu>.cu.  For "warps", `layout`
-// is the host array of WarpsLayout's ints from `in` on (riccati_warps.cuh)
-// and `clocks` null or the device array the timing instantiation fills.
-cudaError_t mv_riccati_launch_3x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_3x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_4x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_5x1(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_5x2(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_4x3(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_launch_5x4(const RiccatiArgs& a, bool ddp, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_3x1(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_3x2(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_4x1(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_5x1(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_5x2(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_4x3(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);
-cudaError_t mv_riccati_warps_launch_5x4(const RiccatiArgs& a, bool ddp, int problems,
-                                        const int* layout, long long* clocks, cudaStream_t s);

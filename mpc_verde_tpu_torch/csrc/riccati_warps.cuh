@@ -1,6 +1,7 @@
 // Riccati backward pass (K1), variant "warps": the derivative slabs staged in
 // shared memory, and a problem's stage dealt over the warps of its block.
-// Each riccati_warps_<nx>x<nu>.cu instantiates one shape.
+// The generated unit riccati_warps_<nx>x<nu>.cu instantiates one shape
+// (riccati_entry.cuh).
 //
 // A block takes `pb` consecutive problems (at most 32).  In the (B, N, ...)
 // layout a problem's slice of each of the twelve input arrays is one

@@ -1,16 +1,26 @@
 """Build and load the hand-written CUDA kernels (``mpc_verde_tpu_torch/csrc``).
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
-``sm_90a`` (all in parallel), and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``.  Tensors
-pass as ``data_ptr()`` integers and the launch goes on PyTorch's current
-stream.  Nothing here includes PyTorch's headers, whose build takes
+Two kinds of library, each a plain C interface loaded with ``ctypes``:
+
+* the kernels library: every ``csrc/*.cu`` file (K2 and K3 on their device
+  models), one ``nvcc`` process a file, linked into one library;
+* K1 (the Riccati backward pass), one library per (nx, nu): two generated
+  translation units, one per variant (``riccati_units``), compiled by two
+  ``nvcc`` processes and linked.  A size is built the first time it is
+  used, so a process pays for the sizes it runs and no other.
+
+Tensors pass as ``data_ptr()`` integers and the launch goes on PyTorch's
+current stream.  Nothing here includes PyTorch's headers, whose build takes
 minutes; the build time is that of the kernels themselves.
 
-The library is built on first use into ``mpc_verde_tpu_torch/_build/``
-(ignored by git), under a name that carries a hash of the sources and flags:
-a changed source builds a new library.  ``python -m
-mpc_verde_tpu_torch.ops.cuda.build`` builds it and prints, per source, the
+A library is built into ``mpc_verde_tpu_torch/_build/`` (ignored by git)
+under a name that carries a hash of its units' text, of every header they
+include and of the flags: a changed source builds a new library.  The file
+appears by an atomic rename, so concurrent builds never see half of one.
+``build(riccati_sizes)`` starts the ``nvcc`` processes of every library it
+is given together.  A failed ``nvcc`` raises with its log; nothing falls
+back.  ``python -m mpc_verde_tpu_torch.ops.cuda.build [nx,nu ...]`` builds
+the kernels library and K1 at the given sizes and prints, per unit, the
 seconds ``nvcc`` took and ``ptxas``'s register and spill report.
 """
 from __future__ import annotations
@@ -19,8 +29,10 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -39,15 +51,17 @@ _F = ctypes.c_float
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 
-# C signatures of the kernels' entry points (argtypes, restype int).
+# C signatures of the entry points (argtypes, restype int): the kernels
+# library's, and K1's, whose library of size (nx, nu) names it
+# mv_riccati_backward_<nx>x<nu>.
 _SIGNATURES = {
-    "mv_riccati_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 21
-                           + [_I, _I, _IP, _P] + [_P],
     "mv_linesearch_forward": [_I, _I, _I, _I] + [_P] * 6 + [_FP, _IP, _P, _FP, _I]
                              + [_P] * 4 + [_I, _I, _IP] + [_P],
     "mv_fused_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP, _P]
                          + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
 }
+_RICCATI_SIGNATURE = ([_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_I, _I, _IP, _P]
+                      + [_P])
 
 # Dynamic shared memory one block can use on sm_90 (227 KB of the SM's 256):
 # kSmemMaxBytes in csrc/launch.cuh.
@@ -73,8 +87,10 @@ class LaunchPlan(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
     path: Path
-    seconds: float   # wall time of the nvcc run (0.0 when already built)
-    log: str         # nvcc/ptxas output ("" when already built)
+    # from its first nvcc start to its link's end (0.0 when already built);
+    # the units ran beside every other unit of the same build() call
+    seconds: float
+    log: str   # nvcc/ptxas output, "== unit (its own s)" a part ("" when already built)
 
 
 def _nvcc() -> str:
@@ -90,80 +106,195 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+# K1's units at one size: the "thread" variant with the C entry point, and
+# the "warps" variant (csrc/riccati_entry.cuh).
+_RICCATI_UNIT = """// K1 at (nx, nu) = ({nx}, {nu}): variant "thread" and the C entry point.
+// Generated by mpc_verde_tpu_torch/ops/cuda/build.py (riccati_units).
+#include "riccati_entry.cuh"
+
+MV_RICCATI_ENTRY({nx}, {nu})
+"""
+_RICCATI_WARPS_UNIT = """// K1 at (nx, nu) = ({nx}, {nu}): variant "warps".
+// Generated by mpc_verde_tpu_torch/ops/cuda/build.py (riccati_units).
+#include "riccati_warps.cuh"
+
+cudaError_t mv_riccati_warps_launch_{nx}x{nu}(const RiccatiArgs& a, bool ddp, int problems,
+                                        const int* layout, long long* clocks, cudaStream_t s) {{
+  return riccati_warps_launch<{nx}, {nu}>(a, ddp, problems, layout, clocks, s);
+}}
+"""
+
+
+def check_riccati_size(nx: int, nu: int) -> None:
+    """Raise unless K1 takes (nx, nu): nx >= 1 and 1 <= nu <= 4.  nu > 4
+    raises ``NotImplementedError``, as the JAX kernel does: the stage box QP
+    enumerates 3^nu active-set patterns."""
+    if nu > 4:
+        raise NotImplementedError(
+            f"the Riccati kernel supports nu <= 4 (3^nu active-set "
+            f'enumeration), not nu = {nu}; use backend="torch" for wider '
+            "control vectors")
+    if nx < 1 or nu < 1:
+        raise ValueError(f"the Riccati kernel needs nx >= 1 and nu >= 1, not "
+                         f"({nx}, {nu})")
+
+
+def riccati_units(nx: int, nu: int) -> dict:
+    """The generated translation units of K1 at (nx, nu): {file name: text}."""
+    check_riccati_size(nx, nu)
+    return {f"riccati_{nx}x{nu}.cu": _RICCATI_UNIT.format(nx=nx, nu=nu),
+            f"riccati_warps_{nx}x{nu}.cu": _RICCATI_WARPS_UNIT.format(nx=nx,
+                                                                      nu=nu)}
+
+
+def _kernels_units() -> dict:
+    return {f.name: f.read_text() for f in sorted(CSRC.glob("*.cu"))}
+
+
+def _headers(units: dict) -> list:
+    """The csrc headers that ``units`` include, directly or through another
+    header, sorted by name."""
+    seen, todo = set(), list(units.values())
+    while todo:
+        for name in _INCLUDE.findall(todo.pop()):
+            if name not in seen and (CSRC / name).is_file():
+                seen.add(name)
+                todo.append((CSRC / name).read_text())
+    return sorted(seen)
+
+
+def _library(stem: str, units: dict) -> Path:
+    """The library of ``units`` under a name that hashes the flags, the
+    units' names and text and every header they include."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, text in sorted(units.items()):
+        h.update(name.encode())
+        h.update(text.encode())
+    for name in _headers(units):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
 def library_path() -> Path:
-    """Path of the library for the current sources and flags."""
-    cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in cu + cuh:
-        h.update(f.name.encode())
-        h.update(f.read_bytes())
-    return BUILD_DIR / f"libmv_kernels_{h.hexdigest()[:16]}.so"
+    """Path of the kernels library (K2, K3) for the current sources and flags."""
+    return _library("mv_kernels", _kernels_units())
 
 
-def build() -> BuildResult:
-    """Compile the kernels unless the library for these sources exists."""
-    out = library_path()
-    if out.is_file():
-        return BuildResult(out, 0.0, "")
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    objdir = BUILD_DIR / f"{tmp.name}.obj"
-    objdir.mkdir(parents=True, exist_ok=True)
+def riccati_library_path(nx: int, nu: int) -> Path:
+    """Path of K1's library at (nx, nu) for the current sources and flags."""
+    return _library(f"mv_riccati_{nx}x{nu}", riccati_units(nx, nu))
+
+
+def _compile(libraries: dict) -> dict:
+    """Build every library of ``libraries`` ({path: units}) that does not
+    exist: each unit by its own nvcc process, all started together; then
+    each library's link.  Returns {path: BuildResult}; raises with the logs
+    if a unit or a link fails (the libraries that compiled are kept).  Each
+    unit's log carries its own seconds, start to finish; a library's
+    ``seconds`` run from its first unit's start to its link's end."""
     nvcc = _nvcc()
-    cu, _ = _sources()
-    t0 = time.perf_counter()
-    procs = {}
-    for src in cu:   # one nvcc per source, all started together
-        out_file = open(objdir / f"{src.stem}.log", "w")
-        procs[src] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(objdir / f"{src.stem}.o")],
-            stdout=out_file, stderr=subprocess.STDOUT), out_file)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs, objdirs = {}, {}
+    for out, units in libraries.items():
+        # a directory of its own per call, so that two builds of one size,
+        # in two processes or two threads, never share objects
+        objdir = Path(tempfile.mkdtemp(prefix=f"{out.stem}.", dir=BUILD_DIR))
+        objdirs[out] = objdir
+        for name, text in units.items():
+            src = objdir / name
+            src.write_text(text)
+            log = open(objdir / f"{name}.log", "w")
+            jobs[(out, name)] = (time.perf_counter(), subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o",
+                 str(src.with_suffix(".o"))],
+                stdout=log, stderr=subprocess.STDOUT), log)
     done = {}
-    while len(done) < len(procs):
-        for src, (proc, out_file) in procs.items():
-            if src not in done and proc.poll() is not None:
-                done[src] = time.perf_counter() - t0
-                out_file.close()
+    while len(done) < len(jobs):
+        for key, (_, proc, log) in jobs.items():
+            if key not in done and proc.poll() is not None:
+                done[key] = time.perf_counter()
+                log.close()
         time.sleep(0.05)
-    logs, failed = [], []
-    for src, (proc, _) in procs.items():
-        text = (objdir / f"{src.stem}.log").read_text()
-        logs.append(f"== {src.name} ({done[src]:.1f} s)\n{text}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    if not failed:
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *(str(objdir / f"{s.stem}.o") for s in cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        logs.append(f"== link\n{link.stdout}")
-        if link.returncode != 0:
-            failed.append("link")
-    shutil.rmtree(objdir, ignore_errors=True)
-    log = "".join(logs)
+    results, failed, logs = {}, [], []
+    for out, units in libraries.items():
+        objdir, parts, ok = objdirs[out], [], True
+        for name in units:
+            start, proc, _ = jobs[(out, name)]
+            parts.append(f"== {name} ({done[(out, name)] - start:.1f} s)\n"
+                         f"{(objdir / f'{name}.log').read_text()}")
+            if proc.returncode != 0:
+                ok = False
+                failed.append(name)
+        if ok:
+            tmp = objdir / out.name
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", str(tmp),
+                 *(str((objdir / n).with_suffix(".o")) for n in units)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            parts.append(f"== link {out.name}\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append(f"link {out.name}")
+            else:
+                os.replace(tmp, out)   # atomic: no one sees half a file
+                first = min(jobs[(out, name)][0] for name in units)
+                results[out] = BuildResult(out, time.perf_counter() - first,
+                                           "".join(parts))
+        shutil.rmtree(objdir, ignore_errors=True)
+        logs += parts
     if failed:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return BuildResult(out, time.perf_counter() - t0, log)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{''.join(logs)}")
+    return results
+
+
+def build(riccati_sizes=()) -> dict:
+    """Build the kernels library and K1's library at each (nx, nu) of
+    ``riccati_sizes``, every nvcc process of every library not yet built
+    started together.  Returns {"kernels" or "riccati_<nx>x<nu>":
+    BuildResult}; a library that exists comes back with 0.0 seconds and an
+    empty log."""
+    wanted = {"kernels": (library_path(), _kernels_units())}
+    for nx, nu in riccati_sizes:
+        wanted[f"riccati_{nx}x{nu}"] = (riccati_library_path(nx, nu),
+                                        riccati_units(nx, nu))
+    built = _compile({path: units for path, units in wanted.values()
+                      if not path.is_file()})
+    return {key: built.get(path, BuildResult(path, 0.0, ""))
+            for key, (path, _) in wanted.items()}
 
 
 _LIB = None
+_RICCATI = {}
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare the signatures."""
+    """Build the kernels library if needed, load it once per process, and
+    declare the signatures."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
+        lib = ctypes.CDLL(str(build()["kernels"].path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = _I
         _LIB = lib
     return _LIB
+
+
+def riccati_entry(nx: int, nu: int):
+    """K1's C entry point at (nx, nu), its library built at first use and
+    loaded once per process."""
+    if (nx, nu) not in _RICCATI:
+        path = riccati_library_path(nx, nu)
+        if not path.is_file():
+            _compile({path: riccati_units(nx, nu)})
+        fn = getattr(ctypes.CDLL(str(path)), f"mv_riccati_backward_{nx}x{nu}")
+        fn.argtypes = _RICCATI_SIGNATURE
+        fn.restype = _I
+        _RICCATI[(nx, nu)] = fn
+    return _RICCATI[(nx, nu)]
 
 
 def check_args(name: str, device: torch.device, named) -> None:
@@ -189,6 +320,9 @@ def check_launch(rc: int, name: str) -> None:
 
 
 if __name__ == "__main__":
-    res = build()
-    print(f"{res.path} built in {res.seconds:.1f} s")
-    print(res.log)
+    import sys
+
+    sizes = [tuple(int(v) for v in arg.split(",")) for arg in sys.argv[1:]]
+    for key, res in build(sizes).items():
+        print(f"{key}: {res.path} built in {res.seconds:.1f} s")
+        print(res.log)

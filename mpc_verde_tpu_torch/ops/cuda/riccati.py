@@ -1,11 +1,16 @@
 """Batched box-constrained Riccati backward pass: CUDA kernel K1 and its PyTorch twin.
 
 ``riccati_backward`` replaces the Pallas TPU kernel ``riccati_backward_pallas``
-(``mpc_verde_tpu/ops/pallas/riccati.py``).  The 3^nu stage box-QP patterns
-are unrolled at compile time for (nx, nu) in {(3, 1), (3, 2), (4, 1), (4, 3),
-(5, 1), (5, 2), (5, 4)}: the unicycle (3, 2), the rate-form linear families
-(4, 1) and (5, 1), the Frenet family's rate form (5, 2), and the JAX
-kernel's test sizes.
+(``mpc_verde_tpu/ops/pallas/riccati.py``).  Like it, it takes any nx >= 1
+and 1 <= nu <= 4; nu > 4 raises ``NotImplementedError``.  The 3^nu stage
+box-QP patterns are unrolled at compile time per (nx, nu), so each size is
+a library of its own, built the first time that size is launched
+(``build.riccati_entry``).  ``HELD_SIZES`` are the sizes the tests and
+``chip_smoke.py`` hold against the twin on the card: the unicycle (3, 2),
+the rate-form linear families (4, 1) and (5, 1), the Frenet family's rate
+form (5, 2), the JAX kernel's test sizes, and three user models' sizes, the
+double integrator (2, 1), the planar quadrotor (6, 2) and the 3-D point mass
+(6, 3).
 What bounds the function on the H100 is neither bytes nor operations but the
 recursion's chain: N stage QPs that each wait for the next stage's
 (Vx, Vxx), with too few problems to hide one chain behind another.
@@ -40,9 +45,10 @@ import torch
 
 from ...solver.ilqr import _stage_boxqp_with_gain
 from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
-                    load_library)
+                    check_riccati_size, riccati_entry)
 
-SUPPORTED = {(3, 1), (3, 2), (4, 1), (4, 3), (5, 1), (5, 2), (5, 4)}
+HELD_SIZES = ((3, 1), (3, 2), (4, 1), (4, 3), (5, 1), (5, 2), (5, 4),
+              (2, 1), (6, 2), (6, 3))
 RICCATI_VARIANTS = ("thread", "warps")  # the C entry's ids
 
 _STAGE_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
@@ -109,9 +115,7 @@ def riccati_launch_plan(N: int, nx: int, nu: int, use_ddp: bool,
     strides of the kff and K staging areas, the offsets of the two exchange
     areas, and the total.
     """
-    if (nx, nu) not in SUPPORTED:
-        raise ValueError(f"riccati_backward kernel is built for (nx, nu) in "
-                         f"{sorted(SUPPORTED)}, not ({nx}, {nu})")
+    check_riccati_size(nx, nu)
     if variant is not None and variant not in RICCATI_VARIANTS:
         raise ValueError(f"unknown Riccati variant {variant!r}")
     cand_warps = 3 if nu == 1 else 9       # kCandWarps of riccati_warps.cuh
@@ -217,17 +221,13 @@ riccati_backward_torch.cuda_calls = 0
 
 def _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu, use_ddp, tol,
             variant, timed=False):
-    """Check the arguments, plan and launch ``mv_riccati_backward``; returns
+    """Check the arguments, plan and launch K1's C entry at (nx, nu); returns
     the outputs and the plan.  With ``timed`` the launch is of the ``"warps"``
     kernel's timing instantiation and the block cycles are appended to the
     outputs."""
     fx = derivs["fx"]
     if not fx.is_cuda:
         raise ValueError(f"riccati_backward: unsupported device {fx.device}")
-    if (nx, nu) not in SUPPORTED:
-        raise NotImplementedError(
-            f"riccati_backward kernel is built for (nx, nu) in "
-            f"{sorted(SUPPORTED)}, not ({nx}, {nu})")
     B, N = fx.shape[:2]
     if ddp_scale is None:
         ddp_scale = torch.ones((B,), dtype=torch.float32, device=fx.device)
@@ -245,7 +245,7 @@ def _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu, use_ddp, tol,
     check_args("riccati_backward", fx.device, named)
     plan = riccati_launch_plan(N, nx, nu, use_ddp, B, variant)
 
-    lib = load_library()
+    entry = riccati_entry(nx, nu)
     opts = dict(dtype=torch.float32, device=fx.device)
     kff = torch.empty((B, N, nu), **opts)
     K = torch.empty((B, N, nu, nx), **opts)
@@ -259,7 +259,7 @@ def _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu, use_ddp, tol,
     ptr = lambda name: derivs[name].data_ptr() if name in keys else None
     with torch.cuda.device(fx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mv_riccati_backward(
+        rc = entry(
             nx, nu, int(use_ddp), B, N, float(tol),
             *(ptr(k) for k in _STAGE_KEYS + _DDP_KEYS),
             dlb.data_ptr(), dub.data_ptr(), gN.data_ptr(), HN.data_ptr(),
@@ -268,7 +268,7 @@ def _launch(derivs, dlb, dub, gN, HN, reg, ddp_scale, nx, nu, use_ddp, tol,
             gmax.data_ptr(), RICCATI_VARIANTS.index(plan.variant),
             plan.problems, plan.c_layout(),
             None if clocks is None else clocks.data_ptr(), stream)
-    check_launch(rc, "mv_riccati_backward")
+    check_launch(rc, f"mv_riccati_backward_{nx}x{nu}")
     return out, plan
 
 
@@ -283,8 +283,10 @@ def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
     ``riccati_launch_plan``'s choice for the shape; ``variant`` forces
     another for a comparison on the card (the solvers never pass it).
     ``launches`` counts every launch and ``launches_by_variant`` the
-    launches of each variant.
+    launches of each variant.  Any nx >= 1 and 1 <= nu <= 4, on either
+    device: nu > 4 raises ``NotImplementedError``, as the JAX kernel does.
     """
+    check_riccati_size(nx, nu)
     if derivs["fx"].device.type == "cpu":
         return riccati_backward_torch(derivs, dlb, dub, gN, HN, reg,
                                       ddp_scale, nx=nx, nu=nu,
@@ -298,6 +300,25 @@ def riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
 
 riccati_backward.launches = 0
 riccati_backward.launches_by_variant = dict.fromkeys(RICCATI_VARIANTS, 0)
+
+
+def riccati_backward_cast(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,
+                          nx: int, nu: int, use_ddp: bool = True,
+                          tol: float = 1e-8):
+    """``riccati_backward`` on inputs of any float dtype, as
+    ``riccati_backward_pallas`` takes them: CUDA tensors of another dtype
+    than float32 go to the kernel as float32 copies, and kff, K, dV1, dV2
+    and gmax come back in the inputs' dtype.  CPU tensors run the twin in
+    their own dtype, as ``riccati_backward`` does."""
+    dt = derivs["fx"].dtype
+    kw = dict(nx=nx, nu=nu, use_ddp=use_ddp, tol=tol)
+    if derivs["fx"].device.type == "cpu" or dt == torch.float32:
+        return riccati_backward(derivs, dlb, dub, gN, HN, reg, ddp_scale, **kw)
+    f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+    out = riccati_backward({k: f32(v) for k, v in derivs.items()}, f32(dlb),
+                           f32(dub), f32(gN), f32(HN), f32(reg),
+                           f32(ddp_scale), **kw)
+    return tuple(o.to(dt) for o in out)
 
 
 def riccati_stage_clocks(derivs, dlb, dub, gN, HN, reg, ddp_scale=None, *,

@@ -3,8 +3,9 @@
 The tracking scripts read ``lane_change.csv`` / ``traj*.csv`` / ``out*.csv``
 (columns x, y, uref; ``Trajectory_tracking_le_LTI.py:12-15``,
 ``leitura.py:14-20``).  The originals live in the reference checkout, named
-by the ``MPC_VERDE_REFERENCE_DIR`` environment variable; without it the
-scenarios fall back to the synthetic courses (``trajectories.py``).  The
+by the ``MPC_VERDE_REFERENCE_DIR`` environment variable or found at the
+reference checkout's own path; without either the scenarios fall back to
+the synthetic courses (``trajectories.py``).  The
 JAX loader reads with pandas; this one reads with the ``csv`` module and
 keeps its column rules.
 """
@@ -17,11 +18,19 @@ from pathlib import Path
 import numpy as np
 
 
+# Where the reference checkout keeps its tracking data when
+# MPC_VERDE_REFERENCE_DIR is unset (the JAX loader's own fallback).
+_FALLBACK_DIR = "/root/reference/Trajectory Tracking"
+
+
 def reference_data_dir() -> Path | None:
-    """The reference data directory (``MPC_VERDE_REFERENCE_DIR``), or None
-    when it is unset or not a directory."""
-    d = os.environ.get("MPC_VERDE_REFERENCE_DIR", "")
-    return Path(d) if d and Path(d).is_dir() else None
+    """The reference data directory: ``MPC_VERDE_REFERENCE_DIR``, else
+    ``_FALLBACK_DIR``, the first of them that is a directory; None when
+    neither is."""
+    for d in (os.environ.get("MPC_VERDE_REFERENCE_DIR", ""), _FALLBACK_DIR):
+        if d and Path(d).is_dir():
+            return Path(d)
+    return None
 
 
 def load_path_csv(name_or_path: str):

@@ -10,6 +10,15 @@ Backends:
   * ``"torch"`` — the plain PyTorch versions everywhere, on any device and
     dtype: the counterpart of the JAX ``"xla"`` backend and the reference
     the kernels are held against.
+  * ``"cuda_bw"`` — the counterpart of the JAX ``"pallas_bw"`` backend:
+    stage derivatives by ``torch.func`` (``ops/linearize.py``), the Riccati
+    backward kernel K1 (``ops/cuda/riccati.py``), and the plain PyTorch
+    line search and rollout on the OCP's own callables
+    (``linesearch_forward_torch``: every candidate materialised, then the
+    first minimum, as the JAX ``"materialize"`` line search).  It needs no
+    ``device_model`` and takes any nx and nu <= 4 in any float dtype: a
+    float64 OCP runs K1 on float32 copies and casts its results back, as
+    ``riccati_backward_pallas`` does; the rest stays in the OCP's dtype.
   * ``"cuda"``  — the hand-written kernels: Riccati backward
     (``ops/cuda/riccati.py``) and fused line search / pre-roll
     (``ops/cuda/rollout.py``).  Needs a float32 OCP on a CUDA device with a
@@ -30,13 +39,17 @@ Backends:
     solvers), and ``use_ddp`` is forced off.  On a CUDA device it needs a
     float32 OCP with a ``device_model``, as the line search does.
 
-On CPU tensors every kernel wrapper runs its twin, so ``"cuda"``,
-``"cuda_fused"`` and ``"scan"`` on the CPU give the ``"torch"`` results
-(``"scan"`` up to the round-off of its other backward pass).
+On CPU tensors every kernel wrapper runs its twin, so ``"cuda_bw"``,
+``"cuda"``, ``"cuda_fused"`` and ``"scan"`` on the CPU give the ``"torch"``
+results (``"scan"`` up to the round-off of its other backward pass).
 
 ``backend=None``, the default of the solver factories that reach a kernel
-in the JAX package (there ``"pallas_bw"``), resolves by ``resolve_backend``:
-``"cuda_fused"`` for an OCP on a CUDA device, ``"torch"`` elsewhere.
+in the JAX package (there ``"pallas_bw"``), resolves by ``resolve_backend``
+on the OCP that the solver's parts run (for state bounds the AL-derived OCP,
+in the barrier solver the barrier-derived one): ``"torch"`` on the CPU;
+on a CUDA device ``"cuda_fused"`` for a float32 OCP with a
+``device_model``, else ``"cuda_bw"`` for nu <= 4; nu > 4 on a CUDA device
+raises, as JAX's default does.
 
 State box bounds (``ocp.x_lb`` / ``x_ub``) run the augmented-Lagrangian
 outer loop (``options.al_iters`` PHR rounds): the multipliers ride the
@@ -54,14 +67,15 @@ from torch.func import vmap
 
 from ..ocp.spec import OCP
 from ..ops.cuda.fused import fused_backward
-from ..ops.cuda.riccati import (SUPPORTED, riccati_backward,
+from ..ops.cuda.build import check_riccati_size
+from ..ops.cuda.riccati import (riccati_backward, riccati_backward_cast,
                                 riccati_backward_torch)
 from ..ops.cuda.rollout import linesearch_forward, linesearch_forward_torch
 from ..ops.linearize import trajectory_derivatives
 from ..ops.parallel_riccati import lq_backward_parallel
 from .ilqr import ILQROptions, ILQRResult
 
-BACKENDS = ("torch", "cuda", "cuda_fused", "scan")
+BACKENDS = ("torch", "cuda_bw", "cuda", "cuda_fused", "scan")
 
 
 @dataclasses.dataclass
@@ -78,40 +92,45 @@ class _Parts:
 
 
 def resolve_backend(ocp: OCP, backend: Optional[str]) -> str:
-    """The backend a solver factory runs: ``backend`` itself when given;
-    for None, ``"cuda_fused"`` when the OCP lives on a CUDA device and
-    ``"torch"`` elsewhere.  A CUDA OCP without a ``device_model`` raises:
-    the kernels cannot run it, and the plain twins run only when asked for
-    with ``backend="torch"``."""
+    """The backend a solver factory runs on ``ocp``, the OCP its parts run:
+    ``backend`` itself when given; for None, ``"torch"`` unless the OCP
+    lives on a CUDA device, and there ``"cuda_fused"`` for a float32 OCP
+    with a ``device_model``, else ``"cuda_bw"`` (K1 on the OCP's own
+    callables, any nx, any float dtype).  A CUDA OCP with nu > 4 raises, as
+    the JAX default ``"pallas_bw"`` does: the plain twins run it only when
+    asked for with ``backend="torch"``."""
     if backend is not None:
         return backend
     if ocp.device.type != "cuda":
         return "torch"
-    if ocp.device_model is None:
+    if ocp.nu > 4:
         raise NotImplementedError(
-            "this OCP lies on a CUDA device but has no device_model, which "
-            "the kernel backends need; pass backend=\"torch\" to run the "
-            "plain PyTorch versions on the card")
-    return "cuda_fused"
+            f"this OCP lies on a CUDA device and has nu = {ocp.nu}; the "
+            "Riccati kernel supports nu <= 4 (3^nu active-set enumeration). "
+            'Pass backend="torch" to run the plain PyTorch versions on the '
+            "card")
+    if ocp.dtype == torch.float32 and ocp.device_model is not None:
+        return "cuda_fused"
+    return "cuda_bw"
 
 
 def _check_ocp(ocp: OCP, backend: str):
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
-    # "torch" enumerates the 3^nu box-QP patterns for any nu; the kernels
-    # are built for the (nx, nu) of SUPPORTED, nu <= 4
+    # "torch" enumerates the 3^nu box-QP patterns for any nu; K1 takes any
+    # nx and nu <= 4
+    if backend in ("cuda_bw", "cuda", "cuda_fused"):
+        check_riccati_size(ocp.nx, ocp.nu)
     if backend in ("cuda", "cuda_fused"):
         if ocp.device_model is None:
             raise NotImplementedError(
                 f"backend={backend!r} needs ocp.device_model: the kernels "
-                "cannot evaluate Python callables")
+                "cannot evaluate Python callables (backend=\"cuda_bw\" runs "
+                "K1 on them)")
         if ocp.dtype != torch.float32:
             raise TypeError(f"backend={backend!r} runs float32 kernels; build "
                             f"the OCP in float32, not {ocp.dtype}, or pass "
-                            f'backend="torch"')
-        if (ocp.nx, ocp.nu) not in SUPPORTED:
-            raise NotImplementedError(
-                f"no Riccati kernel for (nx, nu) = ({ocp.nx}, {ocp.nu})")
+                            f'backend="cuda_bw" or "torch"')
     if backend == "scan":
         if ocp.control_bounds is not None:
             raise NotImplementedError(
@@ -142,6 +161,8 @@ def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
     alphas = tuple(float(opt.alpha_decay) ** i for i in range(opt.n_alphas))
     if backend == "torch":
         bw_fn, ls_fn = riccati_backward_torch, linesearch_forward_torch
+    elif backend == "cuda_bw":
+        bw_fn, ls_fn = riccati_backward_cast, linesearch_forward_torch
     elif backend == "scan":
         def bw_fn(d, dlb, dub, gN, HN, reg, ddp_scale, **_):
             return lq_backward_parallel(d["fx"], d["fu"], d["lx"], d["lu"],
@@ -353,9 +374,12 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                              backend: Optional[str] = None):
     """Build ``solve(x0s, params, us_init) -> ILQRResult`` over a batch.
 
-    ``backend``: one of ``BACKENDS``; None (the default) is ``"cuda_fused"``
-    for an OCP on a CUDA device and ``"torch"`` elsewhere
-    (``resolve_backend``).
+    ``backend``: one of ``BACKENDS``; None (the default) resolves by
+    ``resolve_backend`` on the OCP the solver runs, the AL-derived one under
+    state bounds: ``"torch"`` on the CPU; on a CUDA device ``"cuda_fused"``
+    for a float32 OCP with a ``device_model``, else ``"cuda_bw"``; nu > 4
+    raises there.  So a rate-form OCP with a state box, whose AL-derived
+    OCP has no device model, runs ``"cuda_bw"``.
 
     Args of ``solve`` have a leading batch axis: x0s (B, nx), params
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);
@@ -377,11 +401,11 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         raise ValueError(
             "batched solver with state bounds needs options.al_iters >= 1")
     ocp_in = ocp
-    backend = resolve_backend(ocp, backend)
-    opt = backend_options(opt, backend)
     if has_xb:
         cvals = _al_cvals(ocp)
         ocp = _augment_ocp_al(ocp)
+    backend = resolve_backend(ocp, backend)
+    opt = backend_options(opt, backend)
     parts = _make_parts(ocp, opt, backend)
     z = dict(dtype=ocp.dtype, device=ocp.device)
     dev = ocp.device

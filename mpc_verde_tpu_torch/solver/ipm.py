@@ -18,7 +18,9 @@ subproblem warm-started from the previous one.
 
 Every derived OCP carries the derived device model
 (``UnicycleDeviceModel.with_barrier`` / ``with_al``) or None, so the
-``"cuda"`` backends evaluate the barrier and AL terms in the kernels.
+``"cuda"`` backends evaluate the barrier and AL terms in the kernels.  A
+derived OCP without one (the rate-form models') runs ``"cuda_bw"`` under
+the default backend: K1 on the derived OCP's own callables.
 
 Limitations (by construction of the barrier): bounds must be constant boxes
 with lb < ub strictly; move blocking and state-dependent boxes belong to the
@@ -243,13 +245,19 @@ def make_streaming_barrier_solver(
     and start the continuation from its controls, pulled ``interior_margin``
     inside the box; the reported iterations include that phase's.
 
-    ``backend``: as in ``make_streaming_solver``; None (the default) is
-    ``"cuda_fused"`` for an OCP on a CUDA device and ``"torch"`` elsewhere.
+    ``backend``: as in ``make_streaming_solver``; None (the default)
+    resolves by ``resolve_backend`` on each OCP that a streaming solver
+    here runs: the barrier-derived OCP (and its AL-derived one under state
+    bounds), and for ``warmstart="ddp"`` the OCP itself.  On a CUDA device
+    that is ``"cuda_fused"`` where the derived OCP keeps a device model and
+    ``"cuda_bw"`` where it has none (the rate-form models); nu > 4 raises.
 
     Returns ``solve(x0s, params, us_init, max_iters=None, restarts_n=None)``
     with the streaming solver's calling convention.
     """
-    backend = resolve_backend(ocp, backend)
+    # raises (nu > 4 on a card) before anything is allocated on the OCP's
+    # device; a None backend resolves below, on the OCPs the solvers run
+    resolve_backend(ocp, backend)
     lb, ub = _constant_box(ocp)
     npar = max(ocp.npar, 1)
     N, nx, nu = ocp.N, ocp.nx, ocp.nu

@@ -57,8 +57,11 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     per-problem iteration budget and in-place restart budget for one call.
     Results come back in queue order.
 
-    ``backend``: as in ``make_batched_ilqr_solver``; None (the default) is
-    ``"cuda_fused"`` for an OCP on a CUDA device and ``"torch"`` elsewhere.
+    ``backend``: as in ``make_batched_ilqr_solver``; None (the default)
+    resolves by ``resolve_backend`` on the OCP the slots run, the AL-derived
+    one under state bounds: ``"torch"`` on the CPU; on a CUDA device
+    ``"cuda_fused"`` for a float32 OCP with a ``device_model``, else
+    ``"cuda_bw"``; nu > 4 raises there.
     ``batch_width`` is the number of resident slots.  ``restarts``: how many
     times a failed or budget-capped problem restarts in place; with rounds,
     each round has its own budget.  ``refill_every``: run the refill once
@@ -99,8 +102,6 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         raise ValueError("rounds= cannot be combined with state bounds "
                          "(state bounds install the AL continuation)")
     ocp_in = ocp
-    backend = resolve_backend(ocp, backend)
-    opt = backend_options(opt, backend)
     npar = max(ocp_in.npar, 1)
     if has_xb:
         # the PHR multipliers [lam (2 nx), mu] ride the slot params, and the
@@ -121,6 +122,10 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             raise ValueError("rounds[0] must be >= 1")
     else:
         n_rounds, advance = 1, None
+    # the rule reads the OCP that the parts run: the AL-derived one under
+    # state bounds
+    backend = resolve_backend(ocp, backend)
+    opt = backend_options(opt, backend)
     parts = _make_parts(ocp, opt, backend)
     z = dict(dtype=ocp.dtype, device=ocp.device)
     dev = ocp.device

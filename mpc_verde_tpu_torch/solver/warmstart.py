@@ -9,7 +9,8 @@ by construction; optimality is the solver's job.  For nonholonomic models
 linearized about a stationary target, pass a small forward velocity as
 ``uref``: at v = 0 the lateral direction is uncontrollable.
 
-On the card both steps are the kernels of the ``"cuda"`` backend.  The
+On the card both steps are the kernels of the ``"cuda"`` backend (under
+``"cuda_bw"``, K1 and the plain PyTorch rollout on the OCP's callables).  The
 recursion is K1 (``riccati_backward``) with infinite bounds, no DDP terms,
 no terminal value (gN = HN = 0) and reg = 1e-6: the box QP of every stage is
 then its all-free Newton step, and K1's value update is the JAX
@@ -28,7 +29,8 @@ import torch
 from torch.func import vmap
 
 from ..ocp.spec import OCP
-from ..ops.cuda.riccati import riccati_backward, riccati_backward_torch
+from ..ops.cuda.riccati import (riccati_backward, riccati_backward_cast,
+                                riccati_backward_torch)
 from ..ops.cuda.rollout import linesearch_forward, linesearch_forward_torch
 from ..ops.linearize import linearize_trajectory
 from .batched import _as_tensor, _broadcast_params, _check_ocp, resolve_backend
@@ -50,11 +52,13 @@ def make_lqr_warm_start(ocp: OCP,
         diff-drive layout); defaults to zeros.
       uref: (nu,) control linearization point; defaults to zeros.
       backend: the port's one addition to the JAX signature, with
-        ``resolve_backend``'s meaning: None is ``"cuda_fused"`` for an OCP on
-        a CUDA device (which must then carry a ``device_model`` and have the
-        (nx, nu) of K1's ``SUPPORTED``) and ``"torch"`` elsewhere.
-        ``"cuda"`` and ``"cuda_fused"`` both run K1 and K2; ``"torch"`` runs
-        their twins on any device.
+        ``resolve_backend``'s meaning: None is ``"torch"`` on the CPU and on
+        a CUDA device ``"cuda_fused"`` for a float32 OCP with a
+        ``device_model``, else ``"cuda_bw"`` (nu <= 4; more raises).
+        ``"cuda"`` and ``"cuda_fused"`` both run K1 and K2; ``"cuda_bw"``
+        runs K1 (on float32 copies for a float64 OCP) and the rollout's
+        twin on the OCP's callables; ``"torch"`` runs both twins on any
+        device.
 
     Returns ``warm(x0s (B, nx), params (B, N+1, npar)) -> us_init
     (B, N, nu)``.
@@ -63,11 +67,13 @@ def make_lqr_warm_start(ocp: OCP,
     backend = resolve_backend(ocp, backend)
     if backend == "scan":
         raise NotImplementedError(
-            "the warm start runs K1 and K2 (\"cuda\" / \"cuda_fused\") or "
-            "their twins (\"torch\")")
+            "the warm start runs K1 and K2 (\"cuda\" / \"cuda_fused\"), K1 "
+            "and the rollout's twin (\"cuda_bw\") or both twins (\"torch\")")
     _check_ocp(ocp, backend)
     if backend == "torch":
         bw_fn, ls_fn = riccati_backward_torch, linesearch_forward_torch
+    elif backend == "cuda_bw":
+        bw_fn, ls_fn = riccati_backward_cast, linesearch_forward_torch
     else:
         bw_fn, ls_fn = riccati_backward, linesearch_forward
     npar = max(ocp.npar, 1)

@@ -209,7 +209,7 @@ def main(argv=None) -> int:
                     except ValueError:
                         continue
                     emit(variant=variant, **k1(args, 3, 2, reps=5, variant=variant))
-        for nx, nu in sorted(riccati.SUPPORTED - {(3, 2)}):
+        for nx, nu in sorted(set(riccati.HELD_SIZES) - {(3, 2)}):
             args = _k1_random_args(dev, 1024, 40, nx, nu)
             for variant in riccati.RICCATI_VARIANTS:
                 emit(variant=variant, **k1(args, nx, nu, reps=20, variant=variant))

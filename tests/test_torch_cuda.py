@@ -18,8 +18,8 @@ import pytest
 import torch
 
 import mpc_verde_tpu_torch as mt
-from chip_smoke import (_k2_inputs, _k2_kernel_rule, _random_riccati,
-                        _rel_err, _term_cases, _term_inputs)
+from chip_smoke import (_hold_optima, _k2_inputs, _k2_kernel_rule,
+                        _random_riccati, _rel_err, _term_cases, _term_inputs)
 from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
 from mpc_verde_tpu_torch.models import unicycle
 from mpc_verde_tpu_torch.ops import euler_step, rk4_step
@@ -28,7 +28,8 @@ from mpc_verde_tpu_torch.ops.cuda.fused import (FUSED_VARIANTS,
                                                 fused_backward_torch,
                                                 fused_launch_plan,
                                                 fused_phase_clocks)
-from mpc_verde_tpu_torch.ops.cuda.riccati import (CLOCK_PARTS, SUPPORTED,
+from mpc_verde_tpu_torch.ops.cuda import build as build_mod
+from mpc_verde_tpu_torch.ops.cuda.riccati import (CLOCK_PARTS, HELD_SIZES,
                                                   riccati_backward,
                                                   riccati_backward_torch,
                                                   riccati_launch_plan,
@@ -42,10 +43,21 @@ from mpc_verde_tpu_torch.scenarios import build_fleet
 pytestmark = pytest.mark.cuda
 
 K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "dV2": 1e-3, "gmax": 1e-4}
+# K1's sizes built here: chip_smoke.py's and (8, 4), which stays out of the
+# script's time limit
+CARD_K1_SIZES = HELD_SIZES + ((8, 4),)
+
+
+@pytest.fixture(scope="module")
+def _libraries():
+    """The kernels library and K1 at every size these tests launch, built
+    once and together (one nvcc process a unit, all started at once)."""
+    if torch.cuda.is_available():
+        build_mod.build(CARD_K1_SIZES)
 
 
 @pytest.fixture
-def dev():
+def dev(_libraries):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -55,7 +67,7 @@ def dev():
 @pytest.mark.parametrize("variant", ["planned", "thread"])
 @pytest.mark.parametrize("bounds", ["box", "none"])
 @pytest.mark.parametrize("use_ddp", [True, False])
-@pytest.mark.parametrize("nx,nu", sorted(SUPPORTED))
+@pytest.mark.parametrize("nx,nu", sorted(HELD_SIZES))
 def test_riccati_kernel_matches_twin(dev, nx, nu, use_ddp, bounds, variant):
     """B = 203 is not a multiple of either variant's block; half the
     problems have DDP off; with no bounds, dlb/dub are -inf/+inf and nothing
@@ -81,6 +93,41 @@ def test_riccati_kernel_matches_twin(dev, nx, nu, use_ddp, bounds, variant):
     for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
         assert bool(torch.isfinite(o).all()), name
         assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+@pytest.mark.parametrize("variant", ["planned", "warps"])
+@pytest.mark.parametrize("bounds", ["box", "none"])
+@pytest.mark.parametrize("use_ddp", [True, False])
+def test_riccati_kernel_at_8x4_matches_float64_twin(dev, use_ddp, bounds,
+                                                    variant):
+    """K1 at (8, 4) (planned "thread", and "warps" forced), as the test
+    above makes its inputs, held to the float64 twin as chip_smoke.py holds
+    the linear cases (_hold_f64): within the larger of K1_TOL and
+    F32_MARGIN times the float32 twin's own distance from float64.  At
+    nx = 8 the float32 twin and the kernel part by more than K1_TOL where
+    no bound is active (kff 4.0e-4 relative on this input with DDP, on an
+    NVIDIA H100 80GB HBM3)."""
+    from chip_smoke import _hold_f64
+
+    d, dlb, dub, gN, HN, reg, ddp = _random_riccati(
+        np.random.default_rng(84), 203, 6, 8, 4, dev)
+    ddp[::2] = 0.0
+    if bounds == "none":
+        dlb, dub = torch.full_like(dlb, -torch.inf), torch.full_like(dub, torch.inf)
+    args = (d, dlb, dub, gN, HN, reg, ddp)
+    kw = dict(nx=8, nu=4, use_ddp=use_ddp)
+    by_variant = dict(riccati_backward.launches_by_variant)
+    out = riccati_backward(*args, variant=None if variant == "planned"
+                           else variant, **kw)
+    torch.cuda.synchronize()
+    assert _launched(riccati_backward, by_variant) == {
+        "thread" if variant == "planned" else "warps": 1}
+    ref = riccati_backward_torch(*args, **kw)
+    f64 = lambda t: t.double()
+    ref64 = riccati_backward_torch({k: f64(v) for k, v in d.items()},
+                                   *(f64(a) for a in args[1:]), **kw)
+    assert all(bool(torch.isfinite(o).all()) for o in out)
+    _hold_f64(out, ref, ref64, "k1", f"(8, 4) DDP={use_ddp} {bounds} {variant}")
 
 
 def _ocp_variant(variant, N, dev):
@@ -172,16 +219,19 @@ def test_linesearch_kernel_matches_twin(dev, variant):
 @pytest.mark.parametrize("kernel", ["linesearch", "linesearch_reroll", "fused",
                                     "fused_gauss_newton", "riccati",
                                     "riccati_gauss_newton", "riccati_4x3",
-                                    "riccati_5x4_forced_warps"])
+                                    "riccati_5x4_forced_warps",
+                                    "riccati_8x4_forced_warps"])
 def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
     """Every variant runs the same device functions per candidate and per
     stage, so a forced variant gives the planned one's results (to float32
     round-off, should the compiler contract them differently).  K1 at
-    (5, 4) is planned "thread", so there "warps" is the forced one."""
+    (5, 4) and (8, 4) is planned "thread", so there "warps" is the forced
+    one."""
     B, N = 301, 12
     if kernel.startswith("riccati"):
         nx, nu = {"riccati_4x3": (4, 3),
-                  "riccati_5x4_forced_warps": (5, 4)}.get(kernel, (3, 2))
+                  "riccati_5x4_forced_warps": (5, 4),
+                  "riccati_8x4_forced_warps": (8, 4)}.get(kernel, (3, 2))
         kw = dict(nx=nx, nu=nu, use_ddp=kernel != "riccati_gauss_newton")
         args = _random_riccati(np.random.default_rng(4), B, N, nx, nu, dev)
         other = "warps" if nu == 4 else "thread"
@@ -242,6 +292,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="on cpu"):
         riccati_backward(d, dlb.cpu(), dub, gN, HN, reg, ddp, nx=3, nu=2)
     with pytest.raises(NotImplementedError):
+        riccati_backward(d, dlb, dub, gN, HN, reg, ddp, nx=3, nu=5)
+    with pytest.raises(ValueError, match="shape"):
         riccati_backward(d, dlb, dub, gN, HN, reg, ddp, nx=4, nu=2)
     with pytest.raises(ValueError, match="unknown"):
         riccati_backward(d, dlb, dub, gN, HN, reg, ddp, nx=3, nu=2,
@@ -990,3 +1042,143 @@ def test_sharded_solver_over_nccl_at_world_size_one(dev, tmp_path, backend):
     assert float(stats.mean_cost) == float(ref.cost.sum() / B)
     assert float(stats.max_grad_norm) == float(ref.grad_norm.max())
     assert int(stats.max_iterations) == int(ref.iterations.max())
+
+
+def _bw_ran(run):
+    """Run ``run`` on "cuda_bw": (its result, the kernels it launched); no
+    twin of K1 or K3 may run on CUDA tensors (the line search's twin is the
+    backend's own)."""
+    counts = {f: f.launches for f in (riccati_backward, linesearch_forward,
+                                      fused_backward)}
+    riccati_backward_torch.cuda_calls = 0
+    fused_backward_torch.cuda_calls = 0
+    linesearch_forward_torch.cuda_calls = 0
+    out = run()
+    torch.cuda.synchronize()
+    assert riccati_backward_torch.cuda_calls == 0
+    assert fused_backward_torch.cuda_calls == 0
+    assert linesearch_forward_torch.cuda_calls > 0
+    return out, {f.__name__ for f, n in counts.items() if f.launches > n}
+
+
+def test_cuda_bw_on_the_bench_ocp_without_a_device_model(dev):
+    """The bench OCP built from its callables resolves to "cuda_bw", runs
+    K1 and neither K2 nor K3, and converges as "cuda" does on the same
+    queue: converged agree >= 0.99; where both converged, costs within 1e-3
+    relative on >= 0.99 of the starts, and both answers of every other
+    start float64 optima (chip_smoke.py's _hold_optima: the two line
+    searches can part at a near tie and end in two local optima of the
+    bench OCP)."""
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
+
+    N, M, W = 40, 512, 256
+    ocp = bench_ocp(N, dev, torch.float32)
+    bare = dataclasses.replace(ocp, device_model=None)
+    assert resolve_backend(bare, None) == "cuda_bw"
+    rng = np.random.default_rng(22)
+    x0 = rng.uniform(-2.0, 2.0, (M, 3))
+    target = np.array([10.0, 10.0, 0.0])
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    make = lambda o, b: mt.make_streaming_solver(o, opts, backend=b,
+                                                 batch_width=W, restarts=2)
+    rb, ran = _bw_ran(lambda: make(bare, None)(x0, target))
+    assert ran == {"riccati_backward"}
+    rc = make(ocp, "cuda")(x0, target)
+    assert float(rb.converged.float().mean()) >= 0.99
+    ps = torch.as_tensor(np.broadcast_to(target, (M, N + 1, 3)).copy(),
+                         dtype=torch.float32, device=dev)
+    _hold_optima("cuda_bw vs cuda", rb, rc, bench_ocp(N, dev, torch.float64),
+                 torch.as_tensor(x0, dtype=torch.float32, device=dev), ps,
+                 1e-3)
+
+
+def test_cuda_bw_float64_runs_k1_on_float32_copies(dev):
+    """A float64 OCP on the card resolves to "cuda_bw": K1 on float32
+    copies, everything else in float64; its results are float64 and, held
+    by chip_smoke.py's _hold_optima as phase 22 (c) holds them, within 1e-4
+    relative cost of the float64 "torch" solve on the card on >= 0.99 of
+    the starts where both converged, every other start's answers float64
+    optima."""
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
+
+    N, B = 40, 128
+    ocp = bench_ocp(N, dev, torch.float64)
+    assert resolve_backend(ocp, None) == "cuda_bw"
+    rng = np.random.default_rng(23)
+    x0 = rng.uniform(-2.0, 2.0, (B, 3))
+    target = np.array([10.0, 10.0, 0.0])
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    rb, ran = _bw_ran(lambda: mt.make_batched_ilqr_solver(ocp, opts)(x0,
+                                                                      target))
+    assert ran == {"riccati_backward"}
+    assert rb.cost.dtype == rb.xs.dtype == torch.float64
+    rt = mt.make_batched_ilqr_solver(ocp, opts, backend="torch")(x0, target)
+    assert float(rb.converged.float().mean()) >= 0.99
+    ps = torch.as_tensor(np.broadcast_to(target, (B, N + 1, 3)).copy(),
+                         device=dev)
+    _hold_optima("cuda_bw float64 vs torch", rb, rt, ocp,
+                 torch.as_tensor(x0, device=dev), ps, 1e-4)
+
+
+@pytest.mark.parametrize("name", ["double_integrator", "quadrotor",
+                                  "point_mass"])
+def test_cuda_bw_on_user_ocps(dev, name):
+    """chip_smoke.py's user OCPs at (2, 1), (6, 2), (6, 3), from callables:
+    "cuda_bw", K1 alone, converged_frac >= 0.99 (JAX float32's band, 1.0,
+    less 0.01) and within 1e-3 relative cost of the float64 "torch" solve on
+    the CPU where both converged."""
+    import chip_smoke as cs
+
+    B = 256
+    x0, ps, us0 = cs.user_queue(name, B)
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    rb, ran = _bw_ran(lambda: mt.make_batched_ilqr_solver(
+        cs.user_ocp(name, dev), opts)(x0, ps, us0))
+    assert ran == {"riccati_backward"}
+    rt = mt.make_batched_ilqr_solver(cs.user_ocp(name, "cpu", torch.float64),
+                                     opts, backend="torch")(x0, ps, us0)
+    assert float(rb.converged.float().mean()) >= 0.99
+    both = rb.converged.cpu() & rt.converged
+    rel = (rb.cost.double().cpu() - rt.cost).abs() / rt.cost.abs()
+    assert float(rel[both].max()) <= 1e-3
+
+
+def test_cuda_bw_warm_start_runs_k1_alone(dev):
+    """make_lqr_warm_start on the bench OCP without its device model: one
+    K1 launch and the rollout's twin; the controls of the "cuda" warm
+    start (K2 in place of the twin, both float32) within 1e-4."""
+    from mpc_verde_tpu_torch.solver import make_lqr_warm_start
+
+    N, B = 40, 301
+    rng = np.random.default_rng(24)
+    x0 = rng.uniform(-2, 2, (B, 3))
+    ps = np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy()
+    ocp = bench_ocp(N, dev)
+    k1 = riccati_backward.launches
+    us, ran = _bw_ran(lambda: make_lqr_warm_start(
+        dataclasses.replace(ocp, device_model=None),
+        xref_fn=lambda p: p[:3])(x0, ps))
+    assert ran == {"riccati_backward"} and riccati_backward.launches == k1 + 1
+    ref = make_lqr_warm_start(ocp, xref_fn=lambda p: p[:3],
+                              backend="cuda")(x0, ps)
+    assert float((us - ref).abs().max()) <= 1e-4
+
+
+def test_failed_k1_build_raises_with_its_log(dev, tmp_path, monkeypatch):
+    """A K1 size whose nvcc fails raises with nvcc's log; the wrapper does
+    not fall back to its twin and counts no launch."""
+    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build_mod, "_RICCATI", {})
+    monkeypatch.setattr(build_mod, "_RICCATI_UNIT",
+                        build_mod._RICCATI_UNIT + "#error forced failure\n")
+    args = _random_riccati(np.random.default_rng(3), 8, 4, 2, 1, dev)
+    before = riccati_backward.launches
+    riccati_backward_torch.cuda_calls = 0
+    with pytest.raises(RuntimeError, match="forced failure"):
+        riccati_backward(*args, nx=2, nu=1)
+    assert riccati_backward.launches == before
+    assert riccati_backward_torch.cuda_calls == 0
+    assert not list(tmp_path.glob("*.so"))

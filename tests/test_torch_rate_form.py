@@ -21,6 +21,7 @@ from mpc_verde_tpu import refgen as jr
 from mpc_verde_tpu.ops import rk4_step as j_rk4_step
 from mpc_verde_tpu_torch import models as tm
 from mpc_verde_tpu_torch import refgen as tr
+from mpc_verde_tpu_torch.refgen import io as tr_io
 from mpc_verde_tpu_torch.ocp import to_rate_form
 from mpc_verde_tpu_torch.ops import rk4_step
 
@@ -124,8 +125,10 @@ def test_load_path_csv_matches_pandas_loader(tmp_path, header):
         np.testing.assert_array_equal(got["uref"], np.full(9, 0.4))
 
 
-def test_load_path_csv_without_the_reference_dir(monkeypatch):
+def test_load_path_csv_without_the_reference_dir(monkeypatch, tmp_path):
     monkeypatch.delenv("MPC_VERDE_REFERENCE_DIR", raising=False)
+    # the fallback directory, the JAX loader's, absent as well
+    monkeypatch.setattr(tr_io, "_FALLBACK_DIR", str(tmp_path / "missing"))
     assert tr.reference_data_dir() is None
     with pytest.raises(FileNotFoundError):
         tr.load_path_csv("traj5.csv")

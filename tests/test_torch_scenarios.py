@@ -124,9 +124,10 @@ FACTORIES = {
 
 @pytest.mark.parametrize("factory", list(FACTORIES))
 def test_default_backend_follows_the_device(factory, monkeypatch):
-    """backend=None runs "cuda_fused" for an OCP on a CUDA device and
-    "torch" on the CPU; an explicit backend is honoured; a CUDA OCP without
-    a device model raises and names backend="torch"."""
+    """backend=None runs "cuda_fused" for a float32 OCP with a device model
+    on a CUDA device, "cuda_bw" (K1 on the OCP's callables) for one
+    without, and "torch" on the CPU; an explicit backend is honoured; a
+    CUDA OCP with nu > 4 raises and names backend="torch"."""
     seen = []
 
     def spy_parts(ocp, opt, backend):
@@ -148,13 +149,14 @@ def test_default_backend_follows_the_device(factory, monkeypatch):
             (_fake_cuda_ocp(), None, "cuda_fused"),
             (_fake_cuda_ocp(), "cuda", "cuda"),
             (_fake_cuda_ocp(), "torch", "torch"),
+            (_fake_cuda_ocp(model=False), None, "cuda_bw"),
             (bench_ocp(10, "cpu"), None, "torch")):
         with pytest.raises(_Stop):
             make(ocp, backend=backend)
         assert seen.pop() == expected, (factory, backend)
     monkeypatch.setattr(ipm_mod, "resolve_backend", real)
     with pytest.raises(NotImplementedError, match='backend="torch"'):
-        make(_fake_cuda_ocp(model=False))
+        make(dataclasses.replace(_fake_cuda_ocp(model=False), nu=5))
 
 
 def test_barrier_solver_default_stays_torch(monkeypatch):

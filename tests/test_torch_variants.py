@@ -20,7 +20,7 @@ from mpc_verde_tpu_torch.interop import bench_ocp
 from mpc_verde_tpu_torch.ops.cuda import rollout
 from mpc_verde_tpu_torch.ops.cuda.build import SMEM_MAX_BYTES
 from mpc_verde_tpu_torch.ops.cuda.fused import fused_launch_plan
-from mpc_verde_tpu_torch.ops.cuda.riccati import SUPPORTED, riccati_launch_plan
+from mpc_verde_tpu_torch.ops.cuda.riccati import HELD_SIZES, riccati_launch_plan
 from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward_torch,
                                                   linesearch_launch_plan)
 
@@ -42,7 +42,7 @@ def _riccati_entries(nx, nu, use_ddp):
 @pytest.mark.parametrize("B", [1, 1024, 16384])
 @pytest.mark.parametrize("N", [1, 10, 40, 600, 5000])
 @pytest.mark.parametrize("use_ddp", [True, False])
-@pytest.mark.parametrize("nx,nu", sorted(SUPPORTED))
+@pytest.mark.parametrize("nx,nu", sorted(HELD_SIZES))
 def test_riccati_launch_plan(nx, nu, use_ddp, N, B):
     plan = riccati_launch_plan(N, nx, nu, use_ddp, B)
     entries = _riccati_entries(nx, nu, use_ddp)
@@ -128,8 +128,8 @@ def test_riccati_launch_plan_takes_the_batch(N, B, expected):
 def test_riccati_launch_plan_refuses():
     with pytest.raises(ValueError, match="unknown"):
         riccati_launch_plan(40, 3, 2, True, 1024, "staged")
-    with pytest.raises(ValueError, match="built for"):
-        riccati_launch_plan(40, 4, 2, True)
+    with pytest.raises(NotImplementedError, match="nu <= 4"):
+        riccati_launch_plan(40, 4, 5, True)
     with pytest.raises(ValueError, match="shared memory"):
         riccati_launch_plan(5000, 3, 2, True, 1024, "warps")
 
@@ -385,4 +385,4 @@ def test_riccati_launch_plan_at_the_linear_sizes():
             "warps", 8, 128, 80_672)
         assert riccati_launch_plan(50, 5, 1, True, B)[:4] == (
             "warps", 4, 128, 186_512)
-    assert {(4, 1), (5, 1)} <= SUPPORTED
+    assert {(4, 1), (5, 1)} <= set(HELD_SIZES)

@@ -134,8 +134,8 @@ def test_warm_start_matches_jax(box):
 
 def test_warm_start_on_kernel_backends_runs_the_twins_on_the_cpu():
     """On CPU tensors "cuda" runs K1's and K2's twins: the "torch" answer
-    (float32, the kernels' type); a size K1 is not built for raises, as for
-    the solvers."""
+    (float32, the kernels' type); nu > 4, which K1 does not take, raises,
+    as for the solvers."""
     ocp = bench_ocp(10, "cpu", torch.float32)
     x0 = np.random.default_rng(5).uniform(-2, 2, (6, 3))
     ps = np.broadcast_to(np.array([10.0, 10.0, 0.0]), (6, 11, 3)).copy()
@@ -144,7 +144,7 @@ def test_warm_start_on_kernel_backends_runs_the_twins_on_the_cpu():
     np.testing.assert_array_equal(ut.numpy(), uc.numpy())
     _, to = _double_integrator(False)
     with pytest.raises(NotImplementedError):
-        make_lqr_warm_start(dataclasses.replace(to, dtype=torch.float32,
+        make_lqr_warm_start(dataclasses.replace(to, nu=5, dtype=torch.float32,
                                                 device_model=ocp.device_model),
                             backend="cuda")
 
