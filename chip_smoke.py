@@ -5,9 +5,12 @@
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
   2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc: the
-              kernels library (K2, K3) and K1's library at each size of
-              HELD_SIZES, one nvcc process a unit, all started together;
-              phase 20, which launches no kernel, runs meanwhile.
+              kernels library (K2, K3), K1's library at each size of
+              HELD_SIZES and the library of each program phase 23 traces
+              (K2 and K3 on a device model generated from an OCP's
+              callables, traced on the CPU first), one nvcc process a unit,
+              all started together; phase 20, which launches no kernel, runs
+              meanwhile.
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
               card: random problems at every (nx, nu) of HELD_SIZES (the
               seven sizes of the package's models and the JAX kernel's
@@ -79,9 +82,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               MPC steps at B=1, two AL rounds a step over the state box, the
               control reference in the params, a 10-substep RK4 plant)
               through make_ilqr_solver on its default backend, "cuda_fused";
-              gates converged_frac >= 0.99 and rmse_xy < 0.2; its first 60
+              gates converged_frac >= 0.99 and rmse_xy < 0.2; its first 30
               steps held against the float64 "torch" run on the CPU and
-              against the same 60 steps on "cuda" (K1 at B=1).
+              against the same 30 steps on "cuda" (K1 at B=1).
  14. diffdrive: the diff-drive family (scenarios/diffdrive.py: B=1, 100
               steps) on "cuda_fused" in three variants, RK4 + discrete cost,
               Euler + discrete, RK4 quadrature cost (M=4) with an RK4 plant;
@@ -90,7 +93,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
  15. lanechange: the lane-change families at B=1 on "cuda_fused" with the
               JAX tests' gates: LTI 250 steps, v1 (N=20, Ntu=3) 300 steps,
               LTV and leitura 250 steps; the exact pin of move blocking in
-              v1's open-loop plan at B=1 and over 301 problems; 60 steps of
+              v1's open-loop plan at B=1 and over 301 problems; 30 steps of
               the maneuver held against the float64 "torch" run on the CPU
               and against "cuda" (K1 at (4, 1)).
  16. pendulum + dynamic: the cart pendulum at its SPEC (1000 steps, N=50,
@@ -103,7 +106,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               0.384, |rate| <= 0.1225), over the whole 500-step course (mse_y
               within 1% of the port's CPU float64 run) and on the double
               lane change (60 steps, max_iters 80); the curvature family
-              (300 steps; mse_y < 1.0, mse_phi < 0.2); 60 steps of each from
+              (300 steps; mse_y < 1.0, mse_phi < 0.2); 30 steps of each from
               the maneuver held against CPU float64 and "cuda" (K1 at (5, 2)
               and (4, 1)).
  18. scan:    the associative-scan backward (ops/parallel_riccati.py): its
@@ -178,11 +181,32 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               float64 at B=1024, K1 on float32 copies, within 1e-4 relative
               cost of a float64 "torch" solve on the card.  Each path
               launches K1 and neither K2 nor K3.
-Phases 5, 8, 9 and 11 to 22 each set every kernel launch count to 0 just
+ 23. traced:  K2 and K3 on the device model generated from the trace of an
+              OCP's own callables (ops/cuda/trace.py, ops/cuda/codegen.py;
+              the counterpart of JAX's "pallas" / "pallas_fused" on such an
+              OCP), at B=1024, N=40 in float32: (a) on the bench OCP built
+              from its callables against the hand-written unicycle model
+              and against the twin on the same inputs (random gains and the
+              pre-roll; DDP on and off), at phase 4's and 7's tolerances,
+              each timed beside the hand-written one; (b)
+              make_streaming_solver on that OCP with backend="cuda_fused"
+              (K3 and K2) and "cuda" (K1 and K2) over the first 2048 starts
+              of phase 5's queue, converged_frac >= 0.99, held against
+              phase 5's answers by phase 22's rule; (c) the three user OCPs
+              on "cuda_fused" through make_batched_ilqr_solver with phase
+              22 (b)'s band and CPU float64 hold, and K2 (every variant)
+              and K3 (DDP on and off, both variants) along their answers
+              against the float64 twins; (d) the state box y <= 5 on the
+              bench OCP from its callables on "cuda_fused" (its AL-derived
+              OCP, traced), phase 12's setup over the first 2048 starts,
+              max_violation < 1e-2.  No path calls a twin on CUDA tensors,
+              and none launches the other backward kernel.
+Phases 5, 8, 9 and 11 to 23 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
 K1 and K2 once each for the warm start, none for FDDP, the condensed QP and
-the NLP solver; 20: none; 22: K1 alone).  Then one JSON line of
+the NLP solver; 20: none; 22: K1 alone; 23: K3 and K2 on "cuda_fused", K1
+and K2 on "cuda").  Then one JSON line of
 kernel results (each kernel's time beside its roofline bound, computed from
 this run's shapes, and beside its one-thread-per-problem variant's time),
 the nvidia-smi name/power-limit line, and last the JSON status line.
@@ -273,13 +297,14 @@ def _queue(M, N, seed=0):
 
 PTXAS_SOURCES = ("riccati_", "rollout.cu",
                  "rollout_linear.cu", "rollout_frenet.cu", "fused.cu",
-                 "fused_linear.cu", "fused_frenet.cu")
+                 "fused_linear.cu", "fused_frenet.cu", "traced_")
 
 
 def _kernel_name(mangled):
     """kernel<args> from a kernel template's mangled name: the model (the
-    unicycle, the Frenet model, or the linear model or its curvature-cost or
-    weighted variant with its (nx0, nu)) and the int and bool arguments;
+    unicycle, the Frenet model, the linear model or its curvature-cost or
+    weighted variant with its (nx0, nu), or a model traced from an OCP's
+    callables) and the int and bool arguments;
     the mangled name where it does not parse."""
     t = re.search(r"\d([a-z_]+_kernel)I(.+)", mangled)
     if not t:
@@ -287,7 +312,7 @@ def _kernel_name(mangled):
     targs = t.group(2).split("Ev")[0]
     args = []
     model = re.search(r"(UnicycleModel|FrenetRateModel|LinearRateModel|"
-                      r"CurvatureRateModel|WeightedRateModel)"
+                      r"CurvatureRateModel|WeightedRateModel|TracedModel)"
                       r"(?:ILi(\d+)ELi(\d+)EE)?", targs)
     if model:
         args.append(model.group(1) + (f"<{model.group(2)},{model.group(3)}>"
@@ -1247,11 +1272,17 @@ def _hold_k2_f64(label, out, cand32, cand64, model):
     rounding, in the kernel as in the twin.)  Returns the max abs error
     against float64."""
     xs_k, us_k, c_k, b_k = out
-    pinned = torch.as_tensor(model.du_ub[:, 0] == 0.0, device=us_k.device)
-    up = xs_k[:, :-1][:, pinned][..., model.nx0:]
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=up.dtype,
-                                  device=up.device)
-    inside = (up >= t(model.u_lb)) & (up <= t(model.u_ub))
+    blocked = (np.zeros(us_k.shape[1], bool) if model is None
+               else model.du_ub[:, 0] == 0.0)   # None: no move blocking
+    pinned = torch.as_tensor(blocked, device=us_k.device)
+    if model is None:
+        inside = torch.zeros((us_k.shape[0], 0, us_k.shape[2]), dtype=torch.bool,
+                             device=us_k.device)
+    else:
+        up = xs_k[:, :-1][:, pinned][..., model.nx0:]
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=up.dtype,
+                                      device=up.device)
+        inside = (up >= t(model.u_lb)) & (up <= t(model.u_ub))
     b = b_k.long()
     rows = torch.arange(b.shape[0], device=b.device)
     c64 = cand64[2]
@@ -1268,9 +1299,13 @@ def _hold_k2_f64(label, out, cand32, cand64, model):
     # wins (the kernel's rule), so the first minimum is over the finite ones
     c64 = torch.where(torch.isfinite(c64), c64, torch.inf)
     pick = c64[b, rows]
-    cost = rel(c_k.double(), pick)
     cmin = c64.min(0).values
-    first_min = bool((pick <= cmin + tol_c * cmin.abs().clamp(min=1.0)).all())
+    # where every candidate left the domain the kernel's cost does too
+    fin = torch.isfinite(pick)
+    cost = rel(c_k.double()[fin], pick[fin]) if bool(fin.any()) else 0.0
+    first_min = (bool((pick[fin] <= cmin[fin] + tol_c * cmin[fin].abs().clamp(
+        min=1.0)).all()) and not bool(torch.isfinite(cmin[~fin]).any())
+        and not bool(torch.isfinite(c_k[~fin]).any()))
     xs_p, us_p = cand64[0][b, rows], cand64[1][b, rows]
     traj = max(rel(xs_k.double(), xs_p), rel(us_k.double(), us_p))
     same = float((b == c64.argmin(0)).float().mean())
@@ -1285,7 +1320,8 @@ def _hold_k2_f64(label, out, cand32, cand64, model):
         raise AssertionError(f"K2 {label} against float64: cost {cost} "
                              f"(bound {tol_c}), traj {traj} (bound {tol_t}), "
                              f"first minimum {first_min}, pinned 0 {zero}")
-    return max(_abs_err(c_k, pick), _abs_err(xs_k, xs_p), _abs_err(us_k, us_p))
+    return max(_abs_err(c_k[fin], pick[fin]) if bool(fin.any()) else 0.0,
+               _abs_err(xs_k, xs_p), _abs_err(us_k, us_p))
 
 
 def _hold_f64(out, ref32, ref64, tag, label):
@@ -1602,6 +1638,19 @@ def phase_ipm(dev, gpu, ref, M=QUEUE, N=BENCH_N, M_cuda=2048):
     return by_path
 
 
+def _al_gate(res, tag="al"):
+    """The JAX tests' gate on a state-bounded solve: max_violation < 1e-2."""
+    viol = res.max_violation.double().cpu().numpy()
+    y_max = res.xs[..., 1].amax(-1)
+    bound = float((y_max >= AL_Y_MAX - 1e-2).float().mean())
+    print(f"[{tag}] y max {float(y_max.max()):.4f} against the box's "
+          f"{AL_Y_MAX}, at the bound in {bound:.4f} of the problems; "
+          f"max_violation p50 {np.percentile(viol, 50):.3e} p99 "
+          f"{np.percentile(viol, 99):.3e} max {viol.max():.3e}", flush=True)
+    if not viol.max() < 1e-2:
+        raise AssertionError(f"{tag}: max_violation {viol.max()} >= 1e-2")
+
+
 def phase_al(dev, gpu, M=QUEUE, N=BENCH_N, M_ipm=2048):
     """State bounds at full width: the box y <= 8 binds for every problem."""
     from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
@@ -1611,18 +1660,7 @@ def phase_al(dev, gpu, M=QUEUE, N=BENCH_N, M_ipm=2048):
     ocp = bench_ocp(N, dev, torch.float32, x_ub=[np.inf, AL_Y_MAX, np.inf])
     queue = _queue(M, N)
     fused_path = ("fused_backward", "linesearch_forward")
-
-    def gate(res):
-        viol = res.max_violation.double().cpu().numpy()
-        y_max = res.xs[..., 1].amax(-1)
-        bound = float((y_max >= AL_Y_MAX - 1e-2).float().mean())
-        print(f"[al] y max {float(y_max.max()):.4f} against the box's "
-              f"{AL_Y_MAX}, at the bound in {bound:.4f} of the problems; "
-              f"max_violation p50 {np.percentile(viol, 50):.3e} p99 "
-              f"{np.percentile(viol, 99):.3e} max {viol.max():.3e}", flush=True)
-        if not viol.max() < 1e-2:
-            raise AssertionError(f"max_violation {viol.max()} >= 1e-2")
-
+    gate = _al_gate
     by_path = {}
     solve = make_streaming_solver(ocp, _opts(al_iters=AL_ITERS),
                                   backend="cuda_fused", batch_width=WIDTH,
@@ -1644,7 +1682,9 @@ def phase_al(dev, gpu, M=QUEUE, N=BENCH_N, M_ipm=2048):
 # not at tol_grad = 1e-7 (JAX float32 takes 4x float64's iterations on this
 # track), so each applied control carries that solve's stopping error; the
 # tracking loop is stable and does not let it grow.
-CIRC_HOLD_STEPS, CIRC_STATE_TOL = 60, 1e-2
+# 30 steps since phase 23 came (60 before): the "cuda" run's eager
+# derivatives take about 1.6 s a step
+CIRC_HOLD_STEPS, CIRC_STATE_TOL = 30, 1e-2
 # JAX float32's share of converged steps on the diff-drive variants (CPU,
 # committed tree): its float64 gate converged_all does not hold in float32.
 DIFFDRIVE_JAX_F32_CONVERGED = {"rk4": 0.94, "euler": 0.85, "quadrature_m4": 0.87}
@@ -1754,7 +1794,9 @@ def phase_diffdrive(dev, gpu, n_steps=100, compare_steps=90):
 # these 20 steps JAX's own float32 run leaves its float64 run by 9.6e-3
 # (the applied force, 0.25 N apart), the port's float32 run on the CPU by
 # 2.6e-2.
-LC_HOLD, LC_START, LC_STATE_TOL = 60, 110, 1e-2
+# 30 steps since phase 23 came (60 before), from sample LC_START, where the
+# maneuver begins within 8 samples
+LC_HOLD, LC_START, LC_STATE_TOL = 30, 110, 1e-2
 PEND_HOLD, PEND_STATE_TOL = 20, 5e-2
 K1_PATH = ("riccati_backward", "linesearch_forward")
 
@@ -1904,7 +1946,7 @@ def _cpu64(tag, run):
 def phase_lanechange(dev, gpu, n_lti=250, n_v1=300, n_ltv=250):
     """The lane-change families at B = 1 on "cuda_fused" with the JAX
     tests' gates (tests/test_scenarios.py), the exact pin of move blocking,
-    and 60 steps held against CPU float64 and against "cuda"."""
+    and LC_HOLD steps held against CPU float64 and against "cuda"."""
     from mpc_verde_tpu_torch.refgen import synthetic_lane_change
     from mpc_verde_tpu_torch.scenarios import (build_lane_change_lti,
                                                build_lane_change_ltv,
@@ -1969,7 +2011,7 @@ def phase_lanechange(dev, gpu, n_lti=250, n_v1=300, n_ltv=250):
     if tail != 0.0 or tail_b != 0.0 or not head > 0.0:
         raise AssertionError(f"move blocking: tail {tail}, {tail_b}, head {head}")
 
-    # 60 steps of the maneuver: "cuda_fused", "cuda" (K1 at (4, 1), B = 1)
+    # LC_HOLD steps of the maneuver: "cuda_fused", "cuda" (K1 at (4, 1), B = 1)
     # and the CPU float64 run
     path = {k: np.asarray(v)[LC_START:]
             for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
@@ -2060,11 +2102,11 @@ def _frenet_gates(m):
 def phase_frenet_curvature(dev, gpu, refs, n_frenet=120, n_dlc=60,
                            n_curv=300, n_course=500, hold=LC_HOLD):
     """The Frenet and curvature families at B = 1 on "cuda_fused" with the
-    JAX tests' gates; the first 60 steps of each on the lane change's
+    JAX tests' gates; the first LC_HOLD steps of each on the lane change's
     maneuver held against CPU float64 and against "cuda" (K1 at (5, 2) and
-    (4, 1)) within the lane change's LC_STATE_TOL: over these 60 steps the
-    port's own float32 run on the CPU leaves its float64 run by 2.0e-6
-    (Frenet) and 7.6e-5 (curvature).  The CPU float64 runs come from
+    (4, 1)) within the lane change's LC_STATE_TOL: over 60 steps the port's
+    own float32 run on the CPU leaves its float64 run by 2.0e-6 (Frenet) and
+    7.6e-5 (curvature).  The CPU float64 runs come from
     ``refs`` (a ``CpuReferences`` of ``hold`` steps)."""
     from mpc_verde_tpu_torch.refgen import (double_lane_change_course,
                                             synthetic_lane_change)
@@ -2109,7 +2151,7 @@ def phase_frenet_curvature(dev, gpu, refs, n_frenet=120, n_dlc=60,
         if not gate(m):
             raise AssertionError(f"{name} gates failed: {m}")
 
-    # 60 steps of the maneuver: "cuda_fused", "cuda" (K1 at B = 1) and the
+    # LC_HOLD steps of the maneuver: "cuda_fused", "cuda" (K1 at B = 1) and the
     # CPU float64 run
     path = {k: np.asarray(v)[LC_START:]
             for k, v in synthetic_lane_change(n=500, dt=0.05).items()}
@@ -3379,6 +3421,326 @@ def phase_bw(dev, gpu, ref_main, refs, M=BW_QUEUE, W=WIDTH, N=BENCH_N,
           flush=True)
     return by_path, k1_rows
 
+# Phase 23: K2 and K3 on the device model generated from the trace of an
+# OCP's own callables (ops/cuda/trace.py, ops/cuda/codegen.py), the
+# counterpart of JAX's "pallas" / "pallas_fused" on such an OCP.  The
+# programs' libraries are built in phase 2 from a trace on the CPU (a
+# program's text, and so its library, does not depend on the device).
+TRACED_QUEUE = BW_QUEUE
+CUDA_PATH = ("riccati_backward", "linesearch_forward")
+# operations a float operation of a traced program takes on K3's dual
+# numbers over nz seeds (nh = nz (nz + 1) / 2 Hessian entries): a linear
+# one touches every component, a product of two duals 3 nz + 4 nh, a
+# function f 16 + 2 nz + 3 nh (chain); a transcendental on floats is 16
+TRACED_UNARY = ("sin", "cos", "tan", "exp", "log", "sqrt")
+
+
+def traced_ocps(device, N=BENCH_N):
+    """The float32 OCPs that phase 23 runs without a device model, as its
+    solvers trace them: the bench OCP from its callables, its AL-derived OCP
+    under the box y <= AL_Y_MAX (make_streaming_solver derives the same
+    one), and the three user OCPs."""
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
+
+    bare = lambda **kw: dataclasses.replace(
+        bench_ocp(N, device, torch.float32, **kw), device_model=None)
+    return {"bench": bare(),
+            "bench_al": _augment_ocp_al(bare(x_ub=[np.inf, AL_Y_MAX, np.inf])),
+            **{name: user_ocp(name, device) for name in USER_OCPS}}
+
+
+def traced_programs():
+    """Phase 23's programs, traced on the CPU, for phase 2's build."""
+    from mpc_verde_tpu_torch.ops.cuda.trace import trace_ocp
+
+    return [trace_ocp(o) for o in traced_ocps("cpu").values()]
+
+
+def _traced_flops(program, use_duals):
+    """Operations of one step and stage cost of ``program`` (K2 a step) or
+    of their evaluation on second-order duals over z (K3 a stage, without
+    K1's recursion), counted from its instructions as TRACED_UNARY says."""
+    nz = program.nx + program.nu
+    nh = nz * (nz + 1) // 2
+    roots = program.outputs["step"] + program.outputs["stage_cost"]
+    n = 0
+    for v in program.reachable(roots):
+        name = program.ops[v][0]
+        if name in TRACED_UNARY:
+            n += 16 + 2 * nz + 3 * nh if use_duals else 16
+        elif name == "mul" and use_duals:
+            n += 3 * nz + 4 * nh
+        elif name not in ("in", "k", "cf", "ci", "cb", "tab", "tabi"):
+            n += 1 + nz + nh if use_duals else 1
+    return n
+
+
+def _traced_path(tag, gpu, run, path_kernels, ocp):
+    """Drive one path on the traced model with every count set to 0 just
+    before and read just after: the path's kernels launched, the other
+    backward kernel not, no twin on CUDA tensors; returns (result, wall,
+    launches)."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
+                                                      kernel_model)
+
+    if not isinstance(kernel_model(ocp), TracedDeviceModel):
+        raise AssertionError(f"{tag}: the OCP has a hand-written model")
+    res, wall, launches, twin_calls = _drive(run)
+    other = ({"riccati_backward", "fused_backward"} - set(path_kernels))
+    print(f"[{tag}] {wall:.3f} s, launches {launches}, twin calls on CUDA "
+          f"{twin_calls} | GPU {gpu}", flush=True)
+    if (min(launches[k] for k in path_kernels) < 1
+            or any(launches[k] for k in other) or max(twin_calls.values())):
+        raise AssertionError(f"{tag}: launches {launches}, twins {twin_calls}")
+    return res, wall, launches
+
+
+def _traced_vs_hand(dev, B, N, A=8):
+    """(a): K2 and K3 on the bench OCP's traced model against the
+    hand-written UnicycleDeviceModel and against the twin, on the same
+    inputs, at phase 4's and 7's tolerances; each timed beside the other."""
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.ops.cuda.fused import (fused_backward,
+                                                    fused_backward_torch)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        linesearch_forward, linesearch_forward_torch, traced_device_model)
+
+    hand = bench_ocp(N, dev, torch.float32)
+    bare = dataclasses.replace(hand, device_model=None)
+    program = traced_device_model(bare).program
+    alphas = tuple(0.4 ** i for i in range(A))
+    data = _k2_inputs(dev, B, N)
+    zero = (*data[:4], torch.zeros_like(data[4]), torch.zeros_like(data[5]))
+    err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
+    for label, d, al in (("random gains", data, alphas),
+                         ("pre-roll", zero, (1.0,))):
+        out = linesearch_forward(*d, al, ocp=bare)
+        for ref_label, ref in (
+                ("the unicycle model", linesearch_forward(*d, al, ocp=hand)),
+                ("the twin", linesearch_forward_torch(*d, al, ocp=hand))):
+            cost_rel = float(((out[2].double() - ref[2].double()).abs()
+                              / ref[2].double().abs()).max())
+            same = out[3] == ref[3]
+            traj = max(_rel_err(out[0][same], ref[0][same]),
+                       _rel_err(out[1][same], ref[1][same]))
+            print(f"[traced] K2 bench {label} B={B} N={N} A={len(al)} against "
+                  f"{ref_label}: cost rel err {cost_rel:.2e}, same alpha "
+                  f"{float(same.float().mean()):.4f}, traj err {traj:.2e}",
+                  flush=True)
+            if cost_rel > 1e-5 or float(same.float().mean()) < 0.999 \
+                    or traj > 1e-4:
+                raise AssertionError(f"traced K2 {label} against {ref_label}")
+            err["linesearch_forward"] = max(
+                err["linesearch_forward"], _abs_err(out[2], ref[2]),
+                _abs_err(out[0][same], ref[0][same]))
+    f = dict(dtype=torch.float32, device=dev)
+    args = (*_bench_trajectories(hand, B, dev), torch.full((B,), 1e-6, **f),
+            torch.ones((B,), **f))
+    for use_ddp in (True, False):
+        out = fused_backward(*args, ocp=bare, use_ddp=use_ddp)
+        for ref_label, ref in (
+                ("the unicycle model", fused_backward(*args, ocp=hand,
+                                                      use_ddp=use_ddp)),
+                ("the twin", fused_backward_torch(*args, ocp=hand,
+                                                  use_ddp=use_ddp))):
+            err["fused_backward"] = max(err["fused_backward"], _hold(
+                out, ref, "traced", f"K3 bench DDP={use_ddp} against "
+                f"{ref_label}"))
+    k2 = {m: _time_ms(lambda: linesearch_forward(*data, alphas, ocp=o), 50)
+          for m, o in (("traced", bare), ("hand", hand))}
+    k3 = {m: _time_ms(lambda: fused_backward(*args, ocp=o), 50)
+          for m, o in (("traced", bare), ("hand", hand))}
+    k2_plain = _time_ms(lambda: linesearch_forward_torch(*data, alphas,
+                                                         ocp=bare),
+                        reps=3, warmup=1, queued=False)
+    k3_plain = _time_ms(lambda: fused_backward_torch(*args, ocp=bare), reps=3,
+                        warmup=1, queued=False)
+    # bytes as phase 4's and 7's bounds count them: each input read once,
+    # each output of a launch written once
+    n2 = sum(a.numel() for a in data) + sum(
+        o.numel() for o in linesearch_forward(*data, alphas, ocp=bare))
+    n3 = sum(a.numel() for a in args) + sum(
+        o.numel() for o in fused_backward(*args, ocp=bare))
+    rows = (
+        {"case": "bench", "ms": k2["traced"], "hand_written_ms": k2["hand"],
+         "plain_ms": k2_plain,
+         **_bound(4 * n2, B * A * N * (_traced_flops(program, False)
+                                       + 2 * 2 * 3 + 6))},
+        {"case": "bench", "ms": k3["traced"], "hand_written_ms": k3["hand"],
+         "plain_ms": k3_plain,
+         **_bound(4 * n3, B * N * (_traced_flops(program, True)
+                                   + K1_STAGE_FLOPS))})
+    print(f"[traced] bench B={B} N={N}: K2 traced {k2['traced']:.4f} ms, "
+          f"hand-written {k2['hand']:.4f} ms, twin {k2_plain:.2f} ms, bound "
+          f"{rows[0]['bound_ms']:.4f} by {rows[0]['bound_by']}; K3 traced "
+          f"{k3['traced']:.4f} ms, hand-written {k3['hand']:.4f} ms, twin "
+          f"{k3_plain:.2f} ms, bound {rows[1]['bound_ms']:.4f} by "
+          f"{rows[1]['bound_by']}", flush=True)
+    return rows, err
+
+
+def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
+    """(c): K2 (every variant, against the float64 twin's candidates) and
+    K3 (DDP on and off, both variants, against the float64 twin) along the
+    user OCP's answers ``res`` with random gains; returns (K2 row, K3 row)
+    of times and bounds."""
+    from mpc_verde_tpu_torch.ops.cuda.fused import (
+        fused_backward, fused_backward_torch, fused_launch_plan)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan,
+        traced_device_model)
+
+    xs, us = res.xs.contiguous(), res.us.contiguous()
+    B, N, nu = us.shape
+    nx = xs.shape[-1]
+    rng = np.random.default_rng(61)
+    f = dict(dtype=torch.float32, device=xs.device)
+    t = lambda a: torch.as_tensor(a, **f).contiguous()
+    full = (x0, xs, us, ps, t(0.1 * rng.standard_normal((B, N, nu))),
+            t(0.05 * rng.standard_normal((B, N, nu, nx))))
+    cand32 = _k2_candidates(full, alphas, ocp)
+    cand64 = _k2_candidates(_to64(*full), alphas, ocp64)
+    planned = linesearch_launch_plan(N, len(alphas), ps.shape[-1], nx=nx,
+                                     nu=nu).variant
+    for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
+        used, out = _variants_used(
+            linesearch_forward,
+            lambda: linesearch_forward(*full, alphas, ocp=ocp, variant=variant))
+        if used != {variant or planned}:
+            raise AssertionError(f"K2 {label} ran variants {used}")
+        err["linesearch_forward"] = max(err["linesearch_forward"], _hold_k2_f64(
+            f"{label} variant {sorted(used)}", out, cand32, cand64, None))
+    args = (xs, us, ps, torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
+    for use_ddp in (True, False):
+        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
+        ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+        plan = fused_launch_plan(N, use_ddp, None, B, nx=nx, nu=nu).variant
+        for variant in (None, "thread" if plan == "staged" else "staged"):
+            used, out = _variants_used(
+                fused_backward,
+                lambda: fused_backward(*args, ocp=ocp, use_ddp=use_ddp,
+                                       variant=variant))
+            if used != {variant or plan}:
+                raise AssertionError(f"K3 {label} ran variants {used}")
+            err["fused_backward"] = max(err["fused_backward"], _hold_f64(
+                out, ref, ref64, "traced", f"K3 {label} DDP={use_ddp} "
+                f"variant {sorted(used)}"))
+    program = traced_device_model(ocp).program
+    k1 = _k1_flops(1, 1, nx, nu)
+    row2, row3 = _time_case(label, ocp, full, alphas, (
+        _traced_flops(program, False) + 2 * nu * nx + 3 * nu,
+        _traced_flops(program, True) + k1))
+    return {"nx": nx, "nu": nu, **row2}, {"nx": nx, "nu": nu, **row3}
+
+
+def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
+                 N=BENCH_N, B=USER_B):
+    """Phase 23 (see the module docstring); returns the paths' launches and
+    the traced rows of K2 and K3."""
+    from mpc_verde_tpu_torch import (make_batched_ilqr_solver,
+                                     make_streaming_solver)
+    from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.ops.cuda.build import traced_library_path
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
+                                                      kernel_model,
+                                                      traced_device_model)
+
+    t_phase = time.perf_counter()
+    ocps = traced_ocps(dev, N)
+    for name, ocp in ocps.items():
+        t0 = time.perf_counter()
+        program = traced_device_model(ocp).program
+        print(f"[traced] {name}: traced on the card in "
+              f"{time.perf_counter() - t0:.2f} s, {len(program.ops)} "
+              f"instructions, {program.n_table} table entries; its library "
+              f"built in phase 2: {traced_library_path(program).is_file()}",
+              flush=True)
+
+    # (a) K2 and K3 against the hand-written unicycle model
+    rows, err = _traced_vs_hand(dev, W, N)
+    k2_rows, k3_rows = [rows[0]], [rows[1]]
+
+    # (b) the bench OCP from its callables over phase 22's queue
+    by_path = {}
+    bare = ocps["bench"]
+    queue = tuple(a[:M] for a in _queue(QUEUE, N))
+    t = lambda a: torch.as_tensor(a, device=dev)
+    ref = SimpleNamespace(converged=ref_main.converged[:M],
+                          cost=ref_main.cost[:M], us=ref_main.us[:M])
+    for backend, path in (("cuda_fused", FUSED_PATH), ("cuda", CUDA_PATH)):
+        solve = make_streaming_solver(bare, _opts(), backend=backend,
+                                      batch_width=W, restarts=2)
+        if not isinstance(kernel_model(bare), TracedDeviceModel):
+            raise AssertionError("traced-bench: not on the traced model")
+        by_path[f"traced_{backend}"], res = _streaming_path(
+            f"traced-{backend}", gpu, solve, queue, path, warm=W,
+            note=f"streaming on the traced bench OCP, backend={backend} "
+            f"W={W}: ")
+        other = "riccati_backward" if backend == "cuda_fused" else \
+            "fused_backward"
+        if by_path[f"traced_{backend}"][other]:
+            raise AssertionError(f"traced-{backend} launched {other}")
+        _hold_optima(f"traced-{backend} vs phase 5", res, ref,
+                     bench_ocp(N, dev, torch.float64), t(queue[0]),
+                     t(queue[1]), BW_COST_TOL)
+
+    # (c) the user OCPs on "cuda_fused", K2 and K3 held along their answers
+    alphas = tuple(0.4 ** i for i in range(_opts().n_alphas))
+    for name in USER_OCPS:
+        uocp = ocps[name]
+        solve = make_batched_ilqr_solver(uocp, _opts(), backend="cuda_fused")
+        x0, ps, us0 = user_queue(name, B)
+        res, wall, by_path[f"traced_{name}"] = _traced_path(
+            f"traced-{name}", gpu, lambda: solve(x0, ps, us0), FUSED_PATH,
+            uocp)
+        if not all(bool(torch.isfinite(getattr(res, k)).all())
+                   for k in ("xs", "us", "cost")):
+            raise AssertionError(f"traced-{name}: non-finite results")
+        conv = float(res.converged.float().mean())
+        band = USER_JAX_BAND[name]
+        cpu = refs.raw(f"traced-{name}", f"user_{name}")
+        gap, both = _rel_cost_gap(
+            SimpleNamespace(converged=res.converged[:USER_HOLD],
+                            cost=res.cost[:USER_HOLD]),
+            SimpleNamespace(converged=torch.as_tensor(cpu["converged"]),
+                            cost=torch.as_tensor(cpu["cost"])))
+        print(f"[traced-{name}] (nx, nu) = ({uocp.nx}, {uocp.nu}), B={B} "
+              f"N={N} on \"cuda_fused\": {wall:.3f} s, converged_frac "
+              f"{conv:.4f} (JAX float32 on the CPU {band}, gate "
+              f"{band - 0.01:.4f}), mean_iterations "
+              f"{float(res.iterations.double().mean()):.3f}; against CPU "
+              f"float64 over {USER_HOLD}: both converged {both:.4f}, max rel "
+              f"cost gap {gap:.3e} (tol {BW_COST_TOL})", flush=True)
+        if not conv >= band - 0.01 or not gap <= BW_COST_TOL:
+            raise AssertionError(f"traced-{name}: converged_frac {conv}, "
+                                 f"gap {gap}")
+        f32 = dict(dtype=torch.float32, device=dev)
+        row2, row3 = _traced_user_kernels(
+            name, uocp, user_ocp(name, dev, torch.float64), res,
+            torch.as_tensor(x0, **f32).contiguous(),
+            torch.as_tensor(ps, **f32).contiguous(), alphas, err)
+        k2_rows.append(row2)
+        k3_rows.append(row3)
+
+    # (d) the state box y <= AL_Y_MAX on the bench OCP from its callables:
+    # the AL-derived OCP, traced; phase 12's setup on the first M starts
+    al = dataclasses.replace(
+        bench_ocp(N, dev, torch.float32, x_ub=[np.inf, AL_Y_MAX, np.inf]),
+        device_model=None)
+    solve = make_streaming_solver(al, _opts(al_iters=AL_ITERS),
+                                  backend="cuda_fused", batch_width=W,
+                                  restarts=2)
+    by_path["traced_al"], _ = _streaming_path(
+        "traced-al", gpu, solve, queue, FUSED_PATH,
+        check=lambda r: _al_gate(r, "traced-al"),
+        note="the AL-derived OCP of the bench OCP's callables: ")
+    if by_path["traced_al"]["riccati_backward"]:
+        raise AssertionError("traced-al launched K1")
+    print(f"[traced] phase wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return by_path, k2_rows, k3_rows, err
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3407,7 +3769,7 @@ def main() -> int:
 
     def run_build():
         try:
-            outcome["built"] = build(HELD_SIZES)
+            outcome["built"] = build(HELD_SIZES, traced_programs())
         except BaseException as exc:   # raised below, in the main thread
             outcome["error"] = exc
 
@@ -3451,7 +3813,7 @@ def main() -> int:
 
 def _phases(dev, gpu, refs, compat):
     """Phases 3-19, the hold of phase 20 (``compat``: what
-    ``phase_compat`` returned), phases 21 and 22; returns the kernels' JSON
+    ``phase_compat`` returned), phases 21 to 23; returns the kernels' JSON
     entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
@@ -3488,6 +3850,12 @@ def _phases(dev, gpu, refs, compat):
     paths, meas["riccati_backward"]["bw_cases"] = phase_bw(dev, gpu, res_main,
                                                            refs)
     by_path.update(paths)
+    paths, k2_rows, k3_rows, err = phase_traced(dev, gpu, res_main, refs)
+    by_path.update(paths)
+    for name, rows in (("linesearch_forward", k2_rows),
+                       ("fused_backward", k3_rows)):
+        meas[name]["traced_cases"] = rows
+        meas[name]["max_abs_err"] = max(meas[name]["max_abs_err"], err[name])
 
     # launches: K1 and K2 on the main path (phase 5), K3 on this slice's
     # entry point, the fleet; every path's counts are in launches_by_path

@@ -7,12 +7,15 @@
 // model on variables seeded by Dual::var gives every first and second
 // derivative in one pass: forward over forward, the order of the JAX fused
 // kernel's nested jacfwd (mpc_verde_tpu/ops/pallas/fused.py, dfun).  Only
-// what the device models (unicycle.cuh, linear_rate.cuh, frenet_rate.cuh)
-// need is defined: + - * between duals and with float constants, / by a
-// float constant, the reciprocal and with it / of a float or a dual by a
-// dual, sin, cos, tan and log, and max with a constant that follows the value
-// as jnp.maximum does.  chain_coeffs in ops/cuda/fused.py is the PyTorch twin
-// of the scalar functions' chain rule.
+// what the device models (unicycle.cuh, linear_rate.cuh, frenet_rate.cuh and
+// the models generated from a trace, ops/cuda/codegen.py) need is defined:
+// + - * between duals and with float constants, negation, / by a float
+// constant, the reciprocal and with it / of a float or a dual by a dual, sin,
+// cos, tan, log, exp, sqrt and abs, max with a constant that follows the
+// value as jnp.maximum does, and torch.maximum / torch.minimum of two duals,
+// which follow the value as well.  CHAIN_COEFFS in ops/cuda/fused.py is the
+// PyTorch twin of the scalar functions' chain rule.  A select on a value
+// condition (torch.where) is a plain `c ? a : b` that copies the whole dual.
 //
 // Size: Dual<5, true> is 21 floats, and an RK4 step on three of them keeps
 // about 18 live; see fused.cu for what ptxas makes of that.
@@ -22,6 +25,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "scalar.cuh"
 #include "tri.cuh"
 
 namespace {
@@ -230,6 +234,74 @@ template <int NZ, bool H>
 __device__ __forceinline__ float mv_value(const Dual<NZ, H>& a) {
   return a.v;
 }
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> operator-(const Dual<NZ, H>& a) {
+  Dual<NZ, H> r = (-1.0f) * a;
+  r.v = -a.v;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_exp(const Dual<NZ, H>& a) {
+  const float e = expf(a.v);
+  return chain(a, e, e, e);
+}
+
+// sqrt' = 1 / (2 s), sqrt'' = -1 / (4 s^3) at s = sqrt(a.v)
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_sqrt(const Dual<NZ, H>& a) {
+  const float s = sqrtf(a.v), r = 1.0f / s;
+  return chain(a, s, 0.5f * r, -0.25f * (r * r * r));
+}
+
+// |a|' = sign(a) (0 at a = 0, as torch.abs differentiates it), |a|'' = 0
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_abs(const Dual<NZ, H>& a) {
+  return chain(a, fabsf(a.v), a.v > 0.0f ? 1.0f : (a.v < 0.0f ? -1.0f : 0.0f), 0.0f);
+}
+
+// torch.maximum(a, b): the larger's derivatives, the mean of both at a tie
+// (as torch differentiates it), a NaN of either side propagating.
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_maximum(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  if (a.v > b.v || a.v != a.v) return a;
+  if (b.v > a.v || b.v != b.v) return b;
+  Dual<NZ, H> r = 0.5f * (a + b);
+  r.v = a.v;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_minimum(const Dual<NZ, H>& a, const Dual<NZ, H>& b) {
+  if (a.v < b.v || a.v != a.v) return a;
+  if (b.v < a.v || b.v != b.v) return b;
+  Dual<NZ, H> r = 0.5f * (a + b);
+  r.v = a.v;
+  return r;
+}
+
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_maximum(const Dual<NZ, H>& a, float b) {
+  return mv_maximum(a, Dual<NZ, H>(b));
+}
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_maximum(float a, const Dual<NZ, H>& b) {
+  return mv_maximum(Dual<NZ, H>(a), b);
+}
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_minimum(const Dual<NZ, H>& a, float b) {
+  return mv_minimum(a, Dual<NZ, H>(b));
+}
+template <int NZ, bool H>
+__device__ __forceinline__ Dual<NZ, H> mv_minimum(float a, const Dual<NZ, H>& b) {
+  return mv_minimum(Dual<NZ, H>(a), b);
+}
+
+template <int NZ, bool H>
+struct MvScalar<Dual<NZ, H>> {
+  using type = float;
+};
 
 // jnp.maximum(c, a) for a constant c, derivatives included: a's where
 // a > c (or a is NaN), none where a < c, and half of a's at a tie, as

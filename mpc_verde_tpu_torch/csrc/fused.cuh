@@ -7,9 +7,11 @@
 // derivatives, the terminal value and the step bounds, then K1's recursion.
 // The kernels are templates on the device model: the unicycle of
 // unicycle.cuh (instantiated in fused.cu), the linear rate-form model of
-// linear_rate.cuh with its curvature-cost variant (fused_linear.cu) and the
+// linear_rate.cuh with its curvature-cost variant (fused_linear.cu), the
 // Frenet rate-form model of frenet_rate.cuh (fused_frenet.cu, whose stage
-// type, StageOf, takes the derivatives over five seeds).  The derivatives come from the model
+// type, StageOf, takes the derivatives over five seeds) and a model
+// generated from the trace of an OCP's own callables (ops/cuda/codegen.py,
+// one unit per traced program, its terminal value from duals over x_N).  The derivatives come from the model
 // evaluated once on the dual numbers of dual.cuh over z = [x; u]: the
 // dynamics on second-order duals with DDP and first-order ones without, the
 // cost always on second-order ones, as the JAX kernel's nested-jacfwd pyramid
@@ -71,6 +73,7 @@
 
 #include <cuda_runtime.h>
 
+#include "box.cuh"
 #include "dual.cuh"
 #include "launch.cuh"
 #include "riccati.cuh"
@@ -150,7 +153,7 @@ __device__ __forceinline__ void linearize_stage(const Model& m, const float (&x)
   for (int a = 0; a < kNU; ++a) uz[a] = Dual<kNZ, true>::var(u[a], kNX + a);
   d.L = stage_cost(m, xz, uz, p);
   float lo[kNU], hi[kNU];
-  m.bounds(x, k, lo, hi);
+  model_box(m, x, p, k, lo, hi);
 #pragma unroll
   for (int a = 0; a < kNU; ++a) {
     d.lo_[a] = lo[a] - u[a];

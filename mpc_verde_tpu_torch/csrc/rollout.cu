@@ -51,26 +51,16 @@ extern "C" int mv_linesearch_forward(int kind, int B, int N, int npar, const flo
                                      const float* alphas, int n_alphas, float* xs_out,
                                      float* us_out, float* cost_out, int* best_out, int variant,
                                      int problems, const int* layout, void* stream) {
-  if (n_alphas < 1 || n_alphas > kMaxAlphas || kind < 0 || kind > 5)
-    return cudaErrorInvalidValue;
-  if (variant < 0 || variant > 2) return cudaErrorInvalidValue;
+  if (kind < 0 || kind > 5) return cudaErrorInvalidValue;
+  Alphas al;
+  LanesLayout L;
+  const cudaError_t err = linesearch_prepare(alphas, n_alphas, variant, problems, layout, al, L);
+  if (err != cudaSuccess) return err;
   const UnicycleModel m = kind == 0 ? unpack_model(model, model_ints) : UnicycleModel{};
   if (kind == 0 && !model_fits(m, npar)) return cudaErrorInvalidValue;
   if (B == 0) return 0;
-  Alphas al;
-  al.n = n_alphas;
-  for (int i = 0; i < kMaxAlphas; ++i) al.a[i] = i < n_alphas ? alphas[i] : 0.0f;
   const RolloutArgs g{x0, xs, us, ps, kff, K, xs_out, us_out, cost_out, best_out, B, N, npar};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LanesLayout L{};
-  if (variant != 0) {
-    int a_pad = 1;
-    while (a_pad < n_alphas) a_pad *= 2;
-    if (problems < 1 || problems * a_pad > 1024) return cudaErrorInvalidValue;
-    L = LanesLayout{problems,  a_pad,     layout[0], layout[1], layout[2], layout[3],
-                    layout[4], layout[5], layout[6], layout[7], layout[8]};
-    if (((L.xs | L.us | L.kff | L.K | L.ps) & 3) != 0) return cudaErrorInvalidValue;
-  }
   if (kind == 3) return mv_linesearch_frenet(model, model_ints, tables, g, al, variant, L, s);
   if (kind != 0) return mv_linesearch_linear(kind, model, model_ints, tables, g, al, variant, L, s);
   return linesearch_run(m, g, al, variant, L, s);

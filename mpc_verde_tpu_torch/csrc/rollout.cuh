@@ -51,11 +51,12 @@
 // block of 8 problems takes 84 KB of shared memory), the linear rate-form
 // model of linear_rate.cuh with its curvature-cost variant
 // (rollout_linear.cu) and the Frenet rate-form model of frenet_rate.cuh
-// (rollout_frenet.cu).  A model gives
-// kNX / kNU, the stage's box (bounds, evaluated on the state being rolled,
-// so a state-dependent box follows the candidate), the clip, and the
-// templates step / stage_cost / has_terminal_cost / terminal_cost, which K3
-// evaluates on dual numbers.  This header holds the kernels; each .cu file
+// (rollout_frenet.cu), and a model generated from the trace of an OCP's own
+// callables (ops/cuda/codegen.py, one unit per traced program).  A model
+// gives kNX / kNU, the stage's box (model_box of box.cuh, evaluated on the
+// state being rolled, so a state-dependent box follows the candidate), the
+// clip, and the templates step / stage_cost / has_terminal_cost /
+// terminal_cost, which K3 evaluates on dual numbers.  This header holds the kernels; each .cu file
 // that includes it, after its model's header, instantiates them for its
 // models and gives them one launcher (linesearch_run).
 
@@ -67,6 +68,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "box.cuh"
 #include "launch.cuh"
 
 constexpr int kMaxAlphas = 32;
@@ -120,7 +122,7 @@ __device__ float roll(const Problem& q, const Model& m, int N, int npar, float a
     const float* Kk = q.K + k * kNU * kNX;
     const float* p = q.ps + k * npar;
     float dx[kNX], u[kNU], lo[kNU], hi[kNU];
-    m.bounds(x, k, lo, hi);  // the box of the state being rolled
+    model_box(m, x, p, k, lo, hi);  // the box of the state being rolled
 #pragma unroll
     for (int i = 0; i < kNX; ++i) dx[i] = x[i] - xn[i];
 #pragma unroll
@@ -280,6 +282,28 @@ cudaError_t launch_lanes(const RolloutArgs& g, const Model& m, const Alphas& al,
   linesearch_lanes_kernel<Model, SLOTS>
       <<<blocks, L.pb * L.a_pad, L.total * sizeof(float), stream>>>(g, m, al, L);
   return cudaGetLastError();
+}
+
+// The alphas and the lanes plan as the kernels take them, from the C entry
+// points' host arrays (`layout`: the 9 ints of LanesLayout from `xs` on);
+// cudaErrorInvalidValue for a bad alpha count, variant or plan.
+inline cudaError_t linesearch_prepare(const float* alphas, int n_alphas, int variant,
+                                      int problems, const int* layout, Alphas& al,
+                                      LanesLayout& L) {
+  if (n_alphas < 1 || n_alphas > kMaxAlphas || variant < 0 || variant > 2)
+    return cudaErrorInvalidValue;
+  al.n = n_alphas;
+  for (int i = 0; i < kMaxAlphas; ++i) al.a[i] = i < n_alphas ? alphas[i] : 0.0f;
+  L = LanesLayout{};
+  if (variant != 0) {
+    int a_pad = 1;
+    while (a_pad < n_alphas) a_pad *= 2;
+    if (problems < 1 || problems * a_pad > 1024) return cudaErrorInvalidValue;
+    L = LanesLayout{problems,  a_pad,     layout[0], layout[1], layout[2], layout[3],
+                    layout[4], layout[5], layout[6], layout[7], layout[8]};
+    if (((L.xs | L.us | L.kff | L.K | L.ps) & 3) != 0) return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 // Launch `variant` (0 "thread", 1 "lanes", 2 "lanes_reroll") on model m; the

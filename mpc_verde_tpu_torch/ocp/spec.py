@@ -9,10 +9,19 @@ Two additions over the JAX spec:
 
 * ``device`` / ``dtype``: the tensors the callables close over (weights,
   bounds) live there, and the solvers cast their inputs to them.
-* ``device_model``: the plain-number description of the same problem that
-  the CUDA line-search kernel evaluates (``ops/cuda/rollout.py``).  CUDA code
-  cannot inline a Python callable the way the Pallas kernel inlines a jaxpr,
-  so a ``"cuda"`` solver needs it and refuses an OCP without one.
+* ``device_model``: a hand-written plain-number description of the same
+  problem that the CUDA kernels K2 and K3 evaluate (``ops/cuda/rollout.py``).
+  CUDA code cannot inline a Python callable the way the Pallas kernels
+  inline a jaxpr, so for an OCP without one the kernels run on a model
+  generated from the trace of its callables (``ops/cuda/trace.py``,
+  ``ops/cuda/codegen.py``), built at its first launch.  That model reads
+  the current values of the float tensors the callables close over, so a
+  weight or bound changed in place after the trace is followed by every
+  backend alike; an integer or bool tensor they close over is compiled
+  into the model, and changing one in place makes the next use raise.  A
+  name rebound to a new tensor is not seen (the trace holds the tensor it
+  read, as a JAX trace holds its constants), nor is a change to the values
+  a hand-written ``device_model`` was built from: build a new OCP then.
 """
 from __future__ import annotations
 
@@ -57,8 +66,9 @@ class OCP:
       x_lb, x_ub: optional (nx,) state box, enforced by the solvers'
         augmented Lagrangian (``options.al_iters`` rounds).
       device, dtype: where the callables' constants live.
-      device_model: kernel-side description of the same problem
-        (``ops.cuda.rollout.UnicycleDeviceModel``) or ``None``.
+      device_model: hand-written kernel-side description of the same
+        problem (``ops.cuda.rollout.UnicycleDeviceModel`` and its kin) or
+        ``None`` (the kernels then trace the callables).
     """
 
     dynamics: Callable

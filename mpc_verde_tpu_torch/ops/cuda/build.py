@@ -7,7 +7,11 @@ Two kinds of library, each a plain C interface loaded with ``ctypes``:
 * K1 (the Riccati backward pass), one library per (nx, nu): two generated
   translation units, one per variant (``riccati_units``), compiled by two
   ``nvcc`` processes and linked.  A size is built the first time it is
-  used, so a process pays for the sizes it runs and no other.
+  used, so a process pays for the sizes it runs and no other;
+* K2 and K3 on a device model generated from the trace of an OCP's own
+  callables (``trace.py``, ``codegen.py``), one library per traced program:
+  its K2 unit and its K3 unit (``codegen.units``), entry points named with
+  the hash of the model's text, built the first time the program runs.
 
 Tensors pass as ``data_ptr()`` integers and the launch goes on PyTorch's
 current stream.  Nothing here includes PyTorch's headers, whose build takes
@@ -17,8 +21,8 @@ A library is built into ``mpc_verde_tpu_torch/_build/`` (ignored by git)
 under a name that carries a hash of its units' text, of every header they
 include and of the flags: a changed source builds a new library.  The file
 appears by an atomic rename, so concurrent builds never see half of one.
-``build(riccati_sizes)`` starts the ``nvcc`` processes of every library it
-is given together.  A failed ``nvcc`` raises with its log; nothing falls
+``build(riccati_sizes, programs)`` starts the ``nvcc`` processes of every
+library it is given together.  A failed ``nvcc`` raises with its log; nothing falls
 back.  ``python -m mpc_verde_tpu_torch.ops.cuda.build [nx,nu ...]`` builds
 the kernels library and K1 at the given sizes and prints, per unit, the
 seconds ``nvcc`` took and ``ptxas``'s register and spill report.
@@ -38,6 +42,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+
+from .codegen import program_hash, units as traced_units
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -188,6 +194,12 @@ def riccati_library_path(nx: int, nu: int) -> Path:
     return _library(f"mv_riccati_{nx}x{nu}", riccati_units(nx, nu))
 
 
+def traced_library_path(program) -> Path:
+    """Path of the library of a traced program's K2 and K3."""
+    return _library(f"mv_traced_{program_hash(program)}",
+                    traced_units(program))
+
+
 def _compile(libraries: dict) -> dict:
     """Build every library of ``libraries`` ({path: units}) that does not
     exist: each unit by its own nvcc process, all started together; then
@@ -249,16 +261,20 @@ def _compile(libraries: dict) -> dict:
     return results
 
 
-def build(riccati_sizes=()) -> dict:
-    """Build the kernels library and K1's library at each (nx, nu) of
-    ``riccati_sizes``, every nvcc process of every library not yet built
-    started together.  Returns {"kernels" or "riccati_<nx>x<nu>":
-    BuildResult}; a library that exists comes back with 0.0 seconds and an
-    empty log."""
+def build(riccati_sizes=(), programs=()) -> dict:
+    """Build the kernels library, K1's library at each (nx, nu) of
+    ``riccati_sizes`` and the library of each traced program of
+    ``programs`` (``trace.Program``), every nvcc process of every library
+    not yet built started together.  Returns {"kernels",
+    "riccati_<nx>x<nu>" or "traced_<hash>": BuildResult}; a library that
+    exists comes back with 0.0 seconds and an empty log."""
     wanted = {"kernels": (library_path(), _kernels_units())}
     for nx, nu in riccati_sizes:
         wanted[f"riccati_{nx}x{nu}"] = (riccati_library_path(nx, nu),
                                         riccati_units(nx, nu))
+    for program in programs:
+        wanted[f"traced_{program_hash(program)}"] = (
+            traced_library_path(program), traced_units(program))
     built = _compile({path: units for path, units in wanted.values()
                       if not path.is_file()})
     return {key: built.get(path, BuildResult(path, 0.0, ""))
@@ -267,6 +283,7 @@ def build(riccati_sizes=()) -> dict:
 
 _LIB = None
 _RICCATI = {}
+_TRACED = {}
 
 
 def load_library() -> ctypes.CDLL:
@@ -295,6 +312,22 @@ def riccati_entry(nx: int, nu: int):
         fn.restype = _I
         _RICCATI[(nx, nu)] = fn
     return _RICCATI[(nx, nu)]
+
+
+def traced_entry(program, name: str):
+    """The entry point ``name`` ("mv_linesearch_forward" or
+    "mv_fused_backward", the kernels library's signatures) of a traced
+    program's library, built at first use and loaded once per process."""
+    h = program_hash(program)
+    if h not in _TRACED:
+        path = traced_library_path(program)
+        if not path.is_file():
+            _compile({path: traced_units(program)})
+        _TRACED[h] = ctypes.CDLL(str(path))
+    fn = getattr(_TRACED[h], f"{name}_{h}")
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = _I
+    return fn
 
 
 def check_args(name: str, device: torch.device, named) -> None:

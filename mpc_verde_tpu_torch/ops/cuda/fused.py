@@ -11,8 +11,10 @@ Its kernel is ``csrc/fused.cu``, two phases in one launch.  In phase 1 a
 block's threads take its problems' stages one (problem, stage) at a time:
 each evaluates the OCP's device model (``UnicycleDeviceModel``,
 ``csrc/unicycle.cuh``, ``LinearRateDeviceModel``, ``csrc/linear_rate.cuh``,
-or ``FrenetRateDeviceModel``, ``csrc/frenet_rate.cuh``: the models K2
-evaluates; the kernels, templates on the model, are in ``csrc/fused.cuh``)
+``FrenetRateDeviceModel``, ``csrc/frenet_rate.cuh``, or for an OCP without
+one the ``TracedDeviceModel`` generated from its callables, ``codegen.py``:
+the models K2 evaluates; the kernels, templates on the model, are in
+``csrc/fused.cuh``)
 on second-order forward-mode dual numbers (``csrc/dual.cuh``) over z = [x;
 u] and stores the stage's derivatives as one record in shared memory.  The
 Frenet model's duals run over its five numbers (x, u_prev + w) and its
@@ -38,9 +40,9 @@ from typing import Optional
 import torch
 
 from ..linearize import trajectory_derivatives
-from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
-                    load_library)
+from .build import SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch
 from .riccati import riccati_backward_torch
+from .rollout import kernel_model, model_entry
 
 FUSED_VARIANTS = ("thread", "staged")  # the C entry's ids
 # The plan's constants follow measurements on the H100
@@ -72,6 +74,10 @@ CHAIN_COEFFS = {
                       2.0 * torch.tan(a) * (1.0 + torch.tan(a) ** 2)),
     "log": lambda a: (torch.log(a), 1.0 / a, -(1.0 / a) ** 2),
     "recip": lambda a: (1.0 / a, -(1.0 / a) ** 2, 2.0 * (1.0 / a) ** 3),
+    "exp": lambda a: (torch.exp(a), torch.exp(a), torch.exp(a)),
+    "sqrt": lambda a: (torch.sqrt(a), 0.5 / torch.sqrt(a),
+                       -0.25 / torch.sqrt(a) ** 3),
+    "abs": lambda a: (torch.abs(a), torch.sign(a), torch.zeros_like(a)),
 }
 
 
@@ -166,11 +172,7 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
     timing instantiation and the block cycles are appended to the outputs."""
     if not xs.is_cuda:
         raise ValueError(f"fused_backward: unsupported device {xs.device}")
-    model = ocp.device_model
-    if model is None:
-        raise NotImplementedError(
-            "fused_backward on CUDA needs ocp.device_model (the kernel "
-            "cannot differentiate Python callables)")
+    model = kernel_model(ocp)
     B, N, nu = us.shape
     nx, npar = xs.shape[-1], ps.shape[-1]
     if (nx, nu) != (model.nx, model.nu) or npar < model.min_npar:
@@ -184,7 +186,7 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
     check_args("fused_backward", xs.device, named)
     plan = fused_launch_plan(N, use_ddp, variant, B, nx=nx, nu=nu)
 
-    lib = load_library()
+    launch = model_entry(model, "mv_fused_backward")
     opts = dict(dtype=torch.float32, device=xs.device)
     kff = torch.empty((B, N, nu), **opts)
     K = torch.empty((B, N, nu, nx), **opts)
@@ -198,7 +200,7 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
     c_model, c_ints, c_tables = model.kernel_args(xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mv_fused_backward(
+        rc = launch(
             model.kind, int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), reg.data_ptr(), ddp_scale.data_ptr(),
             c_model, c_ints, c_tables, kff.data_ptr(),
@@ -218,8 +220,11 @@ def fused_backward(xs, us, ps, reg, ddp_scale=None, *, ocp,
     Same arguments and results as ``fused_backward_torch``, which is what
     runs when the tensors lie on the CPU.  On the card the kernel evaluates
     ``ocp.device_model`` (its dynamics, stage cost, terminal weight and
-    control box); an OCP without one raises ``NotImplementedError``.  CUDA
-    tensors must be contiguous float32.  The kernel's variant is
+    control box), or for an OCP without one the model traced from its
+    callables (``rollout.traced_device_model``, whose library builds at its
+    first launch); a callable that does not lower raises
+    ``NotImplementedError``, a failed build ``RuntimeError``.  CUDA tensors
+    must be contiguous float32.  The kernel's variant is
     ``fused_launch_plan``'s choice for the shape; ``variant`` forces another
     for a comparison on the card (the solvers never pass it).  ``launches``
     counts every launch and ``launches_by_variant`` the launches of each

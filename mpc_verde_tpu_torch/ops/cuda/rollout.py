@@ -25,9 +25,14 @@ The plan also computes the kernel's shared-memory layout, which the C entry
 point takes as it is.
 
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
-Python callable, so the kernel evaluates a device model carried on the OCP:
+Python callable, so the kernel evaluates a device model: the one the OCP
+carries, or for an OCP given only by its callables the
+``TracedDeviceModel`` generated from their trace (``traced_device_model``:
+``trace.py`` lowers the callables to a scalar program, ``codegen.py`` writes
+it as a model, and its own library instantiates the kernel on it, as the
+Pallas kernel inlines the traced jaxpr).  Three hand-written models exist,
 plain numbers describing the same dynamics, cost and box as the OCP's torch
-callables.  Three models exist: ``UnicycleDeviceModel``
+callables: ``UnicycleDeviceModel``
 (``csrc/unicycle.cuh``), ``LinearRateDeviceModel`` (``csrc/linear_rate.cuh``),
 the rate form of a linear plant that ``ocp/rate.py`` builds, with the
 quadratic cost or the curvature family's, and ``FrenetRateDeviceModel``
@@ -53,7 +58,8 @@ import torch
 from torch.func import vmap
 
 from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
-                    load_library)
+                    load_library, traced_entry)
+from .trace import Program, trace_ocp
 
 MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cuh: one problem's lanes fit a warp
 LINESEARCH_VARIANTS = ("thread", "lanes", "lanes_reroll")  # the C entry's ids
@@ -773,6 +779,130 @@ class FrenetRateDeviceModel(_RateFormModel):
                 + l5 * zt ** 2) / (self.N + 1)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TracedDeviceModel:
+    """Kernel-side model generated from the trace of an OCP's own callables.
+
+    ``program`` is ``trace.trace_ocp``'s scalar program of the dynamics,
+    stage cost, terminal cost and control box; ``codegen.py`` writes it as a
+    CUDA model, and the program's own library (``build.traced_entry``)
+    instantiates K2 and K3 on it.  The kernels read the hoisted constants
+    from ``table(device)``, which follows a hoisted tensor changed in place.
+    ``step`` / ``stage_cost`` / ``terminal_cost`` / ``bounds`` evaluate the
+    program in PyTorch (``Program.evaluate``), the twin of the generated
+    code.  ``with_barrier`` and ``with_al`` return None: the solvers'
+    derived OCPs are traced themselves, as the JAX package traces the
+    augmented callables.
+    """
+
+    program: Program
+    kind = 0   # the C entry points' model kind, which the program's ignore
+
+    def __post_init__(self):
+        object.__setattr__(self, "_tables", {})
+        object.__setattr__(self, "_entries", {})
+
+    @property
+    def nx(self) -> int:
+        return self.program.nx
+
+    @property
+    def nu(self) -> int:
+        return self.program.nu
+
+    @property
+    def min_npar(self) -> int:
+        return self.program.min_npar
+
+    def with_barrier(self, lb, ub, mu_col: int, rule: str, clip: bool = True):
+        """None: the barrier-derived OCP is traced itself."""
+        return None
+
+    def with_al(self, x_lb, x_ub, lam_col: int):
+        """None: the AL-derived OCP is traced itself."""
+        return None
+
+    def table(self, device) -> torch.Tensor:
+        """The hoisted constants as the kernels read them: float32 on
+        ``device`` (one float at least, so that the pointer is never null).
+        One buffer a device, refilled whenever a hoisted tensor has changed
+        in place since the last call (its version counter moved), so the
+        kernels read the weights the callables read."""
+        device = torch.device(device)
+        versions = self.program.versions()
+        held = self._tables.get(device)
+        if held is None or versions is None or held[0] != versions:
+            values = self.program.table(torch.float32, device)
+            buf = held[1] if held is not None else torch.zeros(
+                max(values.numel(), 1), dtype=torch.float32, device=device)
+            buf[:values.numel()].copy_(values)
+            self._tables[device] = (versions, buf)
+        return self._tables[device][1]
+
+    def kernel_args(self, device):
+        """The model as the kernels' C entry points take it: (no packed
+        floats, no packed ints, the device pointer of ``table(device)``)."""
+        return None, None, self.table(device).data_ptr()
+
+    def entry(self, name: str):
+        """The C entry point ``name`` of the program's library (built at
+        the first call, then kept)."""
+        if name not in self._entries:
+            self._entries[name] = traced_entry(self.program, name)
+        return self._entries[name]
+
+    # --- the program in PyTorch (batched over leading dims) ---------------
+    def _eval(self, key, like, **inputs):
+        return self.program.evaluate(self.program.outputs[key], like=like,
+                                     **inputs)
+
+    def step(self, x, u, p):
+        return torch.stack(self._eval("step", x, x=x, u=u, p=p), dim=-1)
+
+    def stage_cost(self, x, u, p):
+        return self._eval("stage_cost", x, x=x, u=u, p=p)[0]
+
+    def terminal_cost(self, x, p):
+        if "terminal_cost" not in self.program.outputs:
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        return self._eval("terminal_cost", x, x=x, p=p)[0]
+
+    def bounds(self, x, p, k):
+        """Stage ``k``'s box at (x, p): k an int, or an integer tensor of
+        x's leading dims; (-inf, inf) without a control box."""
+        if "lb" not in self.program.outputs:
+            inf = torch.full(x.shape[:-1] + (self.nu,), torch.inf,
+                             dtype=x.dtype, device=x.device)
+            return -inf, inf
+        return tuple(torch.stack(self._eval(key, x, x=x, p=p, k=k), dim=-1)
+                     for key in ("lb", "ub"))
+
+
+def traced_device_model(ocp) -> TracedDeviceModel:
+    """The device model generated from the trace of ``ocp``'s callables
+    (raises ``NotImplementedError`` for an op outside ``trace.LOWERINGS``),
+    traced once per OCP object: the model is kept on the OCP."""
+    model = ocp.__dict__.get("_traced_device_model")
+    if model is None:
+        model = TracedDeviceModel(trace_ocp(ocp))
+        object.__setattr__(ocp, "_traced_device_model", model)
+    return model
+
+
+def kernel_model(ocp):
+    """The device model the kernels evaluate for ``ocp``: its own
+    ``device_model``, else the one traced from its callables."""
+    return ocp.device_model if ocp.device_model is not None else \
+        traced_device_model(ocp)
+
+
+def model_entry(model, name: str):
+    """The C entry point ``name`` that launches the kernel on ``model``."""
+    if isinstance(model, TracedDeviceModel):
+        return model.entry(name)
+    return getattr(load_library(), name)
+
+
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
                              *, ocp):
     """Plain PyTorch line search on ``ocp``'s callables (same contract as the kernel).
@@ -832,9 +962,11 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     Same arguments and results as ``linesearch_forward_torch``, which is
     what runs when the tensors lie on the CPU.  On the card the kernel
     evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel``, a
-    ``LinearRateDeviceModel`` or a ``FrenetRateDeviceModel``); an OCP
-    without one raises
-    ``NotImplementedError``.  CUDA tensors must be contiguous float32.
+    ``LinearRateDeviceModel`` or a ``FrenetRateDeviceModel``), or for an OCP
+    without one the model traced from its callables
+    (``traced_device_model``, whose library builds at its first launch); a
+    callable that does not lower raises ``NotImplementedError``, a failed
+    build ``RuntimeError``.  CUDA tensors must be contiguous float32.
     The kernel's variant is ``linesearch_launch_plan``'s choice for the
     shape; ``variant`` forces another for a comparison on the card (the
     solvers never pass it).  ``launches`` counts every launch and
@@ -845,11 +977,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
                                         ocp=ocp)
     if not x0.is_cuda:
         raise ValueError(f"linesearch_forward: unsupported device {x0.device}")
-    model = ocp.device_model
-    if model is None:
-        raise NotImplementedError(
-            "linesearch_forward on CUDA needs ocp.device_model (the kernel "
-            "cannot evaluate Python callables)")
+    model = kernel_model(ocp)
     B, N, nu = us.shape
     nx, npar = x0.shape[-1], ps.shape[-1]
     A = len(alphas)
@@ -862,7 +990,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
              ("kffs", kffs, (B, N, nu)), ("Ks", Ks, (B, N, nu, nx))]
     check_args("linesearch_forward", x0.device, named)
 
-    lib = load_library()
+    launch = model_entry(model, "mv_linesearch_forward")
     opts = dict(dtype=torch.float32, device=x0.device)
     xs_o = torch.empty((B, N + 1, nx), **opts)
     us_o = torch.empty((B, N, nu), **opts)
@@ -872,7 +1000,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     c_alphas = (ctypes.c_float * A)(*map(float, alphas))
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mv_linesearch_forward(
+        rc = launch(
             model.kind, B, N, npar, x0.data_ptr(), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(),
             c_model, c_ints, c_tables, c_alphas, A, xs_o.data_ptr(),

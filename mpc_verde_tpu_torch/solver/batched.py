@@ -21,11 +21,15 @@ Backends:
     ``riccati_backward_pallas`` does; the rest stays in the OCP's dtype.
   * ``"cuda"``  — the hand-written kernels: Riccati backward
     (``ops/cuda/riccati.py``) and fused line search / pre-roll
-    (``ops/cuda/rollout.py``).  Needs a float32 OCP on a CUDA device with a
-    ``device_model``.
+    (``ops/cuda/rollout.py``).  Needs a float32 OCP on a CUDA device.  The
+    line search evaluates the OCP's ``device_model``, or for an OCP given
+    only by its callables the model generated from their trace
+    (``ops/cuda/trace.py``, ``ops/cuda/codegen.py``; its library builds at
+    the first launch), as JAX's ``"pallas"`` inlines the callables' jaxpr.
   * ``"cuda_fused"`` — the fused derivs+backward kernel
     (``ops/cuda/fused.py``) in place of derivs -> backward, and the same
-    line search / pre-roll kernel as ``"cuda"``.  Same requirements.  The
+    line search / pre-roll kernel as ``"cuda"``.  Same requirements, and the
+    same device model, traced where the OCP has none.  The
     JAX ``"pallas_fused"`` backend keeps the XLA scan line search (its
     forward kernel runs only under ``"pallas"``); PyTorch has no scan
     compiler, so here the line-search kernel stands in for it: it computes
@@ -37,7 +41,7 @@ Backends:
     of ``"cuda"``.  Gauss-Newton on the unbounded LQ subproblem: an OCP
     with a control box raises (compose bounds with the barrier or AL
     solvers), and ``use_ddp`` is forced off.  On a CUDA device it needs a
-    float32 OCP with a ``device_model``, as the line search does.
+    float32 OCP, as the line search does.
 
 On CPU tensors every kernel wrapper runs its twin, so ``"cuda_bw"``,
 ``"cuda"``, ``"cuda_fused"`` and ``"scan"`` on the CPU give the ``"torch"``
@@ -70,7 +74,8 @@ from ..ops.cuda.fused import fused_backward
 from ..ops.cuda.build import check_riccati_size
 from ..ops.cuda.riccati import (riccati_backward, riccati_backward_cast,
                                 riccati_backward_torch)
-from ..ops.cuda.rollout import linesearch_forward, linesearch_forward_torch
+from ..ops.cuda.rollout import (kernel_model, linesearch_forward,
+                                linesearch_forward_torch)
 from ..ops.linearize import trajectory_derivatives
 from ..ops.parallel_riccati import lq_backward_parallel
 from .ilqr import ILQROptions, ILQRResult
@@ -122,11 +127,6 @@ def _check_ocp(ocp: OCP, backend: str):
     if backend in ("cuda_bw", "cuda", "cuda_fused"):
         check_riccati_size(ocp.nx, ocp.nu)
     if backend in ("cuda", "cuda_fused"):
-        if ocp.device_model is None:
-            raise NotImplementedError(
-                f"backend={backend!r} needs ocp.device_model: the kernels "
-                "cannot evaluate Python callables (backend=\"cuda_bw\" runs "
-                "K1 on them)")
         if ocp.dtype != torch.float32:
             raise TypeError(f"backend={backend!r} runs float32 kernels; build "
                             f"the OCP in float32, not {ocp.dtype}, or pass "
@@ -137,13 +137,15 @@ def _check_ocp(ocp: OCP, backend: str):
                 "backend='scan' solves the unbounded LQ subproblem; use "
                 "'torch'/'cuda' for exact control boxes, or compose bounds "
                 "via the IPM/AL outer loops")
-        if ocp.device.type == "cuda" and ocp.device_model is None:
-            raise NotImplementedError(
-                "backend='scan' on a CUDA device runs the line-search kernel, "
-                "which needs ocp.device_model")
         if ocp.device.type == "cuda" and ocp.dtype != torch.float32:
             raise TypeError("backend='scan' on a CUDA device runs the float32 "
                             f"line-search kernel, not {ocp.dtype}")
+    if backend in ("cuda", "cuda_fused") or (backend == "scan"
+                                             and ocp.device.type == "cuda"):
+        # the model the kernels evaluate: the OCP's own, or the one traced
+        # from its callables, traced now so that a callable that does not
+        # lower raises here (NotImplementedError), before any solve
+        kernel_model(ocp)
 
 
 def backend_options(opt: ILQROptions, backend: str) -> ILQROptions:

@@ -229,16 +229,20 @@ def test_default_backend_reads_the_derived_ocp(case, monkeypatch):
 
 
 def test_explicit_kernel_backends_still_refuse_what_they_cannot_run():
-    """"cuda" and "cuda_fused" keep their requirements: a device model,
-    float32; "cuda_bw" needs neither, and every kernel backend refuses
-    nu > 4."""
+    """"cuda" and "cuda_fused" keep their requirements: float32, and an OCP
+    without a device model only where its callables lower to the model the
+    kernels run (ops/cuda/trace.py); "cuda_bw" needs neither, and every
+    kernel backend refuses nu > 4."""
     ocp64 = bench_ocp(10, "cpu", torch.float64)
+    bare = dataclasses.replace(BENCH, device_model=None)
+    atan2 = dataclasses.replace(bare, stage_cost=lambda x, u, p: torch.atan2(
+        x[1], x[0]) + BENCH.stage_cost(x, u, p))
     for backend in ("cuda", "cuda_fused"):
         with pytest.raises(TypeError, match="float32"):
             mt.make_batched_ilqr_solver(ocp64, backend=backend)
-        with pytest.raises(NotImplementedError, match="device_model"):
-            mt.make_batched_ilqr_solver(
-                dataclasses.replace(BENCH, device_model=None), backend=backend)
+        with pytest.raises(NotImplementedError, match="stage_cost.*atan2"):
+            mt.make_batched_ilqr_solver(atan2, backend=backend)
+        mt.make_batched_ilqr_solver(bare, backend=backend)
     mt.make_batched_ilqr_solver(ocp64, backend="cuda_bw")
     mt.make_batched_ilqr_solver(dataclasses.replace(BENCH, device_model=None),
                                 backend="cuda_bw")

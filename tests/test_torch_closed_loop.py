@@ -70,9 +70,12 @@ def test_cuda_fused_refuses_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="float32"):
         mt.make_batched_ilqr_solver(ocp, backend="cuda_fused")
     ocp = bench_ocp(10, "cpu", torch.float32)
-    with pytest.raises(NotImplementedError, match="device_model"):
-        mt.make_streaming_solver(dataclasses.replace(ocp, device_model=None),
-                                 backend="cuda_fused")
+    # without a device model the kernels run the model traced from the
+    # callables, which must lower to it
+    atan2 = dataclasses.replace(ocp, device_model=None, dynamics=lambda x, u, p:
+                                ocp.dynamics(x, u, p) + torch.atan2(x, u[:1]))
+    with pytest.raises(NotImplementedError, match="dynamics.*atan2"):
+        mt.make_streaming_solver(atan2, backend="cuda_fused")
 
 
 def _close(res_t, res_j, iters=1):

@@ -48,12 +48,29 @@ K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "dV2": 1e-3, "gmax": 1e-4}
 CARD_K1_SIZES = HELD_SIZES + ((8, 4),)
 
 
+def _traced_programs():
+    """The programs of the OCPs these tests run from their callables, traced
+    on the CPU (the text, and so the library, is the card's)."""
+    import chip_smoke as cs
+    from chip_smoke import TERM_BOX
+    from mpc_verde_tpu_torch.interop import derived_ocps
+    from mpc_verde_tpu_torch.ops.cuda.trace import trace_ocp
+
+    bare = lambda **kw: dataclasses.replace(bench_ocp(40, "cpu", **kw),
+                                            device_model=None)
+    ocps = [bare(), bare(box=False),
+            *(cs.user_ocp(name, "cpu") for name in cs.USER_OCPS),
+            *derived_ocps(bare(x_lb=TERM_BOX[0], x_ub=TERM_BOX[1])).values()]
+    return [trace_ocp(o) for o in ocps]
+
+
 @pytest.fixture(scope="module")
 def _libraries():
-    """The kernels library and K1 at every size these tests launch, built
-    once and together (one nvcc process a unit, all started at once)."""
+    """The kernels library, K1 at every size these tests launch and the
+    traced programs' libraries, built once and together (one nvcc process a
+    unit, all started at once)."""
     if torch.cuda.is_available():
-        build_mod.build(CARD_K1_SIZES)
+        build_mod.build(CARD_K1_SIZES, _traced_programs())
 
 
 @pytest.fixture
@@ -303,10 +320,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shape"):
         linesearch_forward(z(8, 3), z(8, 4, 3), z(8, 4, 2), z(8, 5, 3),
                            z(8, 4, 2), z(8, 4, 2, 3), (1.0,), ocp=ocp)
-    with pytest.raises(NotImplementedError, match="device_model"):
+    # without a device model the callables are traced, and one outside the
+    # lowering table raises before any launch
+    atan2 = dataclasses.replace(ocp, device_model=None, stage_cost=lambda x, u,
+                                p: torch.atan2(x[1], x[0]))
+    with pytest.raises(NotImplementedError, match="stage_cost.*atan2"):
         linesearch_forward(z(8, 3), z(8, 5, 3), z(8, 4, 2), z(8, 5, 3),
-                           z(8, 4, 2), z(8, 4, 2, 3), (1.0,),
-                           ocp=dataclasses.replace(ocp, device_model=None))
+                           z(8, 4, 2), z(8, 4, 2, 3), (1.0,), ocp=atan2)
     assert riccati_backward.launches == k1_before
     assert linesearch_forward.launches == k2_before
 
@@ -435,9 +455,10 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fused_backward(strided, us, ps, reg, ddp, ocp=ocp)
     with pytest.raises(ValueError, match="shape"):
         fused_backward(xs, us, ps, reg[:4], ddp, ocp=ocp)
-    with pytest.raises(NotImplementedError, match="device_model"):
-        fused_backward(xs, us, ps, reg, ddp,
-                       ocp=dataclasses.replace(ocp, device_model=None))
+    atan2 = dataclasses.replace(ocp, device_model=None, stage_cost=lambda x, u,
+                                p: torch.atan2(x[1], x[0]))
+    with pytest.raises(NotImplementedError, match="stage_cost.*atan2"):
+        fused_backward(xs, us, ps, reg, ddp, ocp=atan2)
     assert fused_backward.launches == before
 
 
@@ -943,9 +964,30 @@ def test_scan_backend_runs_k2_and_matches_torch_float64(dev):
 
 
 def test_scan_backend_needs_a_device_model_on_the_card(dev):
-    ocp = dataclasses.replace(bench_ocp(8, dev, box=False), device_model=None)
-    with pytest.raises(NotImplementedError):
-        mt.make_batched_ilqr_solver(ocp, mt.ILQROptions(), backend="scan")
+    """"scan" on the card runs K2 on a device model: for an OCP given by its
+    callables the one traced from them (the traced K2 alone launches, as
+    the hand-written model's does), and a callable outside the lowering
+    table raises NotImplementedError before any solve."""
+    N, B = 16, 8
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4, use_ddp=False)
+    ocp = bench_ocp(N, dev, box=False)
+    bare = dataclasses.replace(ocp, device_model=None)
+    rng = np.random.default_rng(18)
+    x0 = rng.uniform(-1, 1, (B, 3))
+    ps = np.broadcast_to(np.array([3.0, 3.0, 0.0]), (B, N + 1, 3)).copy()
+    rs, ran = _kernels_ran(lambda: mt.make_batched_ilqr_solver(
+        bare, opts, backend="scan")(x0, ps))
+    assert ran == {"linesearch_forward"}
+    rh = mt.make_batched_ilqr_solver(ocp, opts, backend="scan")(x0, ps)
+    # the two models round alike but for the compiler's contractions:
+    # costs to 1e-3 relative, as the test above holds "scan" to float64
+    assert bool(rs.converged.all()) and bool(rh.converged.all())
+    assert float(((rs.cost - rh.cost).abs() / rh.cost.abs()).max()) <= 1e-3
+    atan2 = dataclasses.replace(bare, stage_cost=lambda x, u, p: torch.atan2(
+        x[1], x[0]))
+    with pytest.raises(NotImplementedError, match="stage_cost.*atan2"):
+        mt.make_batched_ilqr_solver(atan2, opts, backend="scan")
 
 
 def test_lqr_warm_start_runs_k1_and_k2(dev):
@@ -1182,3 +1224,215 @@ def test_failed_k1_build_raises_with_its_log(dev, tmp_path, monkeypatch):
     assert riccati_backward.launches == before
     assert riccati_backward_torch.cuda_calls == 0
     assert not list(tmp_path.glob("*.so"))
+
+
+# ---- K2 and K3 on the device model traced from an OCP's callables ----------
+
+@pytest.mark.parametrize("variant", [None, "thread", "lanes_reroll"])
+def test_traced_linesearch_matches_the_unicycle_model(dev, variant):
+    """K2 on the bench OCP built from its callables (the model traced from
+    them) against K2 on the hand-written unicycle model, on chip_smoke.py
+    phase 4's inputs: costs, picks and trajectories within phase 4's
+    tolerances (1e-5 cost, 1e-4 trajectory, same alpha >= 0.999)."""
+    N, B, A = 40, 301, 8
+    ocp = bench_ocp(N, dev)
+    bare = dataclasses.replace(ocp, device_model=None)
+    data = _k2_inputs(dev, B, N)
+    alphas = tuple(0.4 ** i for i in range(A))
+    by_variant = dict(linesearch_forward.launches_by_variant)
+    out = linesearch_forward(*data, alphas, ocp=bare, variant=variant)
+    torch.cuda.synchronize()
+    planned = linesearch_launch_plan(N, A, 3).variant
+    assert _launched(linesearch_forward, by_variant) == {variant or planned: 1}
+    ref = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
+    same = out[3] == ref[3]
+    assert float(same.float().mean()) >= 0.999
+    assert float(((out[2] - ref[2]).abs() / ref[2].abs()).max()) <= 1e-5
+    assert _rel_err(out[0][same], ref[0][same]) <= 1e-4
+    assert _rel_err(out[1][same], ref[1][same]) <= 1e-4
+
+
+@pytest.mark.parametrize("variant", [None, "thread"])
+@pytest.mark.parametrize("use_ddp", [True, False])
+def test_traced_fused_kernel_matches_the_unicycle_model(dev, use_ddp, variant):
+    """K3 on the traced bench model against K3 on the hand-written one, on
+    pre-rolled trajectories, at K1_TOL (the Riccati kernel's tolerances)."""
+    from chip_smoke import _bench_trajectories
+
+    N, B = 40, 203
+    ocp = bench_ocp(N, dev)
+    bare = dataclasses.replace(ocp, device_model=None)
+    f = dict(dtype=torch.float32, device=dev)
+    args = (*_bench_trajectories(ocp, B, dev), torch.full((B,), 1e-6, **f),
+            torch.ones((B,), **f))
+    by_variant = dict(fused_backward.launches_by_variant)
+    out = fused_backward(*args, ocp=bare, use_ddp=use_ddp, variant=variant)
+    torch.cuda.synchronize()
+    assert _launched(fused_backward, by_variant) == {variant or "staged": 1}
+    ref = fused_backward(*args, ocp=ocp, use_ddp=use_ddp, variant=variant)
+    for (name, tol), o, r in zip(K1_TOL.items(), out, ref):
+        assert bool(torch.isfinite(o).all()), name
+        assert _rel_err(o, r) <= tol, (name, _rel_err(o, r))
+
+
+@pytest.mark.parametrize("name", ["double_integrator", "quadrotor",
+                                  "point_mass"])
+def test_traced_kernels_on_user_ocps(dev, name):
+    """chip_smoke.py's user OCPs from callables: K2 (every variant) against
+    the float64 twin's candidates and K3 (DDP on and off, both variants)
+    against the float64 twin, as phase 23 (c) holds them, on random
+    trajectories and gains."""
+    import chip_smoke as cs
+
+    B, N = 301, cs.USER_N
+    ocp, ocp64 = cs.user_ocp(name, dev), cs.user_ocp(name, dev, torch.float64)
+    rng = np.random.default_rng(71)
+    f = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f).contiguous()
+    x0, ps, us0 = cs.user_queue(name, B)
+    res = mt.make_batched_ilqr_solver(ocp, mt.ILQROptions(max_iters=5),
+                                      backend="cuda_fused")(x0, ps, us0)
+    err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
+    cs._traced_user_kernels(name, ocp, ocp64, res, t(x0), t(ps),
+                            tuple(0.4 ** i for i in range(8)), err)
+    assert all(np.isfinite(e) for e in err.values())
+
+
+def test_cuda_fused_on_a_bare_ocp_runs_the_traced_kernels(dev):
+    """make_batched_ilqr_solver on the bench OCP from its callables:
+    "cuda_fused" launches K3 and K2 and no K1, "cuda" K1 and K2 and no K3,
+    no twin on CUDA tensors; both answers within 1e-3 relative cost of
+    "cuda_fused" on the hand-written model where both converged."""
+    N, B = 40, 128
+    ocp = bench_ocp(N, dev)
+    bare = dataclasses.replace(ocp, device_model=None)
+    rng = np.random.default_rng(72)
+    x0 = rng.uniform(-2.0, 2.0, (B, 3))
+    target = np.array([10.0, 10.0, 0.0])
+    opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
+                          n_alphas=8, alpha_decay=0.4)
+    ref = mt.make_batched_ilqr_solver(ocp, opts, backend="cuda_fused")(
+        x0, target)
+    for backend, kernels in (("cuda_fused", {"fused_backward",
+                                             "linesearch_forward"}),
+                             ("cuda", {"riccati_backward",
+                                       "linesearch_forward"})):
+        res, ran = _kernels_ran(lambda: mt.make_batched_ilqr_solver(
+            bare, opts, backend=backend)(x0, target))
+        assert ran == kernels, backend
+        assert float(res.converged.float().mean()) >= 0.99
+        both = res.converged & ref.converged
+        rel = (res.cost.double() - ref.cost.double()).abs() / ref.cost.abs()
+        assert float((rel[both] <= 1e-3).float().mean()) >= 0.99, backend
+
+
+def test_traced_kernels_follow_weights_changed_in_place(dev):
+    """The double integrator from its callables: after a launch, its weights
+    (Q, R and the reference controls the stage cost closes over) change in
+    place; K2 and K3 then give exactly what they give on a second OCP traced
+    after the same change (one program text, one library), and not what
+    they gave before."""
+    import chip_smoke as cs
+
+    name, B = "double_integrator", 64
+    rng = np.random.default_rng(73)
+    s = cs.USER_OCPS[name]
+    N, nx, nu = cs.USER_N, s["nx"], s["nu"]
+    f = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f).contiguous()
+    x0, ps, us0 = cs.user_queue(name, B)
+    xs = t(0.5 * rng.standard_normal((B, N + 1, nx)))
+    us, ps = t(us0), t(ps)
+    data = (t(x0), xs, us, ps, t(0.1 * rng.standard_normal((B, N, nu))),
+            t(0.05 * rng.standard_normal((B, N, nu, nx))))
+    args = (xs, us, ps, torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
+    alphas = tuple(0.4 ** i for i in range(8))
+
+    def scale(ocp):
+        for cell in ocp.stage_cost.__closure__:
+            v = cell.cell_contents
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                v.mul_(1.5)
+
+    def run(ocp):
+        out = (*linesearch_forward(*data, alphas, ocp=ocp),
+               *fused_backward(*args, ocp=ocp))
+        torch.cuda.synchronize()
+        return out
+
+    ocp, ref_ocp = cs.user_ocp(name, dev), cs.user_ocp(name, dev)
+    before = run(ocp)
+    scale(ref_ocp)
+    ref = run(ref_ocp)
+    scale(ocp)
+    after = run(ocp)
+    assert all(torch.equal(a, r) for a, r in zip(after, ref))
+    assert not all(torch.equal(b, r) for b, r in zip(before, ref))
+
+
+def test_traced_kernels_on_the_barrier_and_al_ocps(dev):
+    """The barrier- and AL-derived OCPs of the bench OCP from its callables
+    (traced themselves, as JAX traces the augmented callables): K2 against
+    the float64 twin's candidates one alpha at a time (chip_smoke.py's
+    _hold_k2_f64: a first minimum among the finite ones), where a +inf or
+    NaN candidate never wins, K3 against the twin at K1_TOL, on
+    chip_smoke.py phase 10's inputs and parameters (npar 4, 10 and 11)."""
+    from chip_smoke import TERM_BOX
+    from mpc_verde_tpu_torch.interop import derived_ocps, derived_params
+
+    from chip_smoke import _hold_k2_f64, _k2_candidates, _to64
+
+    N, B = 40, 301
+    x0, xs, us, ps, kff, K, lam, mu_al = _term_inputs(dev, B, N)
+    derived = lambda dtype: derived_ocps(dataclasses.replace(
+        bench_ocp(N, dev, dtype, x_lb=TERM_BOX[0], x_ub=TERM_BOX[1]),
+        device_model=None))
+    ocps, ocps64 = derived(torch.float32), derived(torch.float64)
+    alphas = tuple(0.4 ** i for i in range(8))
+    f = dict(dtype=torch.float32, device=dev)
+    args_of = lambda p: (xs, us, p, torch.full((B,), 1e-6, **f),
+                         torch.ones((B,), **f))
+    for name, kw in (("barrier", dict(mu=1e-2)), ("barrier", dict(mu=0.0)),
+                     ("barrier_batched", dict(mu=1e-2)),
+                     ("al", dict(lam=lam, mu_al=mu_al)),
+                     ("barrier_al", dict(mu=1e-2, lam=lam, mu_al=mu_al))):
+        ocp = ocps[name]
+        assert ocp.device_model is None
+        p = derived_params(name, ps, **kw)
+        data = (x0, xs, us, p, kff, K)
+        out = linesearch_forward(*data, alphas, ocp=ocp)
+        # the pick a first minimum of the finite float64 candidates within
+        # the float32 bound, its cost and trajectory within it (a near tie
+        # may part the kernel's float32 pick from the twin's)
+        _hold_k2_f64(f"traced {name} {sorted(kw)}", out,
+                     _k2_candidates(data, alphas, ocp),
+                     _k2_candidates(_to64(*data), alphas, ocps64[name]), None)
+        best, _, _, c_r, _ = _k2_kernel_rule(data, alphas, ocp)
+        same = out[3] == best   # a +inf or NaN candidate never wins
+        assert not bool(torch.isfinite(out[2][same & ~torch.isfinite(c_r)]).any())
+        for use_ddp in ((True, False) if ocp.control_bounds is not None
+                        else (False,)):
+            out = fused_backward(*args_of(p), ocp=ocp, use_ddp=use_ddp)
+            ref = fused_backward_torch(*args_of(p), ocp=ocp, use_ddp=use_ddp)
+            for (key, tol), o, r in zip(K1_TOL.items(), out, ref):
+                assert _rel_err(o, r) <= tol, (name, kw, use_ddp, key)
+
+
+def test_failed_traced_build_raises_with_its_log(dev, tmp_path, monkeypatch):
+    """A traced program whose nvcc fails raises with nvcc's log; the wrapper
+    does not fall back to its twin and counts no launch."""
+    from mpc_verde_tpu_torch.ops.cuda import codegen
+
+    monkeypatch.setattr(build_mod, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build_mod, "_TRACED", {})
+    monkeypatch.setattr(codegen, "_K2_ENTRY",
+                        codegen._K2_ENTRY + "#error forced failure\n")
+    monkeypatch.setattr(build_mod, "traced_units", codegen.units)
+    ocp = dataclasses.replace(bench_ocp(4, dev), device_model=None)
+    data = _k2_inputs(dev, 8, 4)
+    before = linesearch_forward.launches
+    linesearch_forward_torch.cuda_calls = 0
+    with pytest.raises(RuntimeError, match="forced failure"):
+        linesearch_forward(*data, (1.0,), ocp=ocp)
+    assert linesearch_forward.launches == before
+    assert linesearch_forward_torch.cuda_calls == 0

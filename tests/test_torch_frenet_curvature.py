@@ -155,14 +155,16 @@ def test_frenet_five_seed_scatter_is_exact():
     np.testing.assert_array_equal(J[1].numpy(), np.broadcast_to(np.eye(2), (16, 2, 2)))
 
 
-@pytest.mark.parametrize("name", ["tan", "recip", "sin", "cos", "log"])
+@pytest.mark.parametrize("name", ["tan", "recip", "sin", "cos", "log", "exp",
+                                  "sqrt", "abs"])
 def test_dual_chain_matches_hessian(name):
     """The dual numbers' chain rule (csrc/dual.cuh's chain with each mv_*
     function's coefficients) through its PyTorch twin, on a = q(v) of three
     variables, against torch.func's gradient and Hessian of f(q(v)), to
     1e-12."""
     fns = {"tan": torch.tan, "recip": lambda a: 1.0 / a, "sin": torch.sin,
-           "cos": torch.cos, "log": torch.log}
+           "cos": torch.cos, "log": torch.log, "exp": torch.exp,
+           "sqrt": torch.sqrt, "abs": torch.abs}
     q = lambda v: 0.3 + 0.4 * v[0] * v[1] + 0.2 * torch.sin(v[2]) + 0.1 * v[2] ** 2
     rng = np.random.default_rng(83)
     for v in _t(rng.uniform(-1.0, 1.0, (8, 3))):

@@ -1,5 +1,7 @@
-"""The PyTorch port stands alone: no JAX, no kernel without its device model,
-and chip_smoke.py refuses to run without a GPU."""
+"""The PyTorch port stands alone: no JAX, no kernel without a device model
+(the OCP's own or the one traced from its callables), and chip_smoke.py
+refuses to run without a GPU."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -33,13 +35,24 @@ def test_import_pulls_in_no_jax():
 
 
 def test_cuda_backend_needs_device_model():
+    """An OCP without a device model runs "cuda" on the model traced from
+    its callables (the one it needs); a callable outside the lowering table
+    raises NotImplementedError naming the op and the callable."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import TracedDeviceModel
+
     ocp = bench_ocp(5, "cpu", torch.float32)
     bare = mt.OCP(dynamics=ocp.dynamics, stage_cost=ocp.stage_cost, N=5,
                   nx=3, nu=2, npar=3, control_bounds=ocp.control_bounds)
+    atan2 = dataclasses.replace(bare, terminal_cost=lambda x, p: torch.atan2(
+        x[1], x[0]))
     for make in (mt.make_batched_ilqr_solver, mt.make_streaming_solver):
-        with pytest.raises(NotImplementedError, match="device_model"):
-            make(bare, backend="cuda")
+        with pytest.raises(NotImplementedError,
+                           match="terminal_cost: the ATen op aten.atan2"):
+            make(atan2, backend="cuda")
+        make(bare, backend="cuda")
         make(ocp, backend="cuda")  # the bench OCP carries one
+    assert isinstance(bare._traced_device_model, TracedDeviceModel)
+    assert not hasattr(ocp, "_traced_device_model")
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
