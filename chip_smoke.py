@@ -1,6 +1,8 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --first-build   # after a run: phase 23 (e)'s
+                                          # first use, cold and warm
 
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
@@ -163,10 +165,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               the monolithic run (1e-6), which records its predicted
               horizons (each starts at its step's state); (e) that run
               exported to .csv and .xlsx and read back exactly.
- 22. bw:      backend=None on OCPs without a device model or in float64,
-              which resolves to "cuda_bw" (torch.func derivatives, K1, the
+ 22. bw:      backend="cuda_bw", named (torch.func derivatives, K1, the
               line search's plain PyTorch version on the OCP's callables; the
-              counterpart of JAX's default "pallas_bw"): (a) the bench OCP
+              counterpart of JAX's "pallas_bw", which backend=None takes on a
+              card only in float64 or for callables that do not lower), on
+              OCPs without a device model or in float64: (a) the bench OCP
               built from its callables, make_streaming_solver over the first
               2048 starts of phase 5's queue at width 1024 with phase 5's
               options, converged_frac >= 0.99, held against phase 5's
@@ -178,9 +181,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               on its first 64 where both converged, and K1 under both
               variants on the derivatives along its answers, held to the
               float64 twin on the float64 derivatives; (c) the bench OCP in
-              float64 at B=1024, K1 on float32 copies, within 1e-4 relative
-              cost of a float64 "torch" solve on the card.  Each path
-              launches K1 and neither K2 nor K3.
+              float64 at B=1024, K1 on float32 copies (where backend=None
+              resolves to "cuda_bw"), within 1e-4 relative cost of a float64
+              "torch" solve on the card.  Each path launches K1 and neither
+              K2 nor K3.
  23. traced:  K2 and K3 on the device model generated from the trace of an
               OCP's own callables (ops/cuda/trace.py, ops/cuda/codegen.py;
               the counterpart of JAX's "pallas" / "pallas_fused" on such an
@@ -189,18 +193,32 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               and against the twin on the same inputs (random gains and the
               pre-roll; DDP on and off), at phase 4's and 7's tolerances,
               each timed beside the hand-written one; (b)
-              make_streaming_solver on that OCP with backend="cuda_fused"
-              (K3 and K2) and "cuda" (K1 and K2) over the first 2048 starts
-              of phase 5's queue, converged_frac >= 0.99, held against
-              phase 5's answers by phase 22's rule; (c) the three user OCPs
+              make_streaming_solver on that OCP with backend=None, which
+              resolves to "cuda_fused" (K3 and K2; (e1) below), and "cuda"
+              (K1 and K2) over the first 2048 starts of phase 5's queue,
+              converged_frac >= 0.99, held against phase 5's answers by
+              phase 22's rule; (c) the three user OCPs
               on "cuda_fused" through make_batched_ilqr_solver with phase
               22 (b)'s band and CPU float64 hold, and K2 (every variant)
               and K3 (DDP on and off, both variants) along their answers
               against the float64 twins; (d) the state box y <= 5 on the
               bench OCP from its callables on "cuda_fused" (its AL-derived
               OCP, traced), phase 12's setup over the first 2048 starts,
-              max_violation < 1e-2.  No path calls a twin on CUDA tensors,
-              and none launches the other backward kernel.
+              max_violation < 1e-2, and K2 and K3 on that AL-derived
+              program along its answers, held and timed as in (c); (e) the
+              default path, backend=None, which must resolve to "cuda_fused"
+              and launch K3 and K2 with no call of the plain line search:
+              (e1) is (b); (e2) make_streaming_solver over 1024 random
+              windows of the LTI lane change at N=40 with a box on its
+              lateral error (its AL-derived OCP, traced); (e3)
+              make_streaming_barrier_solver on the rate form of the double
+              integrator with a constant rate box over 1024 starts (its
+              barrier-derived OCP, traced); each converged_frac >= 0.99 (or
+              JAX float32's on the CPU less 0.01), max_violation < 1e-2,
+              held against CPU float64 on its first 64 problems by phase
+              22's rule, and K2 and K3 on its derived program held and
+              timed as in (c).  No path calls a twin on CUDA tensors, and
+              none launches the other backward kernel.
 Phases 5, 8, 9 and 11 to 23 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
@@ -709,8 +727,8 @@ def _hold(out, ref, tag, label):
     return max(_abs_err(o, r) for o, r in zip(out, ref))
 
 
-def _check_result(res, M, N):
-    shapes = {"xs": (M, N + 1, 3), "us": (M, N, 2), "cost": (M,)}
+def _check_result(res, M, N, nx=3, nu=2):
+    shapes = {"xs": (M, N + 1, nx), "us": (M, N, nu), "cost": (M,)}
     for name, shape in shapes.items():
         v = getattr(res, name)
         if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
@@ -776,7 +794,7 @@ def _streaming_path(tag, gpu, solve, queue, path_kernels, warm=WIDTH,
         torch.cuda.synchronize()
     res, wall, launches, twin_calls = _drive(
         lambda: solve(x0q, psq, us0q, max_iters=60, restarts_n=2))
-    _check_result(res, M, N)
+    _check_result(res, M, N, x0q.shape[-1], us0q.shape[-1])
     conv = float(res.converged.float().mean())
     print(f"[{tag}] {note}M={M} N={N}: {M / wall:.1f} solves/s ({wall:.3f} s), "
           f"converged_frac {conv:.4f}, mean_iterations "
@@ -1826,8 +1844,9 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
     first ``hold_circ`` steps, the Frenet and curvature families' first
     ``hold_path`` steps from sample ``lc_start`` of the lane change), and
     the float64 CPU runs of phases 19, 20 and 21 (the warm start, the NLP
-    batch, the compat scripts' first steps, the sweep at horizons 3 and 20)
-    and of phase 22 (the user OCPs' first USER_HOLD problems).  They need no
+    batch, the compat scripts' first steps, the sweep at horizons 3 and 20),
+    of phase 22 (the user OCPs' first USER_HOLD problems) and of phase 23
+    (e2) and (e3) (their first USER_HOLD problems).  They need no
     card, so they run beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
     {name: {array name: array, "seconds": s}} on ``queue``, or the error's
     traceback."""
@@ -1871,6 +1890,8 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
                 max_iters=SWEEP_ITERS, device="cpu", dtype=f64)},
             **{f"user_{name}": (lambda name=name: _user_f64(name))
                for name in USER_OCPS},   # phase 22
+            "lane_al": lambda: _rate_f64("lane_al"),   # phase 23 (e)
+            "rate_barrier": lambda: _rate_f64("rate_barrier"),
         }
         for name, run in raw.items():
             t0 = time.perf_counter()
@@ -1889,6 +1910,27 @@ def _user_f64(name):
     res = make_batched_ilqr_solver(user_ocp(name, "cpu", torch.float64),
                                    _opts(), backend="torch")(x0, ps, us0)
     return {"converged": res.converged.numpy(), "cost": res.cost.numpy()}
+
+
+def _rate_f64(name):
+    """Phase 23 (e2) / (e3) in float64 on "torch" on the CPU over the first
+    USER_HOLD problems of its queue."""
+    from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
+                                     make_streaming_solver)
+
+    f64 = torch.float64
+    if name == "lane_al":
+        queue = lane_box_queue(WIDTH, BENCH_N)
+        solve = make_streaming_solver(
+            lane_box_ocp("cpu", f64, BENCH_N), _opts(al_iters=AL_ITERS),
+            backend="torch", batch_width=USER_HOLD, restarts=2)
+    else:
+        queue = rate_di_queue(WIDTH, BENCH_N)
+        solve = make_streaming_barrier_solver(
+            rate_di_ocp(BENCH_N, "cpu", f64), _opts(), backend="torch",
+            batch_width=USER_HOLD, restarts=2)
+    res = solve(*(a[:USER_HOLD] for a in queue), max_iters=60, restarts_n=2)
+    return {k: getattr(res, k).numpy() for k in ("converged", "cost", "us")}
 
 
 class CpuReferences:
@@ -3137,9 +3179,10 @@ def phase_host(dev, gpu, refs, meas):
     return by_path
 
 
-# Phase 22: "cuda_bw", the counterpart of JAX's default "pallas_bw": K1 on
-# an OCP's own callables, with torch.func derivatives and the line search's
-# plain PyTorch version.  (a) the bench OCP without its device model, (b)
+# Phase 22: "cuda_bw", named, the counterpart of JAX's default "pallas_bw":
+# K1 on an OCP's own callables, with torch.func derivatives and the line
+# search's plain PyTorch version (backend=None takes it on a card only in
+# float64 or for callables that do not lower).  (a) the bench OCP without its device model, (b)
 # three user OCPs at sizes K1 had no library for before it was built per
 # size, (c) the bench OCP in float64.
 BW_QUEUE = 2048   # 4096 took phase 22 past its 60 s
@@ -3243,18 +3286,13 @@ def user_queue(name, B, seed=52):
             np.broadcast_to(user_u_ref(name), (B, USER_N, s["nu"])).copy())
 
 
-def _bw_path(tag, gpu, run, ocp):
+def _bw_path(tag, gpu, run):
     """Drive one "cuda_bw" path with every count set to 0 just before and
     read just after: K1 launched and no other kernel, no K1 or K3 twin on
     CUDA tensors (the line search's twin is this backend's own); returns
     (result, wall, launches)."""
-    from mpc_verde_tpu_torch.solver.batched import resolve_backend
-
-    backend = resolve_backend(ocp, None)
-    if backend != "cuda_bw":
-        raise AssertionError(f"{tag}: backend=None resolved to {backend!r}")
     res, wall, launches, twin_calls = _drive(run)
-    print(f"[{tag}] backend=None -> {backend!r}: {wall:.3f} s, launches "
+    print(f"[{tag}] backend=\"cuda_bw\": {wall:.3f} s, launches "
           f"{launches}, twin calls on CUDA {twin_calls} | GPU {gpu}",
           flush=True)
     if (launches["riccati_backward"] < 1 or launches["linesearch_forward"]
@@ -3281,12 +3319,14 @@ BW_POLISH_TOL = 1e-4
 
 
 def _polish(ocp64, us, cost, x0, ps):
-    """A float64 "torch" solve of ``ocp64`` from the controls ``us``:
-    (the cost it drops, relative to its own cost; converged)."""
+    """A float64 "torch" solve of ``ocp64`` from the controls ``us`` (with
+    phase 12's AL rounds where it has a state box): (the cost it drops,
+    relative to its own cost; converged)."""
     from mpc_verde_tpu_torch import make_batched_ilqr_solver
 
     f64 = torch.float64
-    pol = make_batched_ilqr_solver(ocp64, _opts(), backend="torch")(
+    pol = make_batched_ilqr_solver(ocp64, _opts(al_iters=AL_ITERS),
+                                   backend="torch")(
         x0.to(f64), ps.to(f64), us.to(f64))
     return (cost.to(f64) - pol.cost) / pol.cost.abs(), pol.converged
 
@@ -3338,20 +3378,21 @@ def phase_bw(dev, gpu, ref_main, refs, M=BW_QUEUE, W=WIDTH, N=BENCH_N,
     from mpc_verde_tpu_torch import (make_batched_ilqr_solver,
                                      make_streaming_solver)
     from mpc_verde_tpu_torch.interop import bench_ocp
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
 
     t_phase = time.perf_counter()
     by_path, k1_rows = {}, []
     # (a) the bench OCP from its callables: phase 5's queue and options
     ocp = dataclasses.replace(bench_ocp(N, dev, torch.float32),
                               device_model=None)
-    solve = make_streaming_solver(ocp, _opts(), backend=None, batch_width=W,
-                                  restarts=2)
+    solve = make_streaming_solver(ocp, _opts(), backend="cuda_bw",
+                                  batch_width=W, restarts=2)
     x0q, psq, us0q = (a[:M] for a in _queue(QUEUE, N))
     solve(x0q[:W], psq[:W], us0q[:W], max_iters=60, restarts_n=2)
     torch.cuda.synchronize()
     res, wall, by_path["bw_bench"] = _bw_path(
         "bw-bench", gpu, lambda: solve(x0q, psq, us0q, max_iters=60,
-                                       restarts_n=2), ocp)
+                                       restarts_n=2))
     _check_result(res, M, N)
     conv = float(res.converged.float().mean())
     print(f"[bw-bench] streaming W={W} M={M} N={N}: {M / wall:.1f} solves/s, "
@@ -3369,10 +3410,10 @@ def phase_bw(dev, gpu, ref_main, refs, M=BW_QUEUE, W=WIDTH, N=BENCH_N,
     # band and the port's float64 "torch" solve of its first USER_HOLD
     for name in USER_OCPS:
         uocp = user_ocp(name, dev)
-        solve = make_batched_ilqr_solver(uocp, _opts(), backend=None)
+        solve = make_batched_ilqr_solver(uocp, _opts(), backend="cuda_bw")
         x0, ps, us0 = user_queue(name, B)
         res, wall, by_path[f"bw_{name}"] = _bw_path(
-            f"bw-{name}", gpu, lambda: solve(x0, ps, us0), uocp)
+            f"bw-{name}", gpu, lambda: solve(x0, ps, us0))
         if not all(bool(torch.isfinite(getattr(res, k)).all())
                    for k in ("xs", "us", "cost")):
             raise AssertionError(f"bw-{name}: non-finite results")
@@ -3398,13 +3439,17 @@ def phase_bw(dev, gpu, ref_main, refs, M=BW_QUEUE, W=WIDTH, N=BENCH_N,
             (None, res.xs, res.us, None, None),
             torch.as_tensor(ps, dtype=torch.float32, device=dev)))
 
-    # (c) the bench OCP in float64 on the card: K1 on float32 copies
+    # (c) the bench OCP in float64 on the card: K1 on float32 copies, the
+    # backend that backend=None takes in float64
     ocp64 = bench_ocp(N, dev, torch.float64)
+    if resolve_backend(ocp64, None) != "cuda_bw":
+        raise AssertionError("bw-float64: backend=None does not resolve to "
+                             "\"cuda_bw\"")
     x0, ps, us0 = (torch.as_tensor(a[:B], dtype=torch.float64, device=dev)
                    for a in _queue(QUEUE, N))
-    solve = make_batched_ilqr_solver(ocp64, _opts(), backend=None)
+    solve = make_batched_ilqr_solver(ocp64, _opts(), backend="cuda_bw")
     res, wall, by_path["bw_float64"] = _bw_path(
-        "bw-float64", gpu, lambda: solve(x0, ps, us0), ocp64)
+        "bw-float64", gpu, lambda: solve(x0, ps, us0))
     ref = make_batched_ilqr_solver(ocp64, _opts(), backend="torch")(x0, ps,
                                                                      us0)
     conv = float(res.converged.float().mean())
@@ -3433,21 +3478,119 @@ CUDA_PATH = ("riccati_backward", "linesearch_forward")
 # one touches every component, a product of two duals 3 nz + 4 nh, a
 # function f 16 + 2 nz + 3 nh (chain); a transcendental on floats is 16
 TRACED_UNARY = ("sin", "cos", "tan", "exp", "log", "sqrt")
+# (e), backend=None on rate-form OCPs, whose derived OCPs have no device
+# model and are traced.  (e2) the LTI lane change's OCP (scenarios/
+# lane_change.py at its SPEC's plant and weights, N = 40 without move
+# blocking) with a box on its lateral error y, 0.1 m below the start lane's
+# centre (y = 0) and 0.1 m short of the target lane's (y = 3), so that the
+# box binds in every window that reaches the target lane (0.42 of 64 CPU
+# float64 solves), over random windows of the course from starts perturbed
+# off the reference; (e3) the rate form of the double integrator
+# (tests/test_torch_bw.py's _rate_ocp: T = 0.1, Q = diag(1, 0.1), R = 0.01,
+# rates in [-0.5, 0.5], no magnitude box, so the control box is constant and
+# a barrier can be derived) through the streaming barrier solver.
+LANE_Y_BOX = (-0.1, 2.9)
+RATE_DI = dict(Ad=((1.0, 0.1), (0.0, 1.0)), Bd=((0.005,), (0.1,)),
+               Q=(1.0, 0.1), R=0.01, du=0.5, x_box=((-3.0, -0.5, -np.inf),
+                                                   (3.0, 0.5, np.inf)))
+# JAX float32 "xla" on the CPU converges on every start of (e2)'s and (e3)'s
+# queues (PYTHONPATH=. python tests/test_torch_bw.py --band: converged_frac
+# 1.0 each, at 19.21 / 49.33 mean iterations, (e2)'s max_violation 3.9e-5),
+# so both are held to phase 5's converged_frac >= 0.99
+
+
+def _lane_course():
+    """The lane change's course (scenarios/lane_change.py): its per-sample
+    references (y, phi, r, delta) (500, 4) and its mean speed."""
+    from mpc_verde_tpu_torch.refgen import (lateral_error_references,
+                                            synthetic_lane_change)
+    from mpc_verde_tpu_torch.scenarios.lane_change import SPEC
+
+    path = synthetic_lane_change(n=500, dt=SPEC["T"])
+    return (lateral_error_references(path, SPEC["T"], SPEC["ar"], SPEC["br"]),
+            float(np.mean(path["uref"])))
+
+
+def lane_box_ocp(device, dtype=torch.float32, N=BENCH_N):
+    """(e2)'s OCP: the lane change's rate-form OCP, the box LANE_Y_BOX on y."""
+    from mpc_verde_tpu_torch.models.bicycle import lateral_error_lti
+    from mpc_verde_tpu_torch.ops import c2d
+    from mpc_verde_tpu_torch.scenarios.lane_change import (SPEC,
+                                                           lateral_error_ocp)
+
+    _, uref = _lane_course()
+    model = lateral_error_lti(uref, SPEC["ar"], SPEC["br"], device="cpu",
+                              dtype=torch.float64)
+    Ad, Bd = (m.numpy() for m in c2d(model.Ac, model.Bc, SPEC["T"]))
+    ocp = lateral_error_ocp(N, N, device, dtype, Ad=Ad, Bd=Bd)
+    box = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    return dataclasses.replace(
+        ocp, x_lb=box([LANE_Y_BOX[0], -np.inf, -np.inf, -np.inf]),
+        x_ub=box([LANE_Y_BOX[1], np.inf, np.inf, np.inf]))
+
+
+def lane_box_queue(B, N=BENCH_N, seed=53):
+    """(e2)'s queue: windows of the course at random samples, each start
+    the window's first reference with y moved by up to 0.3 m (kept 0.05 m
+    inside the box) and the other three by up to 0.05."""
+    from mpc_verde_tpu_torch.scenarios.lane_change import SPEC
+
+    rng = np.random.default_rng(seed)
+    refs, _ = _lane_course()
+    off = rng.integers(0, len(refs) - N, B)
+    ps = refs[off[:, None] + np.arange(N + 1)].astype(np.float32)
+    z0 = ps[:, 0].copy()
+    z0[:, 0] = np.clip(z0[:, 0] + rng.uniform(-0.3, 0.0, B),
+                       LANE_Y_BOX[0] + 0.05, LANE_Y_BOX[1] - 0.05)
+    z0[:, 1:] += rng.uniform(-0.05, 0.05, (B, 3)).astype(np.float32)
+    z0[:, 3] = np.clip(z0[:, 3], -SPEC["delta_max"], SPEC["delta_max"])
+    return z0, ps, np.zeros((B, N, 1), np.float32)
+
+
+def rate_di_ocp(N, device, dtype=torch.float32, state_box=False):
+    """(e3)'s OCP, RATE_DI (``interop.linear_rate_ocp``, with its device
+    model); ``state_box`` adds |position| <= 3, |velocity| <= 0.5."""
+    from mpc_verde_tpu_torch.interop import linear_rate_ocp
+
+    s = RATE_DI
+    ocp = linear_rate_ocp(N, device, dtype, Q=np.diag(s["Q"]),
+                          R=np.array([[s["R"]]]), du_lb=[-s["du"]],
+                          du_ub=[s["du"]], Ad=np.array(s["Ad"]),
+                          Bd=np.array(s["Bd"]))
+    if state_box:
+        box = lambda v: torch.tensor(v, dtype=dtype, device=device)
+        ocp = dataclasses.replace(ocp, x_lb=box(s["x_box"][0]),
+                                  x_ub=box(s["x_box"][1]))
+    return ocp
+
+
+def rate_di_queue(B, N=BENCH_N, seed=54):
+    """(e3)'s queue: z0 = (position, velocity, previous control) uniform in
+    [-2, 2] x [-0.5, 0.5] x [-0.5, 0.5]."""
+    rng = np.random.default_rng(seed)
+    z0 = (rng.uniform(-1.0, 1.0, (B, 3)) * [2.0, 0.5, 0.5]).astype(np.float32)
+    return z0, np.zeros((B, N + 1, 1), np.float32), np.zeros((B, N, 1),
+                                                             np.float32)
 
 
 def traced_ocps(device, N=BENCH_N):
     """The float32 OCPs that phase 23 runs without a device model, as its
     solvers trace them: the bench OCP from its callables, its AL-derived OCP
     under the box y <= AL_Y_MAX (make_streaming_solver derives the same
-    one), and the three user OCPs."""
+    one), the three user OCPs, and (e)'s derived OCPs of the rate-form
+    models: the lane change's AL-derived OCP and the double integrator's
+    streaming barrier-derived OCP."""
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
+    from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp
 
     bare = lambda **kw: dataclasses.replace(
         bench_ocp(N, device, torch.float32, **kw), device_model=None)
     return {"bench": bare(),
             "bench_al": _augment_ocp_al(bare(x_ub=[np.inf, AL_Y_MAX, np.inf])),
-            **{name: user_ocp(name, device) for name in USER_OCPS}}
+            **{name: user_ocp(name, device) for name in USER_OCPS},
+            "lane_al": _augment_ocp_al(lane_box_ocp(device, N=N)),
+            "rate_barrier": _barrier_ocp(rate_di_ocp(N, device), "streaming")}
 
 
 def traced_programs():
@@ -3634,6 +3777,120 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
     return {"nx": nx, "nu": nu, **row2}, {"nx": nx, "nu": nu, **row3}
 
 
+def _resolves_fused(tag, ocp):
+    """backend=None on ``ocp`` (float32, on the card) must be the traced
+    "cuda_fused": K3 and K2 on the model traced from its callables."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
+                                                      kernel_model)
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
+
+    backend = resolve_backend(ocp, None)
+    traced = isinstance(kernel_model(ocp), TracedDeviceModel)
+    print(f"[{tag}] backend=None -> {backend!r} on the traced model: "
+          f"{traced}", flush=True)
+    if backend != "cuda_fused" or not traced:
+        raise AssertionError(f"{tag}: backend=None resolved to {backend!r}, "
+                             f"traced {traced}")
+
+
+def _derived_kernels(label, kind, ocp, ocp64, res, ps, alphas, err, k2_rows,
+                     k3_rows, B=WIDTH, seed=63):
+    """K2 and K3 on the derived program ``ocp`` of ``kind`` "al" (params [p,
+    lam, mu_al]) or "barrier" ([p, mu]) along the first B answers ``res``
+    to the base problems of params ``ps``, held to the float64 twins and
+    timed as (c) does: lam 0.1 |N(0, 1)|, mu_al 10, the barrier's mu 1e-2."""
+    from mpc_verde_tpu_torch.interop import derived_params
+
+    xs, us, ps = res.xs[:B].contiguous(), res.us[:B].contiguous(), ps[:B]
+    B = xs.shape[0]
+    lam = None
+    if kind == "al":
+        lam = 0.1 * torch.as_tensor(np.abs(np.random.default_rng(
+            seed).standard_normal((B, ps.shape[1], 2 * ocp.nx))),
+            dtype=ps.dtype, device=ps.device)
+    dps = derived_params(kind, ps, lam=lam)
+    row2, row3 = _traced_user_kernels(label, ocp, ocp64, SimpleNamespace(
+        xs=xs, us=us), xs[:, 0].contiguous(), dps, alphas, err)
+    k2_rows.append(row2)
+    k3_rows.append(row3)
+
+
+def _violation_gate(res):
+    """The JAX tests' gate on a state-bounded solve: max_violation < 1e-2."""
+    viol = float(res.max_violation.max())
+    if not viol < 1e-2:
+        raise AssertionError(f"max_violation {viol} >= 1e-2")
+
+
+def _hold_rate_f64(tag, res, ref, ocp64, queue):
+    """The first USER_HOLD answers against CPU float64 by phase 22's rule."""
+    dev = res.us.device
+    t = lambda a: torch.as_tensor(a, device=dev)
+    H = USER_HOLD
+    _hold_optima(f"{tag} vs CPU float64", SimpleNamespace(
+        converged=res.converged[:H], cost=res.cost[:H], us=res.us[:H]),
+        SimpleNamespace(**{k: t(ref[k]) for k in ("converged", "cost",
+                                                  "us")}),
+        ocp64, t(queue[0][:H]), t(queue[1][:H]), BW_COST_TOL)
+
+
+def _default_rate_paths(dev, gpu, refs, ocps, alphas, err, k2_rows, k3_rows,
+                        W, N):
+    """(e2) and (e3); returns their launches."""
+    from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
+                                     make_streaming_solver)
+    from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
+    from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp
+
+    by_path = {}
+    f64 = torch.float64
+    # (e2) the lane change with a box on y: its AL-derived OCP, traced
+    lane = lane_box_ocp(dev, N=N)
+    _resolves_fused("e2-lane-al", _augment_ocp_al(lane))
+    queue = lane_box_queue(W, N)
+    solve = make_streaming_solver(lane, _opts(al_iters=AL_ITERS),
+                                  batch_width=W, restarts=2)
+    by_path["default_lane_al"], res = _streaming_path(
+        "e2-lane-al", gpu, solve, queue, FUSED_PATH, warm=W,
+        check=_violation_gate, note="backend=None, the lane change with a "
+        "box on y: ")
+    y = res.xs[..., 0]
+    edge = (y.amin(-1) <= LANE_Y_BOX[0] + 1e-2) | (
+        y.amax(-1) >= LANE_Y_BOX[1] - 1e-2)
+    print(f"[e2-lane-al] y in [{float(y.min()):.4f}, {float(y.max()):.4f}] "
+          f"against the box {LANE_Y_BOX}, at an edge in "
+          f"{float(edge.float().mean()):.4f} of the problems", flush=True)
+    lane64 = lane_box_ocp(dev, f64, N=N)
+    _hold_rate_f64("e2-lane-al", res, refs.raw("e2-lane-al", "lane_al"),
+                   lane64, queue)
+    _derived_kernels("lane_al", "al", ocps["lane_al"], _augment_ocp_al(lane64),
+                     res, torch.as_tensor(queue[1], device=dev), alphas, err,
+                     k2_rows, k3_rows)
+
+    # (e3) the double integrator's rate form through the streaming barrier
+    # solver: its barrier-derived OCP, traced
+    rate = rate_di_ocp(N, dev)
+    _resolves_fused("e3-rate-barrier", _barrier_ocp(rate, "streaming"))
+    queue = rate_di_queue(W, N)
+    solve = make_streaming_barrier_solver(rate, _opts(), batch_width=W,
+                                          restarts=2)
+    by_path["default_rate_barrier"], res = _streaming_path(
+        "e3-rate-barrier", gpu, solve, queue, FUSED_PATH, warm=W,
+        check=_violation_gate, note="backend=None, the rate-form double "
+        "integrator through the barrier solver: ")
+    rate64 = rate_di_ocp(N, dev, f64)
+    _hold_rate_f64("e3-rate-barrier", res,
+                   refs.raw("e3-rate-barrier", "rate_barrier"), rate64, queue)
+    _derived_kernels("rate_barrier", "barrier", ocps["rate_barrier"],
+                     _barrier_ocp(rate64, "streaming"), res,
+                     torch.as_tensor(queue[1], device=dev), alphas, err,
+                     k2_rows, k3_rows)
+    for key, launches in by_path.items():
+        if launches["riccati_backward"]:
+            raise AssertionError(f"{key} launched K1")
+    return by_path
+
+
 def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
                  N=BENCH_N, B=USER_B):
     """Phase 23 (see the module docstring); returns the paths' launches and
@@ -3645,17 +3902,21 @@ def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
     from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
                                                       kernel_model,
                                                       traced_device_model)
+    from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
 
     t_phase = time.perf_counter()
     ocps = traced_ocps(dev, N)
     for name, ocp in ocps.items():
         t0 = time.perf_counter()
         program = traced_device_model(ocp).program
+        built = traced_library_path(program).is_file()
         print(f"[traced] {name}: traced on the card in "
               f"{time.perf_counter() - t0:.2f} s, {len(program.ops)} "
               f"instructions, {program.n_table} table entries; its library "
-              f"built in phase 2: {traced_library_path(program).is_file()}",
-              flush=True)
+              f"built in phase 2: {built}", flush=True)
+        if not built:   # phase 2 traced it on the CPU: one text, one library
+            raise AssertionError(f"traced-{name}: the trace on the card is "
+                                 "not the trace on the CPU")
 
     # (a) K2 and K3 against the hand-written unicycle model
     rows, err = _traced_vs_hand(dev, W, N)
@@ -3668,20 +3929,22 @@ def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
     t = lambda a: torch.as_tensor(a, device=dev)
     ref = SimpleNamespace(converged=ref_main.converged[:M],
                           cost=ref_main.cost[:M], us=ref_main.us[:M])
-    for backend, path in (("cuda_fused", FUSED_PATH), ("cuda", CUDA_PATH)):
+    # (e1): backend=None on it is the traced "cuda_fused"
+    _resolves_fused("e1-bench", bare)
+    for key, backend, path in (("default_bench", None, FUSED_PATH),
+                               ("traced_cuda", "cuda", CUDA_PATH)):
         solve = make_streaming_solver(bare, _opts(), backend=backend,
                                       batch_width=W, restarts=2)
         if not isinstance(kernel_model(bare), TracedDeviceModel):
             raise AssertionError("traced-bench: not on the traced model")
-        by_path[f"traced_{backend}"], res = _streaming_path(
-            f"traced-{backend}", gpu, solve, queue, path, warm=W,
+        by_path[key], res = _streaming_path(
+            key, gpu, solve, queue, path, warm=W,
             note=f"streaming on the traced bench OCP, backend={backend} "
             f"W={W}: ")
-        other = "riccati_backward" if backend == "cuda_fused" else \
-            "fused_backward"
-        if by_path[f"traced_{backend}"][other]:
-            raise AssertionError(f"traced-{backend} launched {other}")
-        _hold_optima(f"traced-{backend} vs phase 5", res, ref,
+        other = "riccati_backward" if path == FUSED_PATH else "fused_backward"
+        if by_path[key][other]:
+            raise AssertionError(f"{key} launched {other}")
+        _hold_optima(f"{key} vs phase 5", res, ref,
                      bench_ocp(N, dev, torch.float64), t(queue[0]),
                      t(queue[1]), BW_COST_TOL)
 
@@ -3731,12 +3994,20 @@ def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
     solve = make_streaming_solver(al, _opts(al_iters=AL_ITERS),
                                   backend="cuda_fused", batch_width=W,
                                   restarts=2)
-    by_path["traced_al"], _ = _streaming_path(
+    by_path["traced_al"], res = _streaming_path(
         "traced-al", gpu, solve, queue, FUSED_PATH,
         check=lambda r: _al_gate(r, "traced-al"),
         note="the AL-derived OCP of the bench OCP's callables: ")
     if by_path["traced_al"]["riccati_backward"]:
         raise AssertionError("traced-al launched K1")
+    al64 = dataclasses.replace(bench_ocp(N, dev, torch.float64, x_ub=[
+        np.inf, AL_Y_MAX, np.inf]), device_model=None)
+    _derived_kernels("bench_al", "al", ocps["bench_al"], _augment_ocp_al(al64),
+                     res, t(queue[1]), alphas, err, k2_rows, k3_rows)
+
+    # (e2), (e3): the default path on the rate-form models' derived OCPs
+    by_path.update(_default_rate_paths(dev, gpu, refs, ocps, alphas, err,
+                                       k2_rows, k3_rows, W, N))
     print(f"[traced] phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return by_path, k2_rows, k3_rows, err
@@ -3876,5 +4147,80 @@ def _phases(dev, gpu, refs, compat):
     return kernels
 
 
+FIRST_BUILD = ("lane_al", "rate_barrier")
+
+
+def _first_build_child(name):
+    """In a process of its own, after CUDA's start: (e2)'s or (e3)'s default
+    path as a user's first use of it, make the solver (the factory's trace,
+    the process's first), then solve the queue twice; prints {"factory_s",
+    "first_solve_s", "solve_s"} as JSON."""
+    from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
+                                     make_streaming_solver)
+
+    dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if name == "lane_al":
+        solve = make_streaming_solver(lane_box_ocp(dev),
+                                      _opts(al_iters=AL_ITERS),
+                                      batch_width=WIDTH, restarts=2)
+        queue = lane_box_queue(WIDTH)
+    else:
+        solve = make_streaming_barrier_solver(rate_di_ocp(BENCH_N, dev),
+                                              _opts(), batch_width=WIDTH,
+                                              restarts=2)
+        queue = rate_di_queue(WIDTH)
+    out = {"factory_s": time.perf_counter() - t0}
+    for key in ("first_solve_s", "solve_s"):
+        t0 = time.perf_counter()
+        solve(*queue, max_iters=60, restarts_n=2)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def first_build_times() -> int:
+    """``python3 chip_smoke.py --first-build``: the one-time cost of a new
+    program text on the default path.  For (e2)'s and (e3)'s derived
+    programs, remove the program's library and run the first use in a fresh
+    process (cold: nvcc builds the library), then again (warm: the library
+    is loaded from mpc_verde_tpu_torch/_build/); the kernels library must be
+    built already (a run of the script)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    from mpc_verde_tpu_torch.ops.cuda.build import traced_library_path
+
+    programs = traced_programs()
+    names = list(traced_ocps("cpu"))
+    for name in FIRST_BUILD:
+        path = traced_library_path(programs[names.index(name)])
+        path.unlink(missing_ok=True)
+        for run in ("cold", "warm"):
+            child = subprocess.run(
+                [sys.executable, __file__, "--first-build-child", name],
+                capture_output=True, text=True, check=True)
+            t = json.loads(child.stdout.strip().splitlines()[-1])
+            print(f"[first-build] {name} {run}: the factory (its trace, the "
+                  f"process's first) {t['factory_s']:.2f} s, first solve "
+                  f"{t['first_solve_s']:.2f} s, next solve {t['solve_s']:.2f} "
+                  f"s; library {path.name} present after: {path.is_file()}",
+                  flush=True)
+            if not path.is_file():
+                raise AssertionError(f"{name}: the first use built another "
+                                     "library than phase 2's")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--first-build-child"]:
+        _first_build_child(sys.argv[2])
+        sys.exit(0)
+    sys.exit(first_build_times() if sys.argv[1:] == ["--first-build"]
+             else main())

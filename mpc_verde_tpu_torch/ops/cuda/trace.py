@@ -15,6 +15,14 @@ callables with ``make_fx`` and lowers them to a program over scalars that
   never a row baked in at trace time.  A callable that reads a value of its
   inputs in Python (a branch on ``x``, an ``int(k)``) cannot be traced and
   raises.
+* The trace allocates nothing on the OCP's device: the example inputs lie
+  on the host, and every op of the trace runs on host copies of its
+  operands (``_OnHost``), so a program is traced without a card, and
+  equally for an OCP whose tensors lie on one.  The graph still records the
+  closed-over tensors themselves, wherever they lie.  A callable's move of
+  a tensor to another device (``as_tensor(lb, device=u.device)``, ``.to``)
+  is dropped (``_NoMoves``), so the program's text is the same whichever
+  device the OCP's tensors lie on.
 * Every ATen op lowers to scalar SSA with every small static shape unrolled:
   ``mm`` / ``mv`` / ``dot`` become products and sums, as the JAX package
   decomposes ``dot_general``.  An op outside ``LOWERINGS`` raises
@@ -45,6 +53,8 @@ import numpy as np
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map_only
 
 aten = torch.ops.aten
 
@@ -175,6 +185,41 @@ class _KIndex(TorchFunctionMode):
                     and idx.dtype != torch.bool):
                 return aten.index.Tensor(t, [idx])
         return func(*args, **(kwargs or {}))
+
+
+class _NoMoves(TorchFunctionMode):
+    """Drop the device of ``torch.as_tensor`` / ``Tensor.to`` on a tensor
+    (a cast stays) and ``Tensor.cpu`` / ``cuda``: where a callable moves a
+    closed-over tensor to its inputs' device, the graph is the one of the
+    same callable with both on one device, which records no copy."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func in (torch.as_tensor, torch.asarray) and args
+                and isinstance(args[0], torch.Tensor)):
+            kwargs = {k: v for k, v in kwargs.items() if k != "device"}
+        elif func in (torch.Tensor.cpu, torch.Tensor.cuda):
+            return args[0]
+        elif func is torch.Tensor.to:
+            dtype = torch._C._nn._parse_to(*args[1:], **kwargs)[1]
+            return args[0] if dtype is None else args[0].to(dtype)
+        return func(*args, **kwargs)
+
+
+class _OnHost(TorchDispatchMode):
+    """Run every op on host copies of its tensors, factories on the host:
+    under ``make_fx`` the graph records each op on its real operands (a
+    closed-over tensor on the card stays that tensor) and only the values
+    the trace computes, which the lowering reads for shapes and dtypes, lie
+    on the host."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        args, kwargs = tree_map_only(
+            torch.Tensor, lambda t: t if t.device.type == "cpu" else t.cpu(),
+            (args, dict(kwargs or {})))
+        if kwargs.get("device") is not None:
+            kwargs["device"] = torch.device("cpu")
+        return func(*args, **kwargs)
 
 
 class _Lowering:
@@ -804,11 +849,12 @@ def _eval_op(ins, env, ins_t, k, table, dt, dev):
 class Tracer:
     """Trace callables onto one program: shared inputs, one table, one CSE.
 
-    ``sizes`` maps an input's name to its length (``x``, ``u``, ``p``; the
-    stage index ``k`` is a scalar and has none)."""
+    ``dtype`` is the float inputs' dtype; ``sizes`` maps an input's name to
+    its length (``x``, ``u``, ``p``; the stage index ``k`` is a scalar and
+    has none)."""
 
-    def __init__(self, device, dtype, **sizes):
-        self.device, self.dtype, self.sizes = torch.device(device), dtype, sizes
+    def __init__(self, dtype, **sizes):
+        self.dtype, self.sizes = dtype, sizes
         self.b = _SSA()
         self.consts, self.literals, self.offsets, self.n_table = [], [], {}, 0
 
@@ -844,12 +890,11 @@ class Tracer:
     def trace(self, fn: Callable, names, callable_name: str):
         """Trace ``fn`` on the inputs ``names`` and lower it; returns its
         output structure with id arrays in place of tensors."""
-        z = dict(device=self.device)
-        example = [torch.zeros((), dtype=torch.int64, **z) if n == "k" else
-                   torch.zeros((self.sizes[n],), dtype=self.dtype, **z)
+        example = [torch.zeros((), dtype=torch.int64) if n == "k" else
+                   torch.zeros((self.sizes[n],), dtype=self.dtype)
                    for n in names]
         try:
-            with _KIndex():
+            with _OnHost(), _KIndex(), _NoMoves():
                 gm = make_fx(torch.func.functionalize(fn, remove="mutations"))(
                     *example)
         except RuntimeError as exc:
@@ -882,9 +927,10 @@ def _flat_float(b, name, out, n):
 
 def trace_ocp(ocp) -> Program:
     """The program of ``ocp``'s dynamics, stage cost, terminal cost (if any)
-    and control box (if any), traced on the OCP's device and dtype."""
+    and control box (if any), traced in the OCP's dtype; nothing is
+    allocated on the OCP's device (``_OnHost``)."""
     npar = max(ocp.npar, 1)
-    tr = Tracer(ocp.device, ocp.dtype, x=ocp.nx, u=ocp.nu, p=npar)
+    tr = Tracer(ocp.dtype, x=ocp.nx, u=ocp.nu, p=npar)
     outputs = {
         "step": _flat_float(tr.b, "dynamics", tr.trace(
             ocp.dynamics, "xup", "dynamics"), ocp.nx),

@@ -37,8 +37,9 @@ def build_fleet(B: int = None, n_steps: int = None, backend: str = None,
     ``device`` defaults to the CUDA device; without one the call raises, and
     the fleet runs on the CPU only when asked with ``device="cpu"``.
     ``backend`` None is the solvers' rule (``solver.batched.resolve_backend``):
-    ``"cuda_fused"`` for the float32 fleet on a CUDA device, ``"cuda_bw"``
-    for a float64 one there (K1 on float32 copies), ``"torch"`` on the CPU.  Returns a dict with ``ocp``, ``run``, ``x0s`` (B, 3) and
+    ``"cuda_fused"`` for the float32 fleet on a CUDA device (its own
+    unicycle device model), ``"cuda_bw"`` for a float64 one there (K1 on
+    float32 copies), ``"torch"`` on the CPU.  Returns a dict with ``ocp``, ``run``, ``x0s`` (B, 3) and
     ``params`` (Nsim, N+1, 3) as numpy float32, and ``spec``.
     """
     s = dict(SPEC)

@@ -19,6 +19,8 @@ Backends:
     ``device_model`` and takes any nx and nu <= 4 in any float dtype: a
     float64 OCP runs K1 on float32 copies and casts its results back, as
     ``riccati_backward_pallas`` does; the rest stays in the OCP's dtype.
+    ``backend=None`` takes it on a card only for a float64 OCP or one whose
+    callables do not lower to a traced device model.
   * ``"cuda"``  — the hand-written kernels: Riccati backward
     (``ops/cuda/riccati.py``) and fused line search / pre-roll
     (``ops/cuda/rollout.py``).  Needs a float32 OCP on a CUDA device.  The
@@ -52,8 +54,11 @@ in the JAX package (there ``"pallas_bw"``), resolves by ``resolve_backend``
 on the OCP that the solver's parts run (for state bounds the AL-derived OCP,
 in the barrier solver the barrier-derived one): ``"torch"`` on the CPU;
 on a CUDA device ``"cuda_fused"`` for a float32 OCP with a
-``device_model``, else ``"cuda_bw"`` for nu <= 4; nu > 4 on a CUDA device
-raises, as JAX's default does.
+``device_model`` or whose callables lower to a traced one, else
+``"cuda_bw"`` (float64, or callables that do not lower, with a warning)
+for nu <= 4; nu > 4 on a CUDA device raises, as JAX's default does.  A
+traced model's library builds once per program text, at the first solve
+(``ops/cuda/build.py``), and is cached.
 
 State box bounds (``ocp.x_lb`` / ``x_ub``) run the augmented-Lagrangian
 outer loop (``options.al_iters`` PHR rounds): the multipliers ride the
@@ -63,6 +68,7 @@ inner round is the unmodified iteration, kernels included.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
@@ -75,7 +81,7 @@ from ..ops.cuda.build import check_riccati_size
 from ..ops.cuda.riccati import (riccati_backward, riccati_backward_cast,
                                 riccati_backward_torch)
 from ..ops.cuda.rollout import (kernel_model, linesearch_forward,
-                                linesearch_forward_torch)
+                                linesearch_forward_torch, traced_device_model)
 from ..ops.linearize import trajectory_derivatives
 from ..ops.parallel_riccati import lq_backward_parallel
 from .ilqr import ILQROptions, ILQRResult
@@ -99,11 +105,15 @@ class _Parts:
 def resolve_backend(ocp: OCP, backend: Optional[str]) -> str:
     """The backend a solver factory runs on ``ocp``, the OCP its parts run:
     ``backend`` itself when given; for None, ``"torch"`` unless the OCP
-    lives on a CUDA device, and there ``"cuda_fused"`` for a float32 OCP
-    with a ``device_model``, else ``"cuda_bw"`` (K1 on the OCP's own
-    callables, any nx, any float dtype).  A CUDA OCP with nu > 4 raises, as
-    the JAX default ``"pallas_bw"`` does: the plain twins run it only when
-    asked for with ``backend="torch"``."""
+    lives on a CUDA device, and there ``"cuda_fused"`` (K3 and K2) for a
+    float32 OCP with a ``device_model`` or whose callables lower to the
+    model traced from them (``traced_device_model``, traced here without a
+    card and kept on the OCP, so the kernels run this trace), else
+    ``"cuda_bw"`` (K1 on the OCP's own callables, any nx, any float dtype):
+    a float64 OCP, or callables that do not lower, which warns with the op
+    and the callable.  A CUDA OCP with nu > 4 raises, as the JAX default
+    ``"pallas_bw"`` does: the plain twins run it only when asked for with
+    ``backend="torch"``."""
     if backend is not None:
         return backend
     if ocp.device.type != "cuda":
@@ -114,9 +124,18 @@ def resolve_backend(ocp: OCP, backend: Optional[str]) -> str:
             "Riccati kernel supports nu <= 4 (3^nu active-set enumeration). "
             'Pass backend="torch" to run the plain PyTorch versions on the '
             "card")
-    if ocp.dtype == torch.float32 and ocp.device_model is not None:
-        return "cuda_fused"
-    return "cuda_bw"
+    if ocp.dtype != torch.float32:
+        return "cuda_bw"
+    if ocp.device_model is None:
+        try:
+            traced_device_model(ocp)
+        except NotImplementedError as exc:
+            warnings.warn(
+                f"backend=None runs \"cuda_bw\" (the plain line search) on "
+                f"this OCP: its callables do not lower to a traced device "
+                f"model, so K2 and K3 cannot run it: {exc}", stacklevel=3)
+            return "cuda_bw"
+    return "cuda_fused"
 
 
 def _check_ocp(ocp: OCP, backend: str):
@@ -379,9 +398,11 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     ``backend``: one of ``BACKENDS``; None (the default) resolves by
     ``resolve_backend`` on the OCP the solver runs, the AL-derived one under
     state bounds: ``"torch"`` on the CPU; on a CUDA device ``"cuda_fused"``
-    for a float32 OCP with a ``device_model``, else ``"cuda_bw"``; nu > 4
-    raises there.  So a rate-form OCP with a state box, whose AL-derived
-    OCP has no device model, runs ``"cuda_bw"``.
+    for a float32 OCP with a ``device_model`` or whose callables lower to a
+    traced one, else ``"cuda_bw"``; nu > 4 raises there.  So a rate-form
+    OCP with a state box, whose AL-derived OCP has no device model, runs
+    ``"cuda_fused"`` on the model traced from that OCP; its library builds
+    once per program text at the first solve and is cached.
 
     Args of ``solve`` have a leading batch axis: x0s (B, nx), params
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);

@@ -77,8 +77,10 @@ def make_ilqr_solver(ocp, options: ILQROptions = ILQROptions(),
     ``backend`` is the port's one addition to the JAX signature (whose
     single-problem solver has no kernel path): it is passed to
     ``make_batched_ilqr_solver``, so None runs ``"torch"`` on the CPU and
-    on a CUDA device ``"cuda_fused"`` for a float32 OCP with a device model,
-    else ``"cuda_bw"`` (``resolve_backend``).
+    on a CUDA device ``"cuda_fused"`` for a float32 OCP with a device model
+    or whose callables lower to a traced one (its library built once per
+    program text, at the first solve), else ``"cuda_bw"``
+    (``resolve_backend``).
     """
     from .batched import _as_tensor, make_batched_ilqr_solver
 

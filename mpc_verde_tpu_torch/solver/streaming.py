@@ -60,8 +60,9 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     ``backend``: as in ``make_batched_ilqr_solver``; None (the default)
     resolves by ``resolve_backend`` on the OCP the slots run, the AL-derived
     one under state bounds: ``"torch"`` on the CPU; on a CUDA device
-    ``"cuda_fused"`` for a float32 OCP with a ``device_model``, else
-    ``"cuda_bw"``; nu > 4 raises there.
+    ``"cuda_fused"`` for a float32 OCP with a ``device_model`` or whose
+    callables lower to a traced one (its library built once per program
+    text, at the first solve), else ``"cuda_bw"``; nu > 4 raises there.
     ``batch_width`` is the number of resident slots.  ``restarts``: how many
     times a failed or budget-capped problem restarts in place; with rounds,
     each round has its own budget.  ``refill_every``: run the refill once

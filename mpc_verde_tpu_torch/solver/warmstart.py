@@ -54,7 +54,9 @@ def make_lqr_warm_start(ocp: OCP,
       backend: the port's one addition to the JAX signature, with
         ``resolve_backend``'s meaning: None is ``"torch"`` on the CPU and on
         a CUDA device ``"cuda_fused"`` for a float32 OCP with a
-        ``device_model``, else ``"cuda_bw"`` (nu <= 4; more raises).
+        ``device_model`` or whose callables lower to a traced one (K2 then
+        runs on the traced model), else ``"cuda_bw"`` (nu <= 4; more
+        raises).
         ``"cuda"`` and ``"cuda_fused"`` both run K1 and K2; ``"cuda_bw"``
         runs K1 (on float32 copies for a float64 OCP) and the rollout's
         twin on the OCP's callables; ``"torch"`` runs both twins on any

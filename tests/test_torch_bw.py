@@ -7,10 +7,12 @@ plain PyTorch line search on the OCP's own callables.  Held here:
 
 * the rule by which ``backend=None`` resolves, for every factory that
   resolves one, on OCPs that claim a CUDA device (nothing is allocated there
-  before the spies stop the factory): "cuda_fused" for a float32 OCP with a
-  device model, "cuda_bw" without one or in float64, nu > 4 raising, an
-  explicit backend honoured; and on the OCP the parts run, the AL- and
-  barrier-derived ones (a rate-form OCP's have no device model);
+  before the spies stop the factory, the trace included): "cuda_fused" for
+  a float32 OCP with a device model or whose callables lower to a traced
+  one, "cuda_bw" in float64 or where a callable does not lower (with a
+  warning naming the op), nu > 4 raising, an explicit backend honoured;
+  and on the OCP the parts run, the AL- and barrier-derived ones (a
+  rate-form OCP's have no device model and are traced);
 * "cuda_bw" on the CPU (K1's twin and the line search's twin) against JAX's
   "xla" batched solve in float64 on three user OCPs at sizes K1 had no
   library for before it was built per size (``chip_smoke.USER_OCPS``):
@@ -37,18 +39,23 @@ import torch
 import chip_smoke as cs
 import mpc_verde_tpu as mv
 import mpc_verde_tpu_torch as mt
+from mpc_verde_tpu import scenarios as js
 from mpc_verde_tpu.models import linear_model as j_linear_model
 from mpc_verde_tpu.ops import rk4_step as j_rk4_step
 from mpc_verde_tpu.ops.integrators import c2d as j_c2d
 from mpc_verde_tpu.refgen import io as j_io
+from mpc_verde_tpu.solver import make_streaming_barrier_solver as j_barrier
+from mpc_verde_tpu.solver import make_streaming_solver as j_streaming
 from mpc_verde_tpu.solver.batched import make_batched_ilqr_solver as j_batched
-from mpc_verde_tpu_torch.interop import bench_ocp, from_numpy, linear_rate_ocp
+from mpc_verde_tpu_torch.interop import bench_ocp, from_numpy
 from mpc_verde_tpu_torch.ops.cuda import build as build_mod
 from mpc_verde_tpu_torch.ops.cuda.build import SMEM_MAX_BYTES
 from mpc_verde_tpu_torch.ops.cuda.riccati import (HELD_SIZES, riccati_backward,
                                                   riccati_backward_cast,
                                                   riccati_backward_torch,
                                                   riccati_launch_plan)
+from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
+                                                  kernel_model)
 from mpc_verde_tpu_torch.refgen import io as t_io
 from mpc_verde_tpu_torch.scenarios import fleet as fleet_mod
 from mpc_verde_tpu_torch.solver import batched as batched_mod
@@ -119,9 +126,15 @@ BENCH = bench_ocp(10, "cpu")
 RULE_CASES = {
     "cuda_float32_model": (_on_cuda(BENCH), None, "cuda_fused"),
     "cuda_float32_no_model": (_on_cuda(BENCH, device_model=None), None,
-                              "cuda_bw"),
+                              "cuda_fused"),
+    # a callable outside trace.LOWERINGS: the plain line search, and a warning
+    "cuda_float32_no_lowering": (_on_cuda(
+        BENCH, device_model=None, stage_cost=lambda x, u, p: torch.atan2(
+            x[1], x[0]) + BENCH.stage_cost(x, u, p)), None, "cuda_bw"),
     "cuda_float64": (_on_cuda(bench_ocp(10, "cpu", torch.float64)), None,
                      "cuda_bw"),
+    "cuda_float64_no_model": (_on_cuda(bench_ocp(10, "cpu", torch.float64),
+                                       device_model=None), None, "cuda_bw"),
     "cuda_nu5": (_on_cuda(BENCH, nu=5, device_model=None), None,
                  NotImplementedError),
     "cpu": (BENCH, None, "torch"),
@@ -134,13 +147,17 @@ RULE_CASES = {
 @pytest.mark.parametrize("factory,case", [
     (f, c) for f in FACTORIES for c in RULE_CASES
     # the fleet builds its own unicycle, with its device model
-    if f != "fleet" or c not in ("cuda_float32_no_model", "cuda_nu5")])
+    if f != "fleet" or c not in ("cuda_float32_no_model", "cuda_nu5",
+                                 "cuda_float32_no_lowering",
+                                 "cuda_float64_no_model")])
 def test_default_backend_rule(factory, case, monkeypatch):
-    """backend=None on a CUDA OCP is "cuda_fused" with a float32 device
-    model, else "cuda_bw"; nu > 4 there raises and names backend="torch";
-    "torch" on the CPU; an explicit backend is honoured.  The fleet builds
-    its own float32 or float64 unicycle, so only its device, dtype and
-    backend come from the case."""
+    """backend=None on a CUDA OCP is "cuda_fused" in float32 with a device
+    model or callables that lower to a traced one, else "cuda_bw" (float64,
+    or a callable that does not lower: then a warning names the op and the
+    callable); nu > 4 there raises and names backend="torch"; "torch" on the
+    CPU; an explicit backend is honoured.  The fleet builds its own float32
+    or float64 unicycle, so only its device, dtype and backend come from the
+    case."""
     ocp, backend, expected = RULE_CASES[case]
     if factory == "fleet":
         real = fleet_mod.unicycle_ocp
@@ -164,34 +181,45 @@ def test_default_backend_rule(factory, case, monkeypatch):
         with pytest.raises(expected, match='backend="torch"'):
             make(ocp, backend, mt.ILQROptions())
         return
-    with pytest.raises(_Stop):
-        make(ocp, backend, mt.ILQROptions())
+    if case == "cuda_float32_no_lowering":
+        with pytest.warns(UserWarning, match="cuda_bw.*stage_cost.*atan2"):
+            with pytest.raises(_Stop):
+                make(ocp, backend, mt.ILQROptions())
+    else:
+        with pytest.raises(_Stop):
+            make(ocp, backend, mt.ILQROptions())
     assert seen == [expected], (factory, case)
 
 
 def _rate_ocp(dtype=torch.float32, state_box=False):
-    """A rate-form OCP (``interop.linear_rate_ocp``: the double integrator
-    at T = 0.1, rates boxed in [-0.5, 0.5], no magnitude box, so its control
-    box is constant and a barrier can be derived), with a device model."""
-    Ad, Bd = np.array([[1.0, 0.1], [0.0, 1.0]]), np.array([[0.005], [0.1]])
-    ocp = linear_rate_ocp(8, "cpu", dtype, Q=np.diag([1.0, 0.1]),
-                          R=np.array([[0.01]]), du_lb=[-0.5], du_ub=[0.5],
-                          Ad=Ad, Bd=Bd)
-    if state_box:
-        box = lambda v: torch.tensor(v, dtype=dtype)
-        ocp = dataclasses.replace(ocp, x_lb=box([-3.0, -0.5, -np.inf]),
-                                  x_ub=box([3.0, 0.5, np.inf]))
-    return ocp
+    """A rate-form OCP (``chip_smoke.rate_di_ocp`` at N = 8: the double
+    integrator at T = 0.1, rates boxed in [-0.5, 0.5], no magnitude box, so
+    its control box is constant and a barrier can be derived), with a device
+    model; ``state_box`` adds |position| <= 3, |velocity| <= 0.5."""
+    return cs.rate_di_ocp(8, "cpu", dtype, state_box)
+
+
+def _j_rate_ocp(state_box=False, N=8):
+    """``_rate_ocp`` in JAX from the same numbers (``chip_smoke.RATE_DI``)."""
+    s = cs.RATE_DI
+    Ad, Bd = np.array(s["Ad"]), np.array(s["Bd"])
+    Q, R = np.diag(s["Q"]), np.array([[s["R"]]])
+    box = dict(x_lb=np.array(s["x_box"][0][:2]),
+               x_ub=np.array(s["x_box"][1][:2])) if state_box else {}
+    return mv.to_rate_form(lambda x, u, p: Ad @ x + Bd @ u,
+                           lambda x, u, p, du: x @ Q @ x + u @ R @ u, N=N,
+                           nx=2, nu=1, du_lb=[-s["du"]], du_ub=[s["du"]], **box)
 
 
 DERIVED_CASES = {
     # (factory, base OCP (on the CPU), expected on a CUDA device)
-    "batched_al_rate": ("batched", _rate_ocp(state_box=True), "cuda_bw"),
-    "ilqr_al_rate": ("ilqr", _rate_ocp(state_box=True), "cuda_bw"),
-    "streaming_al_rate": ("streaming", _rate_ocp(state_box=True), "cuda_bw"),
-    "barrier_rate": ("streaming_barrier", _rate_ocp(), "cuda_bw"),
+    "batched_al_rate": ("batched", _rate_ocp(state_box=True), "cuda_fused"),
+    "ilqr_al_rate": ("ilqr", _rate_ocp(state_box=True), "cuda_fused"),
+    "streaming_al_rate": ("streaming", _rate_ocp(state_box=True),
+                          "cuda_fused"),
+    "barrier_rate": ("streaming_barrier", _rate_ocp(), "cuda_fused"),
     "barrier_al_rate": ("streaming_barrier", _rate_ocp(state_box=True),
-                        "cuda_bw"),
+                        "cuda_fused"),
     "batched_al_unicycle": ("batched", bench_ocp(10, "cpu", x_ub=[np.inf, 5.0,
                                                                   np.inf]),
                             "cuda_fused"),
@@ -205,17 +233,18 @@ def test_default_backend_reads_the_derived_ocp(case, monkeypatch):
     """backend=None resolves on the OCP the parts run: the AL-derived OCP
     under state bounds, the barrier-derived one (and its AL-derived one) in
     the streaming barrier solver.  A rate-form model derives no barrier or
-    AL term, so those run "cuda_bw" on a card; the unicycle's derived
-    models keep "cuda_fused".  The derived OCPs are built on the CPU and
-    resolved as if they lay on a CUDA device."""
+    AL term, so those OCPs run "cuda_fused" on the model traced from their
+    callables; the unicycle's derived models keep "cuda_fused" on theirs.
+    The derived OCPs are built on the CPU and resolved as if they lay on a
+    CUDA device."""
     factory, ocp, expected = DERIVED_CASES[case]
     seen, ran_on = [], []
     module = streaming_mod if factory in ("streaming", "streaming_barrier") \
         else batched_mod
 
     def spy(run_ocp, backend):
-        ran_on.append(run_ocp)
-        seen.append(resolve_backend(_on_cuda(run_ocp), backend))
+        ran_on.append(_on_cuda(run_ocp))
+        seen.append(resolve_backend(ran_on[-1], backend))
         raise _Stop
 
     monkeypatch.setattr(module, "resolve_backend", spy)
@@ -224,8 +253,43 @@ def test_default_backend_reads_the_derived_ocp(case, monkeypatch):
     assert seen == [expected]
     assert ran_on[0].npar > max(ocp.npar, 1)          # a derived OCP
     assert not ran_on[0].has_state_bounds
+    # the kernels run the model the rule traced, kept on the OCP
+    model = kernel_model(ran_on[0])
+    if case.endswith("rate"):
+        assert ran_on[0].device_model is None
+        assert isinstance(model, TracedDeviceModel)
+        assert model is ran_on[0].__dict__["_traced_device_model"]
+    else:
+        assert model is ran_on[0].device_model is not None
     # the same OCP on the CPU runs "torch"
-    assert resolve_backend(ran_on[0], None) == "torch"
+    assert resolve_backend(dataclasses.replace(ran_on[0], device=torch.device(
+        "cpu")), None) == "torch"
+
+
+def test_the_rule_traces_without_a_card(monkeypatch):
+    """backend=None decides "cuda_fused" by a trace at the factory that
+    allocates nothing on the OCP's device (CUDA's lazy initialisation, which
+    every CUDA allocation runs first, is never reached), and keeps that
+    trace on the OCP for the kernels: the bench from its callables, the user
+    OCPs and the rate-form AL- and barrier-derived OCPs.  A float64 OCP is
+    decided without a trace."""
+    def no_card():
+        raise AssertionError("the rule reached CUDA")
+
+    monkeypatch.setattr(torch.cuda, "_lazy_init", no_card)
+    ocps = {"bench": _on_cuda(BENCH, device_model=None),
+            **{n: _on_cuda(cs.user_ocp(n, "cpu")) for n in cs.USER_OCPS},
+            "al_rate": _on_cuda(batched_mod._augment_ocp_al(
+                _rate_ocp(state_box=True))),
+            "barrier_rate": _on_cuda(ipm_mod._barrier_ocp(_rate_ocp(),
+                                                          "streaming"))}
+    for name, ocp in ocps.items():
+        assert ocp.device_model is None, name
+        assert resolve_backend(ocp, None) == "cuda_fused", name
+        assert kernel_model(ocp) is ocp.__dict__["_traced_device_model"]
+    ocp64 = _on_cuda(bench_ocp(10, "cpu", torch.float64), device_model=None)
+    assert resolve_backend(ocp64, None) == "cuda_bw"
+    assert "_traced_device_model" not in ocp64.__dict__
 
 
 def test_explicit_kernel_backends_still_refuse_what_they_cannot_run():
@@ -499,11 +563,40 @@ def test_reference_dir_falls_back_as_jax_does(tmp_path, monkeypatch):
     assert t_io.reference_data_dir() == env
 
 
+def _j_lane_box_ocp(N=cs.BENCH_N):
+    """``chip_smoke.lane_box_ocp`` in JAX: the JAX lane change's OCP at N
+    without move blocking, the same box on y."""
+    ocp = js.build_lane_change_lti(N=N, Ntu=N, n_steps=1)["ocp"]
+    lo, hi = cs.LANE_Y_BOX
+    return dataclasses.replace(ocp, x_lb=jnp.array([lo, -np.inf, -np.inf,
+                                                    -np.inf]),
+                               x_ub=jnp.array([hi, np.inf, np.inf, np.inf]))
+
+
 def _band(B=cs.USER_B):
     """converged_frac of JAX float32 "xla" on the CPU over the first B
-    starts of each user OCP (chip_smoke.USER_JAX_BAND)."""
+    starts of each user OCP (chip_smoke.USER_JAX_BAND) and over the queues
+    of chip_smoke.py phase 23 (e2) and (e3) (held to 0.99 there)."""
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", False)
+    opts = mv.ILQROptions(**OPTS)
+    for name, make, queue in (
+            ("lane_al", lambda: j_streaming(
+                _j_lane_box_ocp(), dataclasses.replace(
+                    opts, al_iters=cs.AL_ITERS), backend="xla",
+                batch_width=cs.WIDTH, restarts=2),
+             cs.lane_box_queue(cs.WIDTH)),
+            ("rate_barrier", lambda: j_barrier(
+                _j_rate_ocp(N=cs.BENCH_N), opts, backend="xla",
+                batch_width=cs.WIDTH, restarts=2),
+             cs.rate_di_queue(cs.WIDTH))):
+        res = make()(*queue, max_iters=60, restarts_n=2)
+        viol = np.asarray(res.max_violation)
+        print(f"{name}: JAX float32 \"xla\" on the CPU, M={cs.WIDTH} "
+              f"N={cs.BENCH_N}: converged_frac "
+              f"{float(np.mean(np.asarray(res.converged)))}, mean iterations "
+              f"{float(np.mean(np.asarray(res.iterations)))}, max_violation "
+              f"{float(viol.max())}", flush=True)
     for name in cs.USER_OCPS:
         x0, ps, us0 = (a.astype(np.float32) for a in cs.user_queue(name, B))
         res = jax.jit(j_batched(_jax_user_ocp(name), mv.ILQROptions(**OPTS),

@@ -58,9 +58,11 @@ def _traced_programs():
 
     bare = lambda **kw: dataclasses.replace(bench_ocp(40, "cpu", **kw),
                                             device_model=None)
+    rate = cs.traced_ocps("cpu")
     ocps = [bare(), bare(box=False),
             *(cs.user_ocp(name, "cpu") for name in cs.USER_OCPS),
-            *derived_ocps(bare(x_lb=TERM_BOX[0], x_ub=TERM_BOX[1])).values()]
+            *derived_ocps(bare(x_lb=TERM_BOX[0], x_ub=TERM_BOX[1])).values(),
+            rate["lane_al"], rate["rate_barrier"]]
     return [trace_ocp(o) for o in ocps]
 
 
@@ -1103,20 +1105,38 @@ def _bw_ran(run):
     return out, {f.__name__ for f, n in counts.items() if f.launches > n}
 
 
+def _default_ran(run):
+    """Run ``run`` on the default path: (its result, the kernels it
+    launched); no twin runs on CUDA tensors, the plain line search
+    included."""
+    counts = {f: f.launches for f in (riccati_backward, linesearch_forward,
+                                      fused_backward)}
+    riccati_backward_torch.cuda_calls = 0
+    fused_backward_torch.cuda_calls = 0
+    linesearch_forward_torch.cuda_calls = 0
+    out = run()
+    torch.cuda.synchronize()
+    assert riccati_backward_torch.cuda_calls == 0
+    assert fused_backward_torch.cuda_calls == 0
+    assert linesearch_forward_torch.cuda_calls == 0
+    return out, {f.__name__ for f, n in counts.items() if f.launches > n}
+
+
 def test_cuda_bw_on_the_bench_ocp_without_a_device_model(dev):
-    """The bench OCP built from its callables resolves to "cuda_bw", runs
-    K1 and neither K2 nor K3, and converges as "cuda" does on the same
-    queue: converged agree >= 0.99; where both converged, costs within 1e-3
-    relative on >= 0.99 of the starts, and both answers of every other
-    start float64 optima (chip_smoke.py's _hold_optima: the two line
-    searches can part at a near tie and end in two local optima of the
-    bench OCP)."""
+    """The bench OCP built from its callables: backend=None resolves to
+    "cuda_fused" on the model traced from them and runs K3 and K2 and no
+    plain line search; "cuda_bw", named, runs K1 and neither K2 nor K3.
+    Each converges as "cuda" does on the same queue: converged agree >=
+    0.99; where both converged, costs within 1e-3 relative on >= 0.99 of
+    the starts, and both answers of every other start float64 optima
+    (chip_smoke.py's _hold_optima: the two line searches can part at a near
+    tie and end in two local optima of the bench OCP)."""
     from mpc_verde_tpu_torch.solver.batched import resolve_backend
 
     N, M, W = 40, 512, 256
     ocp = bench_ocp(N, dev, torch.float32)
     bare = dataclasses.replace(ocp, device_model=None)
-    assert resolve_backend(bare, None) == "cuda_bw"
+    assert resolve_backend(bare, None) == "cuda_fused"
     rng = np.random.default_rng(22)
     x0 = rng.uniform(-2.0, 2.0, (M, 3))
     target = np.array([10.0, 10.0, 0.0])
@@ -1124,15 +1144,19 @@ def test_cuda_bw_on_the_bench_ocp_without_a_device_model(dev):
                           n_alphas=8, alpha_decay=0.4)
     make = lambda o, b: mt.make_streaming_solver(o, opts, backend=b,
                                                  batch_width=W, restarts=2)
-    rb, ran = _bw_ran(lambda: make(bare, None)(x0, target))
+    rb, ran = _bw_ran(lambda: make(bare, "cuda_bw")(x0, target))
     assert ran == {"riccati_backward"}
+    rd, ran = _default_ran(lambda: make(bare, None)(x0, target))
+    assert ran == {"fused_backward", "linesearch_forward"}
     rc = make(ocp, "cuda")(x0, target)
-    assert float(rb.converged.float().mean()) >= 0.99
     ps = torch.as_tensor(np.broadcast_to(target, (M, N + 1, 3)).copy(),
                          dtype=torch.float32, device=dev)
-    _hold_optima("cuda_bw vs cuda", rb, rc, bench_ocp(N, dev, torch.float64),
-                 torch.as_tensor(x0, dtype=torch.float32, device=dev), ps,
-                 1e-3)
+    for tag, res in (("cuda_bw", rb), ("default", rd)):
+        assert float(res.converged.float().mean()) >= 0.99
+        _hold_optima(f"{tag} vs cuda", res, rc,
+                     bench_ocp(N, dev, torch.float64),
+                     torch.as_tensor(x0, dtype=torch.float32, device=dev), ps,
+                     1e-3)
 
 
 def test_cuda_bw_float64_runs_k1_on_float32_copies(dev):
@@ -1168,9 +1192,9 @@ def test_cuda_bw_float64_runs_k1_on_float32_copies(dev):
                                   "point_mass"])
 def test_cuda_bw_on_user_ocps(dev, name):
     """chip_smoke.py's user OCPs at (2, 1), (6, 2), (6, 3), from callables:
-    "cuda_bw", K1 alone, converged_frac >= 0.99 (JAX float32's band, 1.0,
-    less 0.01) and within 1e-3 relative cost of the float64 "torch" solve on
-    the CPU where both converged."""
+    "cuda_bw", named, K1 alone, converged_frac >= 0.99 (JAX float32's band,
+    1.0, less 0.01) and within 1e-3 relative cost of the float64 "torch"
+    solve on the CPU where both converged."""
     import chip_smoke as cs
 
     B = 256
@@ -1178,7 +1202,7 @@ def test_cuda_bw_on_user_ocps(dev, name):
     opts = mt.ILQROptions(max_iters=60, tol_grad=1e-4, tol_cost=1e-6,
                           n_alphas=8, alpha_decay=0.4)
     rb, ran = _bw_ran(lambda: mt.make_batched_ilqr_solver(
-        cs.user_ocp(name, dev), opts)(x0, ps, us0))
+        cs.user_ocp(name, dev), opts, backend="cuda_bw")(x0, ps, us0))
     assert ran == {"riccati_backward"}
     rt = mt.make_batched_ilqr_solver(cs.user_ocp(name, "cpu", torch.float64),
                                      opts, backend="torch")(x0, ps, us0)
@@ -1189,9 +1213,11 @@ def test_cuda_bw_on_user_ocps(dev, name):
 
 
 def test_cuda_bw_warm_start_runs_k1_alone(dev):
-    """make_lqr_warm_start on the bench OCP without its device model: one
-    K1 launch and the rollout's twin; the controls of the "cuda" warm
-    start (K2 in place of the twin, both float32) within 1e-4."""
+    """make_lqr_warm_start on "cuda_bw", named, on the bench OCP without its
+    device model: one K1 launch and the rollout's twin; the controls of the
+    "cuda" warm start (K2 in place of the twin, both float32) within 1e-4.
+    backend=None there runs one K1 and one K2 launch (on the traced model)
+    and no twin, to the same controls."""
     from mpc_verde_tpu_torch.solver import make_lqr_warm_start
 
     N, B = 40, 301
@@ -1200,13 +1226,70 @@ def test_cuda_bw_warm_start_runs_k1_alone(dev):
     ps = np.broadcast_to(np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy()
     ocp = bench_ocp(N, dev)
     k1 = riccati_backward.launches
+    bare = dataclasses.replace(ocp, device_model=None)
     us, ran = _bw_ran(lambda: make_lqr_warm_start(
-        dataclasses.replace(ocp, device_model=None),
-        xref_fn=lambda p: p[:3])(x0, ps))
+        bare, xref_fn=lambda p: p[:3], backend="cuda_bw")(x0, ps))
     assert ran == {"riccati_backward"} and riccati_backward.launches == k1 + 1
     ref = make_lqr_warm_start(ocp, xref_fn=lambda p: p[:3],
                               backend="cuda")(x0, ps)
     assert float((us - ref).abs().max()) <= 1e-4
+    k1, k2 = riccati_backward.launches, linesearch_forward.launches
+    us, ran = _default_ran(lambda: make_lqr_warm_start(
+        bare, xref_fn=lambda p: p[:3])(x0, ps))
+    assert ran == {"riccati_backward", "linesearch_forward"}
+    assert (riccati_backward.launches, linesearch_forward.launches) == (
+        k1 + 1, k2 + 1)
+    assert float((us - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["lane_al", "rate_barrier"])
+def test_default_path_on_the_rate_form_derived_ocps(dev, case):
+    """backend=None on the rate-form models' derived OCPs, which have no
+    device model (chip_smoke.py phase 23 (e2) and (e3) at B = 256): the
+    lane change with a box on y through make_streaming_solver (its
+    AL-derived OCP), the double integrator's rate form through
+    make_streaming_barrier_solver (its barrier-derived OCP).  Each resolves
+    to "cuda_fused" on the traced model, launches K3 and K2 and neither K1
+    nor any twin (the plain line search included), converges on >= 0.99,
+    keeps max_violation < 1e-2 and lands within 1e-3 relative cost of the
+    float64 "torch" solve on the CPU on its first 32 problems where both
+    converged."""
+    import chip_smoke as cs
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
+                                                      kernel_model)
+    from mpc_verde_tpu_torch.solver.batched import (_augment_ocp_al,
+                                                    resolve_backend)
+    from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp
+
+    N, B, H = 40, 256, 32
+    if case == "lane_al":
+        make = lambda o: mt.make_streaming_solver(
+            o, cs._opts(al_iters=cs.AL_ITERS), batch_width=B, restarts=2)
+        ocp, ocp64 = (cs.lane_box_ocp(d, t, N) for d, t in (
+            (dev, torch.float32), ("cpu", torch.float64)))
+        derived = _augment_ocp_al(ocp)
+        queue = cs.lane_box_queue(B, N)
+    else:
+        make = lambda o: mt.make_streaming_barrier_solver(
+            o, cs._opts(), batch_width=B, restarts=2)
+        ocp, ocp64 = (cs.rate_di_ocp(N, d, t) for d, t in (
+            (dev, torch.float32), ("cpu", torch.float64)))
+        derived = _barrier_ocp(ocp, "streaming")
+        queue = cs.rate_di_queue(B, N)
+    assert derived.device_model is None
+    assert resolve_backend(derived, None) == "cuda_fused"
+    assert isinstance(kernel_model(derived), TracedDeviceModel)
+    solve = make(ocp)
+    res, ran = _default_ran(lambda: solve(*queue, max_iters=60,
+                                          restarts_n=2))
+    assert ran == {"fused_backward", "linesearch_forward"}
+    assert float(res.converged.float().mean()) >= 0.99
+    assert float(res.max_violation.max()) < 1e-2
+    ref = make(ocp64)(*(a[:H] for a in queue), max_iters=60, restarts_n=2)
+    both = res.converged[:H].cpu() & ref.converged
+    rel = (res.cost[:H].double().cpu() - ref.cost).abs() / ref.cost.abs()
+    assert float(both.float().mean()) >= 0.99
+    assert float(rel[both].max()) <= 1e-3
 
 
 def test_failed_k1_build_raises_with_its_log(dev, tmp_path, monkeypatch):

@@ -107,10 +107,11 @@ class _Stop(Exception):
     pass
 
 
-def _fake_cuda_ocp(model=True):
+def _fake_cuda_ocp(model=True, dtype=torch.float32):
     """The bench OCP as if it lay on a CUDA device (nothing is allocated
     there until a solve runs), with or without its device model."""
-    ocp = dataclasses.replace(bench_ocp(10, "cpu"), device=torch.device("cuda"))
+    ocp = dataclasses.replace(bench_ocp(10, "cpu", dtype),
+                              device=torch.device("cuda"))
     return ocp if model else dataclasses.replace(ocp, device_model=None)
 
 
@@ -124,10 +125,11 @@ FACTORIES = {
 
 @pytest.mark.parametrize("factory", list(FACTORIES))
 def test_default_backend_follows_the_device(factory, monkeypatch):
-    """backend=None runs "cuda_fused" for a float32 OCP with a device model
-    on a CUDA device, "cuda_bw" (K1 on the OCP's callables) for one
-    without, and "torch" on the CPU; an explicit backend is honoured; a
-    CUDA OCP with nu > 4 raises and names backend="torch"."""
+    """backend=None runs "cuda_fused" for a float32 OCP on a CUDA device,
+    with its device model or without one (on the model traced from its
+    callables), "cuda_bw" (K1 on the OCP's callables) for a float64 one,
+    and "torch" on the CPU; an explicit backend is honoured; a CUDA OCP
+    with nu > 4 raises and names backend="torch"."""
     seen = []
 
     def spy_parts(ocp, opt, backend):
@@ -149,7 +151,9 @@ def test_default_backend_follows_the_device(factory, monkeypatch):
             (_fake_cuda_ocp(), None, "cuda_fused"),
             (_fake_cuda_ocp(), "cuda", "cuda"),
             (_fake_cuda_ocp(), "torch", "torch"),
-            (_fake_cuda_ocp(model=False), None, "cuda_bw"),
+            (_fake_cuda_ocp(model=False), None, "cuda_fused"),
+            (_fake_cuda_ocp(model=False, dtype=torch.float64), None,
+             "cuda_bw"),
             (bench_ocp(10, "cpu"), None, "torch")):
         with pytest.raises(_Stop):
             make(ocp, backend=backend)

@@ -8,12 +8,16 @@ jaxpr.  Held here on the CPU:
   against the JAX package's ``_hoist_consts`` pure functions of the same
   OCPs built in JAX from the same numbers (the bench OCP, the three user
   OCPs of ``chip_smoke.USER_OCPS``, the bench OCP's AL-derived OCP with the
-  box y <= 5 and its two barrier-derived OCPs), to 1e-12 of max(1, |ref|),
-  first and second derivatives included;
+  box y <= 5 and its two barrier-derived OCPs, a rate-form OCP's AL-derived
+  and streaming barrier-derived OCPs), to 1e-12 of max(1, |ref|), first and
+  second derivatives included;
 * the twins ``fused_backward_torch`` and ``linesearch_forward_torch`` on an
   OCP whose callables are the evaluator's against JAX's "xla" parts in
-  float64 (1e-9) and against ``linesearch_forward_pallas`` in interpret mode
-  (float32 there: JAX's own tolerances, 5e-5);
+  float64 (1e-9), also on the AL-derived and the streaming barrier-derived
+  OCPs of a rate-form OCP (``test_torch_bw._rate_ocp``, which
+  ``backend=None`` traces on a card), and against
+  ``linesearch_forward_pallas`` in interpret mode (float32 there: JAX's own
+  tolerances, 5e-5);
 * JAX's two CSE regressions, a stage-varying box read at the traced stage
   index, and the refusals (an op outside the lowering table, a callable
   that branches on a value);
@@ -56,9 +60,9 @@ from mpc_verde_tpu_torch.ops.cuda.rollout import (TracedDeviceModel,
                                                   traced_device_model)
 from mpc_verde_tpu_torch.ops.cuda.trace import Tracer, trace_ocp
 from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
-from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp
+from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp, _barrier_term
 from test_pallas_rollout import _problem as j_pallas_problem
-from test_torch_bw import _jax_user_ocp
+from test_torch_bw import _j_rate_ocp, _jax_user_ocp, _rate_ocp
 
 N = 6
 F64 = torch.float64
@@ -81,11 +85,11 @@ def _close(a, ref, tol, what=""):
 
 # ---- the OCPs, in the port and in JAX from the same numbers ---------------
 
-def _j_barrier(ocp_j, rule):
-    """The barrier OCP the JAX solvers build (solver/ipm.py), rule
-    "streaming" (make_streaming_barrier_solver) or "batched"
-    (make_barrier_solver)."""
-    lb, ub = (np.asarray(b, np.float64) for b in BENCH_BOX)
+def _j_barrier(ocp_j, rule, box=BENCH_BOX):
+    """The barrier OCP the JAX solvers build (solver/ipm.py) on the constant
+    control box ``box``, rule "streaming" (make_streaming_barrier_solver) or
+    "batched" (make_barrier_solver)."""
+    lb, ub = (np.asarray(b, np.float64) for b in box)
     npar = max(ocp_j.npar, 1)
     l, F, cb = ocp_j.stage_cost, ocp_j.dynamics, ocp_j.control_bounds
     if rule == "streaming":
@@ -108,6 +112,12 @@ def _case(name):
     """(port OCP in float64 without a device model, JAX OCP)."""
     if name in cs.USER_OCPS:
         return cs.user_ocp(name, "cpu", F64), _jax_user_ocp(name)
+    if name == "rate_al":
+        return (_augment_ocp_al(_rate_ocp(F64, state_box=True)),
+                j_augment_al(_j_rate_ocp(state_box=True)))
+    if name == "rate_barrier":
+        return (_barrier_ocp(_rate_ocp(F64), "streaming"),
+                _j_barrier(_j_rate_ocp(), "streaming", ([-0.5], [0.5])))
     base = dataclasses.replace(bench_ocp(N, "cpu", F64), device_model=None)
     base_j = bench.build_ocp(N)
     if name == "bench":
@@ -122,7 +132,7 @@ def _case(name):
 
 
 CASES = ["bench", *cs.USER_OCPS, "bench_al", "bench_barrier_streaming",
-         "bench_barrier_batched"]
+         "bench_barrier_batched", "rate_al", "rate_barrier"]
 
 
 def _inputs(name, ocp, B, seed):
@@ -134,12 +144,14 @@ def _inputs(name, ocp, B, seed):
     x = rng.uniform(-2, 2, (B, ocp.nx))
     u = rng.uniform(-0.9, 0.9, (B, ocp.nu))
     p = rng.uniform(-1, 1, (B, npar))
-    if name.startswith("bench_barrier"):
+    if name in ("bench_barrier_streaming", "bench_barrier_batched",
+                "rate_barrier"):
         p[:, -1] = np.where(np.arange(B) % 3 == 0, 0.0, 10.0 ** -rng.integers(
             1, 4, B))
         u[::4] *= 3.0   # outside the box: +inf ("streaming") or NaN
-    if name == "bench_al":
-        p[:, 3:-1] = np.abs(p[:, 3:-1])
+    if name in ("bench_al", "rate_al"):
+        lam = 3 if name == "bench_al" else 1   # the base OCP's columns
+        p[:, lam:-1] = np.abs(p[:, lam:-1])
         p[:, -1] = 10.0 ** rng.uniform(0, 2, B)
     return x, u, p
 
@@ -226,7 +238,8 @@ def _evaluator_ocp(ocp):
         control_bounds=None if ocp.control_bounds is None else m.bounds)
 
 
-@pytest.mark.parametrize("name", ["bench", *cs.USER_OCPS, "bench_al"])
+@pytest.mark.parametrize("name", ["bench", *cs.USER_OCPS, "bench_al",
+                                  "rate_al", "rate_barrier"])
 def test_twins_on_the_evaluator_match_jax_xla(name):
     """fused_backward_torch and linesearch_forward_torch on the evaluator's
     callables against JAX's "xla" derivs -> backward and materialising line
@@ -305,7 +318,7 @@ def test_linesearch_twin_on_the_evaluator_matches_pallas_interpret():
 def _trace_fn(fn, **sizes):
     """Trace one callable of inputs ``sizes`` (name -> length) and return
     (program, its output value numbers)."""
-    tr = Tracer("cpu", F64, **sizes)
+    tr = Tracer(F64, **sizes)
     out = np.asarray(tr.trace(fn, list(sizes), "fn"), dtype=object)
     prog = tr.program({"out": tuple(out.ravel())}, 1, 1, 1)
     return prog, prog.outputs["out"]
@@ -457,6 +470,25 @@ def test_weights_changed_in_place_are_followed():
         with pytest.raises(RuntimeError,
                            match="changed in place after the trace"):
             read()
+
+
+def test_program_text_does_not_depend_on_a_move_to_the_inputs_device():
+    """A callable that moves a closed-over tensor to its inputs' device (as
+    ``solver/ipm._barrier_term`` does with the box) traces to the program
+    of the same callable without the move: on the card the box lies there
+    and the trace's inputs on the host, on the CPU both on the host, and
+    one library serves both traces.  A float cast is no instruction."""
+    lb, ub = torch.tensor([-0.5]), torch.tensor([0.5])
+    sizes = dict(u=1, p=2)
+    plain = _trace_fn(lambda u, p: _barrier_term(u, lb, ub, p[1]), **sizes)
+    for move in (lambda t, u: torch.as_tensor(t, device="meta"),
+                 lambda t, u: t.to("meta"), lambda t, u: t.to(u),
+                 lambda t, u: t.to(device="meta", dtype=torch.float64),
+                 lambda t, u: t.cpu()):
+        prog, out = _trace_fn(lambda u, p: _barrier_term(
+            u, move(lb, u), move(ub, u), p[1]), **sizes)
+        assert (prog.ops, out) == (plain[0].ops, plain[1])
+        assert all(c.device.type == "cpu" for c in prog.consts)
 
 
 def test_program_text_does_not_depend_on_the_table():
