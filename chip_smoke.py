@@ -217,8 +217,20 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               JAX float32's on the CPU less 0.01), max_violation < 1e-2,
               held against CPU float64 on its first 64 problems by phase
               22's rule, and K2 and K3 on its derived program held and
-              timed as in (c).  No path calls a twin on CUDA tensors, and
-              none launches the other backward kernel.
+              timed as in (c); (e4) make_streaming_solver over the first
+              2048 starts of phase 5's queue on the bench OCP with speed
+              saturation (tanh) in its dynamics and a soft obstacle
+              (softplus) in its stage cost, converged_frac >= 0.99, held
+              against CPU float64 on its first 64 problems by its optima
+              (it may pass the obstacle on either side), K2 and K3 along its
+              answers as in (c).  (f) K2 and K3 on an OCP whose callables
+              use every other op the traced model lowers since the table
+              holds Mosaic's primitives (the sigmoid, log1p, exp2, erfinv,
+              floor, ceil, round, sign, pow, fmod, remainder, the max / min
+              reductions, hypot, logaddexp, the Huber and smooth L1 costs,
+              silu), held and timed as in (c) on random trajectories and
+              gains.  No path calls a twin on CUDA tensors, and none
+              launches the other backward kernel.
 Phases 5, 8, 9 and 11 to 23 each set every kernel launch count to 0 just
 before and read it just after, and check that the launches were of the
 variants the launch plans choose for the shape (18: K2 only on "scan"; 19:
@@ -1488,9 +1500,9 @@ def _hold_case(label, ocp, data, ps, alphas, err, flops):
     return _time_case(label, ocp, data, alphas, flops)
 
 
-def _time_case(label, ocp, data, alphas, flops):
-    """One case's K2 and K3 times beside their twins' and their bounds:
-    (K2 row, K3 row)."""
+def _time_case(label, ocp, data, alphas, flops, twin=None):
+    """One case's K2 and K3 times beside their twins' (on ``twin``'s
+    callables, ``ocp``'s by default) and their bounds: (K2 row, K3 row)."""
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch, fused_launch_plan)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
@@ -1503,6 +1515,7 @@ def _time_case(label, ocp, data, alphas, flops):
     reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
     sizes = dict(nx=nx, nu=nu)
     planned = linesearch_launch_plan(N, A, npar, **sizes).variant
+    twin = twin or ocp
     k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
     k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
     out2, out3 = k2(), k3()
@@ -1511,12 +1524,12 @@ def _time_case(label, ocp, data, alphas, flops):
         o.numel() for o in out3)
     row2 = {"case": label, "ms": _time_ms(k2, reps=50),
             "plain_ms": _time_ms(
-                lambda: linesearch_forward_torch(*data, alphas, ocp=ocp),
+                lambda: linesearch_forward_torch(*data, alphas, ocp=twin),
                 reps=3, warmup=1, queued=False),
             "variant": planned, **_bound(4 * n2, B * A * N * flops[0])}
     row3 = {"case": label, "ms": _time_ms(k3, reps=50),
             "plain_ms": _time_ms(
-                lambda: fused_backward_torch(xs, us, ps, reg, ones, ocp=ocp),
+                lambda: fused_backward_torch(xs, us, ps, reg, ones, ocp=twin),
                 reps=3, warmup=1, queued=False),
             "variant": fused_launch_plan(N, True, None, B, **sizes).variant,
             **_bound(4 * n3, B * N * flops[1])}
@@ -1846,7 +1859,7 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
     the float64 CPU runs of phases 19, 20 and 21 (the warm start, the NLP
     batch, the compat scripts' first steps, the sweep at horizons 3 and 20),
     of phase 22 (the user OCPs' first USER_HOLD problems) and of phase 23
-    (e2) and (e3) (their first USER_HOLD problems).  They need no
+    (e2), (e3) and (e4) (their first USER_HOLD problems).  They need no
     card, so they run beside phases 3-18; puts {name: (xs, us, mean iterations, seconds)} and
     {name: {array name: array, "seconds": s}} on ``queue``, or the error's
     traceback."""
@@ -1892,6 +1905,7 @@ def _cpu64_references(queue, hold_circ, hold_path, lc_start):
                for name in USER_OCPS},   # phase 22
             "lane_al": lambda: _rate_f64("lane_al"),   # phase 23 (e)
             "rate_barrier": lambda: _rate_f64("rate_barrier"),
+            "obstacle": _obstacle_f64,
         }
         for name, run in raw.items():
             t0 = time.perf_counter()
@@ -1930,6 +1944,19 @@ def _rate_f64(name):
             rate_di_ocp(BENCH_N, "cpu", f64), _opts(), backend="torch",
             batch_width=USER_HOLD, restarts=2)
     res = solve(*(a[:USER_HOLD] for a in queue), max_iters=60, restarts_n=2)
+    return {k: getattr(res, k).numpy() for k in ("converged", "cost", "us")}
+
+
+def _obstacle_f64():
+    """Phase 23 (e4) in float64 on "torch" on the CPU over the first
+    USER_HOLD starts of its queue."""
+    from mpc_verde_tpu_torch import make_streaming_solver
+
+    queue = tuple(a[:USER_HOLD] for a in _queue(QUEUE, BENCH_N))
+    solve = make_streaming_solver(
+        obstacle_ocp("cpu", torch.float64, BENCH_N), _opts(), backend="torch",
+        batch_width=USER_HOLD, restarts=2)
+    res = solve(*queue, max_iters=60, restarts_n=2)
     return {k: getattr(res, k).numpy() for k in ("converged", "cost", "us")}
 
 
@@ -3331,11 +3358,12 @@ def _polish(ocp64, us, cost, x0, ps):
     return (cost.to(f64) - pol.cost) / pol.cost.abs(), pol.converged
 
 
-def _hold_optima(tag, res, ref, ocp64, x0, ps, tol):
+def _hold_optima(tag, res, ref, ocp64, x0, ps, tol, share_gate=0.99):
     """``res`` against ``ref`` on the queue (x0, ps) by the rule above:
     converged agree >= 0.99; where both converged, costs within ``tol``
-    relative on >= 0.99 of the starts; both answers of every other start
-    float64 optima of ``ocp64``."""
+    relative on >= ``share_gate`` of the starts (0 where two optima of one
+    start may differ by more, as on either side of an obstacle); both
+    answers of every other start float64 optima of ``ocp64``."""
     agree = float((res.converged == ref.converged).float().mean())
     both = res.converged & ref.converged
     gap = ((res.cost.double() - ref.cost.double()).abs()
@@ -3357,7 +3385,7 @@ def _hold_optima(tag, res, ref, ocp64, x0, ps, tol):
              f"{ref.cost[off][:4].tolist()}, each answer polished in float64 "
              f"(max drop {drops}, tolerance {BW_POLISH_TOL}): float64 optima "
              f"{polished}" if len(off) else "none"), flush=True)
-    if agree < 0.99 or share < 0.99 or not polished:
+    if agree < 0.99 or share < share_gate or not polished:
         raise AssertionError(f"{tag}: agree {agree}, share {share}, "
                              f"polished {polished}")
 
@@ -3476,8 +3504,10 @@ CUDA_PATH = ("riccati_backward", "linesearch_forward")
 # operations a float operation of a traced program takes on K3's dual
 # numbers over nz seeds (nh = nz (nz + 1) / 2 Hessian entries): a linear
 # one touches every component, a product of two duals 3 nz + 4 nh, a
-# function f 16 + 2 nz + 3 nh (chain); a transcendental on floats is 16
-TRACED_UNARY = ("sin", "cos", "tan", "exp", "log", "sqrt")
+# function f 16 + 2 nz + 3 nh (chain); a transcendental on floats is 16;
+# pow takes two of them
+TRACED_UNARY = ("sin", "cos", "tan", "exp", "log", "sqrt", "tanh", "sigmoid",
+                "log1p", "exp2", "erfinv")
 # (e), backend=None on rate-form OCPs, whose derived OCPs have no device
 # model and are traced.  (e2) the LTI lane change's OCP (scenarios/
 # lane_change.py at its SPEC's plant and weights, N = 40 without move
@@ -3573,13 +3603,191 @@ def rate_di_queue(B, N=BENCH_N, seed=54):
                                                              np.float32)
 
 
+# (e4) and (f): the ops the traced model lowers beside the arithmetic, sin,
+# cos, tan, exp, log, sqrt and abs (ops/cuda/trace.py: every primitive that
+# Mosaic lowers into the Pallas kernels, and the composites JAX builds from
+# them).  Each term of TRACED_OP_TERMS calls one of them, in the array
+# module ``m``: TORCH_OPS here, its jax.numpy spelling in
+# tests/test_torch_trace_ops.py, which builds one OCP an op in both.  Where
+# floor, ceil, round, sign, fmod or remainder take a value, it is a params
+# column moved by at most 0.05, and op_params keeps each column at least 0.1
+# from a jump of its op, so that float32 and float64 round to the same side.
+TORCH_OPS = SimpleNamespace(
+    sin=torch.sin, cos=torch.cos, stack=torch.stack, tanh=torch.tanh,
+    sigmoid=torch.sigmoid, log1p=torch.log1p, exp2=torch.exp2,
+    erfinv=torch.erfinv, floor=torch.floor, ceil=torch.ceil,
+    round=torch.round, sign=torch.sign, pow=torch.pow, fmod=torch.fmod,
+    remainder=torch.remainder, amax=lambda a: torch.amax(a, 0),
+    amin=lambda a: torch.amin(a, 0), max=lambda a: a.max(),
+    min=lambda a: a.min(), max_dim=lambda a: a.max(0).values,
+    min_dim=lambda a: a.min(0).values,
+    softplus=lambda z, beta: torch.nn.functional.softplus(z, beta=beta),
+    hypot=torch.hypot, logaddexp=torch.logaddexp,
+    huber=lambda d, delta: torch.nn.functional.huber_loss(
+        d, torch.zeros_like(d), delta=delta, reduction="sum"),
+    smooth_l1=lambda d, beta: torch.nn.functional.smooth_l1_loss(
+        d, torch.zeros_like(d), beta=beta, reduction="sum"),
+    silu=torch.nn.functional.silu)
+# each a function of x (>= 2), u (>= 1) and p (4: op_params), bounded in x
+# and u where its op grows fast
+TRACED_OP_TERMS = {
+    "tanh": lambda x, u, p, m: m.tanh(x[0] + u[0]),
+    "sigmoid": lambda x, u, p, m: m.sigmoid(2.0 * x[0] - u[0]),
+    "log1p": lambda x, u, p, m: m.log1p(x[0] * x[0] + u[0] * u[0]),
+    "exp2": lambda x, u, p, m: m.exp2(m.sin(x[0]) * u[0]),
+    "erfinv": lambda x, u, p, m: m.erfinv(0.9 * m.sin(x[0] + u[0])),
+    "floor": lambda x, u, p, m: m.floor(p[2] + 0.05 * m.sin(x[0])) * x[1],
+    "ceil": lambda x, u, p, m: m.ceil(p[2] + 0.05 * m.sin(x[1])) * u[0],
+    "round": lambda x, u, p, m: m.round(p[2] + 0.05 * m.sin(u[0])) * x[0],
+    "sign": lambda x, u, p, m: m.sign(p[2] + 0.05 * m.sin(x[0])) * x[0] * u[0],
+    "fmod": lambda x, u, p, m: m.fmod(p[0] + 0.05 * m.sin(x[0]), p[1]),
+    "fmod_scalar": lambda x, u, p, m: m.fmod(p[3] + 0.05 * m.sin(x[1]), 0.7),
+    "remainder": lambda x, u, p, m: m.remainder(p[0] + 0.05 * m.sin(x[1]),
+                                                p[1]),
+    "remainder_scalar": lambda x, u, p, m: m.remainder(
+        p[3] + 0.05 * m.sin(u[0]), 0.7),
+    "pow": lambda x, u, p, m: m.pow(1.5 + m.sin(x[0]), 1.0 + m.sin(u[0])),
+    "pow_scalar_base": lambda x, u, p, m: 1.5 ** (m.sin(x[1]) * u[0]),
+    "pow_negative_base": lambda x, u, p, m: m.pow(m.sin(x[0]) - 3.0,
+                                                  m.floor(p[2])),
+    "amax": lambda x, u, p, m: m.amax(m.stack([x[0], x[1], u[0]])),
+    "amin": lambda x, u, p, m: m.amin(m.stack([x[0], x[1], u[0]])),
+    "max": lambda x, u, p, m: m.max(m.stack([x[1], u[0], 0.5 * x[0]])),
+    "min": lambda x, u, p, m: m.min(m.stack([x[1], u[0], 0.5 * x[0]])),
+    "max_dim": lambda x, u, p, m: m.max_dim(m.stack([x[0], -u[0]])),
+    "min_dim": lambda x, u, p, m: m.min_dim(m.stack([x[1], -u[0]])),
+    "softplus": lambda x, u, p, m: m.softplus(
+        1.0 - x[0] * x[0] - x[1] * x[1], 4.0),
+    "hypot": lambda x, u, p, m: m.hypot(x[0], x[1] + u[0]),
+    "logaddexp": lambda x, u, p, m: m.logaddexp(x[0], u[0]),
+    "huber": lambda x, u, p, m: m.huber(m.stack([x[0], x[1] - u[0]]), 0.5),
+    "smooth_l1": lambda x, u, p, m: m.smooth_l1(m.stack([x[0], x[1] - u[0]]),
+                                                0.5),
+    "silu": lambda x, u, p, m: m.silu(x[0] + u[0]),
+}
+# (f) the "ops" OCP runs every term but (e4)'s two, tanh and softplus
+OPS_TERMS = tuple(n for n in TRACED_OP_TERMS if n not in ("tanh", "softplus"))
+OPS_DT = 0.1
+# (e4): the bench OCP (unicycle, RK4 at T = 0.2, its Q, R and box, target in
+# p[:3]) with smooth speed saturation in the dynamics, v_eff = v_max
+# tanh(v / v_max), and a soft obstacle in the stage cost, w softplus(kappa
+# (r^2 - |p - c|^2)) / kappa, a disc of radius r at c on the straight line
+# from most of phase 22's starts to (10, 10).  A start can pass it on either
+# side, so its answers are held by their optimality, not by their costs.
+OBSTACLE = dict(v_max=2.0, centre=(5.0, 5.0), radius=1.5, weight=20.0,
+                kappa=4.0)
+
+
+def evaluator_ocp(ocp):
+    """``ocp`` with the callables of its traced program's evaluator
+    (``Program.evaluate``, the plain PyTorch twin of the generated model),
+    for the twins where torch.func cannot differentiate the OCP's own
+    callables twice: torch's huber_loss and smooth_l1_loss have no
+    forward-mode rule for their backward (the trace decomposes them)."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import traced_device_model
+
+    m = traced_device_model(ocp)
+    return dataclasses.replace(
+        ocp, dynamics=m.step, stage_cost=m.stage_cost,
+        terminal_cost=None if ocp.terminal_cost is None else m.terminal_cost,
+        control_bounds=None if ocp.control_bounds is None else m.bounds)
+
+
+def op_params(B, seed=57):
+    """(B, 4) float32 params of TRACED_OP_TERMS: p1 = +-U(0.5, 1.5), p0 =
+    p1 (k + f) and p3 = 0.7 (k + f) for integers k and f in [0.2, 0.8]
+    (at least 0.1 from a multiple of their divisors), p2 = k + f with f in
+    [0.1, 0.4] or [0.6, 0.9] (at least 0.1 from an integer, a half-integer
+    and 0)."""
+    rng = np.random.default_rng(seed)
+    k = lambda: rng.integers(-3, 3, B)
+    f = lambda: rng.uniform(0.2, 0.8, B)
+    p1 = rng.choice([-1.0, 1.0], B) * rng.uniform(0.5, 1.5, B)
+    p2 = k() + rng.choice([0.1, 0.6], B) + rng.uniform(0.0, 0.3, B)
+    return np.stack([p1 * (k() + f()), p1, p2, 0.7 * (k() + f())],
+                    -1).astype(np.float32)
+
+
+def ops_sum(x, u, p, m, names=OPS_TERMS):
+    """The sum of the terms ``names`` of TRACED_OP_TERMS."""
+    total = 0.0
+    for name in names:
+        total = total + TRACED_OP_TERMS[name](x, u, p, m)
+    return total
+
+
+def ops_ocp(device, dtype=torch.float32, N=BENCH_N):
+    """(f)'s OCP (3, 2), npar 4: a double integrator and a third integrator
+    stepped by Euler at OPS_DT, whose acceleration and stage cost add 0.1
+    times the sum of OPS_TERMS, and the box [-1, 1]^2."""
+    from mpc_verde_tpu_torch import OCP, box_bounds
+
+    z = dict(dtype=dtype, device=device)
+    Q = torch.diag(torch.tensor([1.0, 0.5, 0.1], **z))
+    R = torch.diag(torch.tensor([0.1, 0.1], **z))
+
+    def F(x, u, p):
+        s = 0.1 * ops_sum(x, u, p, TORCH_OPS)
+        return torch.stack([x[0] + OPS_DT * x[1], x[1] + OPS_DT * (u[0] + s),
+                            x[2] + OPS_DT * u[1]])
+
+    def l(x, u, p):
+        return x @ Q @ x + u @ R @ u + 0.1 * ops_sum(x, u, p, TORCH_OPS)
+
+    return OCP(dynamics=F, stage_cost=l, N=N, nx=3, nu=2, npar=4,
+               control_bounds=box_bounds([-1.0, -1.0], [1.0, 1.0],
+                                         device=device, dtype=dtype),
+               device=torch.device(device), dtype=dtype)
+
+
+def obstacle_rhs(x, u, m):
+    """(e4)'s unicycle with smooth speed saturation, in the array module
+    ``m`` (TORCH_OPS or its jax.numpy spelling)."""
+    v = OBSTACLE["v_max"] * m.tanh(u[0] / OBSTACLE["v_max"])
+    return m.stack([v * m.cos(x[2]), v * m.sin(x[2]), u[1]])
+
+
+def obstacle_cost(x, u, p, m, Q, R):
+    """(e4)'s stage cost: the bench's and the soft obstacle."""
+    e = x - p[:3]
+    (cx, cy), r = OBSTACLE["centre"], OBSTACLE["radius"]
+    d2 = (x[0] - cx) ** 2 + (x[1] - cy) ** 2
+    return e @ Q @ e + u @ R @ u + OBSTACLE["weight"] * m.softplus(
+        r * r - d2, OBSTACLE["kappa"])
+
+
+BENCH_Q, BENCH_R = (np.diag(np.array(d, np.float32))
+                    for d in ((1.0, 5.0, 0.1), (0.5, 0.05)))
+BENCH_BOX = (np.array([-1.0, -np.pi / 4], np.float32),
+             np.array([1.0, np.pi / 4], np.float32))
+
+
+def obstacle_ocp(device, dtype=torch.float32, N=BENCH_N):
+    """(e4)'s OCP, from callables (no device model)."""
+    from mpc_verde_tpu_torch import OCP, box_bounds
+    from mpc_verde_tpu_torch.interop import BENCH_DT
+    from mpc_verde_tpu_torch.ops import rk4_step
+
+    Q, R = (torch.as_tensor(a, dtype=dtype, device=device)
+            for a in (BENCH_Q, BENCH_R))
+    F = rk4_step(lambda x, u, p: obstacle_rhs(x, u, TORCH_OPS), BENCH_DT)
+
+    def l(x, u, p):
+        return obstacle_cost(x, u, p, TORCH_OPS, Q, R)
+
+    return OCP(dynamics=F, stage_cost=l, N=N, nx=3, nu=2, npar=3,
+               control_bounds=box_bounds(*BENCH_BOX, device=device,
+                                         dtype=dtype),
+               device=torch.device(device), dtype=dtype)
+
+
 def traced_ocps(device, N=BENCH_N):
     """The float32 OCPs that phase 23 runs without a device model, as its
     solvers trace them: the bench OCP from its callables, its AL-derived OCP
     under the box y <= AL_Y_MAX (make_streaming_solver derives the same
-    one), the three user OCPs, and (e)'s derived OCPs of the rate-form
-    models: the lane change's AL-derived OCP and the double integrator's
-    streaming barrier-derived OCP."""
+    one), the three user OCPs, (e)'s derived OCPs of the rate-form models
+    (the lane change's AL-derived OCP and the double integrator's streaming
+    barrier-derived OCP), (e4)'s obstacle OCP and (f)'s ops OCP."""
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
     from mpc_verde_tpu_torch.solver.ipm import _barrier_ocp
@@ -3590,7 +3798,8 @@ def traced_ocps(device, N=BENCH_N):
             "bench_al": _augment_ocp_al(bare(x_ub=[np.inf, AL_Y_MAX, np.inf])),
             **{name: user_ocp(name, device) for name in USER_OCPS},
             "lane_al": _augment_ocp_al(lane_box_ocp(device, N=N)),
-            "rate_barrier": _barrier_ocp(rate_di_ocp(N, device), "streaming")}
+            "rate_barrier": _barrier_ocp(rate_di_ocp(N, device), "streaming"),
+            "obstacle": obstacle_ocp(device, N=N), "ops": ops_ocp(device, N=N)}
 
 
 def traced_programs():
@@ -3610,8 +3819,9 @@ def _traced_flops(program, use_duals):
     n = 0
     for v in program.reachable(roots):
         name = program.ops[v][0]
-        if name in TRACED_UNARY:
-            n += 16 + 2 * nz + 3 * nh if use_duals else 16
+        if name in TRACED_UNARY or name == "pow":
+            n += (1 + (name == "pow")) * (16 + 2 * nz + 3 * nh if use_duals
+                                          else 16)
         elif name == "mul" and use_duals:
             n += 3 * nz + 4 * nh
         elif name not in ("in", "k", "cf", "ci", "cb", "tab", "tabi"):
@@ -3723,11 +3933,13 @@ def _traced_vs_hand(dev, B, N, A=8):
     return rows, err
 
 
-def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
+def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err,
+                         twins=None):
     """(c): K2 (every variant, against the float64 twin's candidates) and
     K3 (DDP on and off, both variants, against the float64 twin) along the
-    user OCP's answers ``res`` with random gains; returns (K2 row, K3 row)
-    of times and bounds."""
+    user OCP's answers ``res`` with random gains; the twins run on
+    ``twins`` (float32, float64) where given, else on ``ocp`` and ``ocp64``;
+    returns (K2 row, K3 row) of times and bounds."""
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch, fused_launch_plan)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
@@ -3742,8 +3954,9 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
     t = lambda a: torch.as_tensor(a, **f).contiguous()
     full = (x0, xs, us, ps, t(0.1 * rng.standard_normal((B, N, nu))),
             t(0.05 * rng.standard_normal((B, N, nu, nx))))
-    cand32 = _k2_candidates(full, alphas, ocp)
-    cand64 = _k2_candidates(_to64(*full), alphas, ocp64)
+    twin, twin64 = twins or (ocp, ocp64)
+    cand32 = _k2_candidates(full, alphas, twin)
+    cand64 = _k2_candidates(_to64(*full), alphas, twin64)
     planned = linesearch_launch_plan(N, len(alphas), ps.shape[-1], nx=nx,
                                      nu=nu).variant
     for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
@@ -3756,8 +3969,9 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
             f"{label} variant {sorted(used)}", out, cand32, cand64, None))
     args = (xs, us, ps, torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
     for use_ddp in (True, False):
-        ref = fused_backward_torch(*args, ocp=ocp, use_ddp=use_ddp)
-        ref64 = fused_backward_torch(*_to64(*args), ocp=ocp64, use_ddp=use_ddp)
+        ref = fused_backward_torch(*args, ocp=twin, use_ddp=use_ddp)
+        ref64 = fused_backward_torch(*_to64(*args), ocp=twin64,
+                                     use_ddp=use_ddp)
         plan = fused_launch_plan(N, use_ddp, None, B, nx=nx, nu=nu).variant
         for variant in (None, "thread" if plan == "staged" else "staged"):
             used, out = _variants_used(
@@ -3771,7 +3985,7 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err):
                 f"variant {sorted(used)}"))
     program = traced_device_model(ocp).program
     k1 = _k1_flops(1, 1, nx, nu)
-    row2, row3 = _time_case(label, ocp, full, alphas, (
+    row2, row3 = _time_case(label, ocp, full, alphas, twin=twin, flops=(
         _traced_flops(program, False) + 2 * nu * nx + 3 * nu,
         _traced_flops(program, True) + k1))
     return {"nx": nx, "nu": nu, **row2}, {"nx": nx, "nu": nu, **row3}
@@ -3822,7 +4036,7 @@ def _violation_gate(res):
         raise AssertionError(f"max_violation {viol} >= 1e-2")
 
 
-def _hold_rate_f64(tag, res, ref, ocp64, queue):
+def _hold_rate_f64(tag, res, ref, ocp64, queue, share_gate=0.99):
     """The first USER_HOLD answers against CPU float64 by phase 22's rule."""
     dev = res.us.device
     t = lambda a: torch.as_tensor(a, device=dev)
@@ -3831,7 +4045,7 @@ def _hold_rate_f64(tag, res, ref, ocp64, queue):
         converged=res.converged[:H], cost=res.cost[:H], us=res.us[:H]),
         SimpleNamespace(**{k: t(ref[k]) for k in ("converged", "cost",
                                                   "us")}),
-        ocp64, t(queue[0][:H]), t(queue[1][:H]), BW_COST_TOL)
+        ocp64, t(queue[0][:H]), t(queue[1][:H]), BW_COST_TOL, share_gate)
 
 
 def _default_rate_paths(dev, gpu, refs, ocps, alphas, err, k2_rows, k3_rows,
@@ -3889,6 +4103,64 @@ def _default_rate_paths(dev, gpu, refs, ocps, alphas, err, k2_rows, k3_rows,
         if launches["riccati_backward"]:
             raise AssertionError(f"{key} launched K1")
     return by_path
+
+
+def _new_ops_paths(dev, gpu, refs, ocps, alphas, err, k2_rows, k3_rows, W,
+                   N, M):
+    """(e4) and (f); returns (e4)'s launches."""
+    from mpc_verde_tpu_torch import make_streaming_solver
+
+    f64 = torch.float64
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f32).contiguous()
+    # (e4) the obstacle OCP over phase 22's starts on backend=None
+    ocp = ocps["obstacle"]
+    _resolves_fused("e4-obstacle", ocp)
+    queue = tuple(a[:M] for a in _queue(QUEUE, N))
+    solve = make_streaming_solver(ocp, _opts(), batch_width=W, restarts=2)
+    launches, res = _streaming_path(
+        "e4-obstacle", gpu, solve, queue, FUSED_PATH, warm=W,
+        note="backend=None, the bench OCP with speed saturation (tanh) and a "
+        "soft obstacle (softplus): ")
+    if launches["riccati_backward"]:
+        raise AssertionError("e4-obstacle launched K1")
+    (cx, cy), r = OBSTACLE["centre"], OBSTACLE["radius"]
+    xy = res.xs[..., :2].double()
+    dist = torch.hypot(xy[..., 0] - cx, xy[..., 1] - cy)
+    closest = dist.argmin(-1)
+    rows = torch.arange(M, device=dev)
+    side = (xy[rows, closest, 0] - cx) > (xy[rows, closest, 1] - cy)
+    d = dist.min(-1).values
+    print(f"[e4-obstacle] closest approach to the disc's centre: min "
+          f"{float(d.min()):.4f}, median {float(d.median()):.4f}, max "
+          f"{float(d.max()):.4f} (radius {r}); inside the disc in "
+          f"{float((d < r).float().mean()):.4f} of the answers; passed below "
+          f"the centre (x - cx > y - cy) in {float(side.float().mean()):.4f}",
+          flush=True)
+    _hold_rate_f64("e4-obstacle", res, refs.raw("e4-obstacle", "obstacle"),
+                   obstacle_ocp(dev, f64, N), queue, share_gate=0.0)
+    row2, row3 = _traced_user_kernels(
+        "obstacle", ocp, obstacle_ocp(dev, f64, N), SimpleNamespace(
+            xs=res.xs[:W], us=res.us[:W]), t(queue[0][:W]), t(queue[1][:W]),
+        alphas, err)
+    k2_rows.append(row2)
+    k3_rows.append(row3)
+
+    # (f) the ops OCP, K2 and K3 against their twins (on the evaluator of
+    # its program: torch.func cannot differentiate torch's huber_loss twice)
+    # on random trajectories and gains, as phase 10 holds its cases
+    rng = np.random.default_rng(65)
+    ps = t(np.broadcast_to(op_params(W)[:, None], (W, N + 1, 4)))
+    xs = t(rng.uniform(-1.5, 1.5, (W, N + 1, 3)))
+    us = t(rng.uniform(-0.9, 0.9, (W, N, 2)))
+    ops64 = ops_ocp(dev, f64, N)
+    row2, row3 = _traced_user_kernels(
+        "ops", ocps["ops"], ops64, SimpleNamespace(xs=xs, us=us),
+        xs[:, 0].contiguous(), ps, alphas, err,
+        twins=(evaluator_ocp(ocps["ops"]), evaluator_ocp(ops64)))
+    k2_rows.append(row2)
+    k3_rows.append(row3)
+    return {"default_obstacle": launches}
 
 
 def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
@@ -4008,6 +4280,9 @@ def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
     # (e2), (e3): the default path on the rate-form models' derived OCPs
     by_path.update(_default_rate_paths(dev, gpu, refs, ocps, alphas, err,
                                        k2_rows, k3_rows, W, N))
+    # (e4), (f): the ops beside the arithmetic and sin, cos, tan, exp, log
+    by_path.update(_new_ops_paths(dev, gpu, refs, ocps, alphas, err, k2_rows,
+                                  k3_rows, W, N, M))
     print(f"[traced] phase wall {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return by_path, k2_rows, k3_rows, err
@@ -4147,14 +4422,14 @@ def _phases(dev, gpu, refs, compat):
     return kernels
 
 
-FIRST_BUILD = ("lane_al", "rate_barrier")
+FIRST_BUILD = ("lane_al", "rate_barrier", "obstacle")
 
 
 def _first_build_child(name):
-    """In a process of its own, after CUDA's start: (e2)'s or (e3)'s default
-    path as a user's first use of it, make the solver (the factory's trace,
-    the process's first), then solve the queue twice; prints {"factory_s",
-    "first_solve_s", "solve_s"} as JSON."""
+    """In a process of its own, after CUDA's start: (e2)'s, (e3)'s or
+    (e4)'s default path as a user's first use of it, make the solver (the
+    factory's trace, the process's first), then solve the queue twice;
+    prints {"factory_s", "first_solve_s", "solve_s"} as JSON."""
     from mpc_verde_tpu_torch import (make_streaming_barrier_solver,
                                      make_streaming_solver)
 
@@ -4167,6 +4442,10 @@ def _first_build_child(name):
                                       _opts(al_iters=AL_ITERS),
                                       batch_width=WIDTH, restarts=2)
         queue = lane_box_queue(WIDTH)
+    elif name == "obstacle":
+        solve = make_streaming_solver(obstacle_ocp(dev), _opts(),
+                                      batch_width=WIDTH, restarts=2)
+        queue = _queue(WIDTH, BENCH_N)
     else:
         solve = make_streaming_barrier_solver(rate_di_ocp(BENCH_N, dev),
                                               _opts(), batch_width=WIDTH,
@@ -4184,10 +4463,10 @@ def _first_build_child(name):
 def first_build_times() -> int:
     """``python3 chip_smoke.py --first-build``: the one-time cost of a new
     program text on the default path.  For (e2)'s and (e3)'s derived
-    programs, remove the program's library and run the first use in a fresh
-    process (cold: nvcc builds the library), then again (warm: the library
-    is loaded from mpc_verde_tpu_torch/_build/); the kernels library must be
-    built already (a run of the script)."""
+    programs and (e4)'s, remove the program's library and run the first use
+    in a fresh process (cold: nvcc builds the library), then again (warm:
+    the library is loaded from mpc_verde_tpu_torch/_build/); the kernels
+    library must be built already (a run of the script)."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU",
               file=sys.stderr)

@@ -12,7 +12,11 @@ models:
   ``T`` (``float`` in K2, the dual numbers of ``dual.cuh`` in K3, ``double``
   in the host test); values that do not depend on x or u stay of the plain
   type ``S`` (float in the kernels), so a dual number only carries what
-  differentiates;
+  differentiates; the functions of ``scalar.cuh`` and ``dual.cuh``, and
+  those of ``traced_math.cuh`` (tanh, sigmoid, log1p, exp2, erfinv, the
+  rounding functions, pow, fmod, remainder), which the header includes only
+  where the program calls one, so that a program without them keeps its
+  text and its library;
 * ``has_terminal_cost`` and ``model_terminal_value``: K3's gN and HN from
   one evaluation of the terminal cost on second-order duals over x_N.
 
@@ -38,6 +42,12 @@ from .trace import COMPARE, I, Program
 _C_UNARY = {"sin": "mv_sin", "cos": "mv_cos", "tan": "mv_tan",
             "exp": "mv_exp", "log": "mv_log", "sqrt": "mv_sqrt",
             "abs": "mv_abs", "recip": "mv_recip"}
+# the instructions whose device functions csrc/traced_math.cuh holds; a
+# program that uses none of them does not include it
+_C_MATH = {"tanh": "mv_tanh", "sigmoid": "mv_sigmoid", "log1p": "mv_log1p",
+           "exp2": "mv_exp2", "erfinv": "mv_erfinv", "floor": "mv_floor",
+           "ceil": "mv_ceil", "round": "mv_round", "sign": "mv_sign",
+           "pow": "mv_pow", "fmod": "mv_fmod", "rem": "mv_remainder"}
 _C_BINARY = {"add": "+", "sub": "-", "mul": "*", "div": "/", "addi": "+",
              "subi": "-", "muli": "*"}
 _C_COMPARE = {"gt": ">", "lt": "<", "ge": ">=", "le": "<=", "eq": "==",
@@ -94,8 +104,8 @@ def _body(program: Program, roots, varying_inputs) -> list:
             expr = f"{a[0]} {_C_BINARY[name]} {a[1]}"
         elif name == "neg":
             expr = f"-{a[0]}"
-        elif name in _C_UNARY:
-            expr = f"{_C_UNARY[name]}({a[0]})"
+        elif name in _C_UNARY or name in _C_MATH:
+            expr = f"{_C_UNARY.get(name) or _C_MATH[name]}({', '.join(a)})"
         elif name in ("max", "min"):
             expr = f"mv_{name}imum({a[0]}, {a[1]})"
         elif name in COMPARE:
@@ -127,11 +137,18 @@ def _function(program, roots, varying, head, tail):
                       *_body(program, roots, varying), *tail, "}"])
 
 
+def uses_traced_math(program: Program) -> bool:
+    """Whether ``program`` runs a device function of csrc/traced_math.cuh."""
+    return any(ins[0] in _C_MATH for ins in program.ops)
+
+
 def model_header(program: Program) -> str:
     """The device model of ``program`` (see the module docstring)."""
     nx, nu = program.nx, program.nu
     out = program.outputs
     has_term = "terminal_cost" in out
+    math_include = ('#include "traced_math.cuh"\n' if uses_traced_math(program)
+                    else "")
     parts = [f"""// A device model generated by mpc_verde_tpu_torch/ops/cuda/codegen.py
 // from the trace of an OCP's callables (ops/cuda/trace.py): (nx, nu) =
 // ({nx}, {nu}), {len(program.ops)} instructions, {program.n_table} table entries.
@@ -141,7 +158,7 @@ def model_header(program: Program) -> str:
 
 #include "dual.cuh"
 #include "scalar.cuh"
-
+{math_include}
 namespace {{
 
 struct TracedModel {{

@@ -25,8 +25,19 @@ callables with ``make_fx`` and lowers them to a program over scalars that
   device the OCP's tensors lie on.
 * Every ATen op lowers to scalar SSA with every small static shape unrolled:
   ``mm`` / ``mv`` / ``dot`` become products and sums, as the JAX package
-  decomposes ``dot_general``.  An op outside ``LOWERINGS`` raises
-  ``NotImplementedError`` naming the op and the callable.
+  decomposes ``dot_general``.  The table holds every primitive that Mosaic
+  lowers into the Pallas kernels (``jax/_src/pallas/mosaic/lowering.py``):
+  beside the arithmetic, sin, cos, tan, exp, log, sqrt and abs also tanh,
+  the sigmoid, log1p, exp2, erfinv, floor, ceil, round (half to even),
+  sign, pow with a tensor exponent, fmod and remainder, and the max / min
+  reductions.  Composites are decomposed in the trace into those ops
+  (``_DECOMPOSITIONS``: softplus, logaddexp, hypot, the Huber and smooth
+  L1 losses, silu, logsumexp, and the backward ops of tanh, sigmoid and
+  softplus where a callable differentiates itself), as JAX builds them
+  from its primitives.  An op outside ``LOWERINGS`` raises
+  ``NotImplementedError`` naming the op and the callable: atan, atan2,
+  asin, acos, sinh, cosh, erf and expm1 among them, which Mosaic does not
+  lower either.
 * Floating tensors the callables close over (weights, a per-stage bound
   table) are hoisted into one float table, as JAX hoists its constants; the
   program holds offsets into it, never its values, so one program, and one
@@ -51,6 +62,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch._decomp import get_decompositions
 from torch.fx.experimental.proxy_tensor import make_fx
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -61,16 +73,34 @@ aten = torch.ops.aten
 # value kinds: float, bool, int (the stage index and what is computed from it)
 F, B, I = "f", "b", "i"
 FLOAT_UNARY = ("neg", "sin", "cos", "tan", "exp", "log", "sqrt", "abs",
-               "recip")
-FLOAT_BINARY = ("add", "sub", "mul", "div", "max", "min")
+               "recip", "tanh", "sigmoid", "log1p", "exp2", "erfinv", "floor",
+               "ceil", "round", "sign")
+# "rem" is torch.remainder / jnp.remainder (the divisor's sign), "fmod" C's
+# fmod (the dividend's sign, lax.rem)
+FLOAT_BINARY = ("add", "sub", "mul", "div", "max", "min", "pow", "fmod",
+                "rem")
 COMPARE = ("gt", "lt", "ge", "le", "eq", "ne")
 INT_BINARY = ("addi", "subi", "muli")
 LITERALS = ("cf", "ci", "cb")
+
+
+def _remainder(a, b):
+    """torch.remainder's rule on C's fmod: the result takes b's sign."""
+    r = np.fmod(a, b)
+    return r + b if r != 0 and (r < 0) != (b < 0) else r
+
 
 _FOLD = {
     "neg": operator.neg, "sin": np.sin, "cos": np.cos, "tan": np.tan,
     "exp": np.exp, "log": np.log, "sqrt": np.sqrt, "abs": abs,
     "recip": lambda a: np.float64(1.0) / a,
+    "tanh": np.tanh, "sigmoid": lambda a: 1.0 / (1.0 + np.exp(-a)),
+    "log1p": np.log1p, "exp2": np.exp2,
+    "erfinv": lambda a: torch.erfinv(torch.tensor(a, dtype=torch.float64))
+    .item(),
+    "floor": np.floor, "ceil": np.ceil, "round": np.rint,
+    "sign": lambda a: np.float64(int(a > 0) - int(a < 0)),   # 0 at NaN
+    "pow": np.power, "fmod": np.fmod, "rem": _remainder,
     "add": operator.add, "sub": operator.sub, "mul": operator.mul,
     "div": lambda a, b: np.float64(a) / b,
     "max": lambda a, b: np.fmax(a, b) if not (np.isnan(a) or np.isnan(b))
@@ -295,6 +325,26 @@ class _Lowering:
     def unary(self, name, a):
         return self.map(name, self.to(self.arr(a), F))
 
+    def binary(self, name, a, b):
+        """A float function of two operands (pow, fmod, rem)."""
+        (a, b), kind = self.promote(a, b)
+        if kind != F:
+            _raise(self, f"{name} of integers or bools")
+        return self.map(name, a, b)
+
+    def rounding(self, name, a):
+        """floor / ceil / round / sign; an integer stays itself (its sign
+        an integer)."""
+        a = self.arr(a)
+        if not a.size or self.kind(a) == F:
+            return self.unary(name, a)
+        if self.kind(a) != I:
+            _raise(self, f"{name} of a bool")
+        if name != "sign":
+            return a
+        return self.select(self.cmp("gt", a, 0), 1, self.select(
+            self.cmp("lt", a, 0), -1, 0))
+
     def select(self, c, a, b):
         (a, b), _ = self.promote(a, b)
         return self.map("sel", self.to(self.arr(c), B), a, b)
@@ -311,19 +361,34 @@ class _Lowering:
         a = self.arr(a)
         if self.kind(a) == B:
             a = self.to(a, F)
+        kind = self.kind(a) if a.size else F
+        return self.fold("add" if kind == F else "addi", a, axis, keepdim,
+                         lambda: self.b.lit(0, kind))
+
+    def extremum(self, name, a, axis=None, keepdim=False):
+        """``name`` ("max" or "min") over ``axis``, left to right, NaN
+        propagating as torch.amax / torch.amin: a fold of the binary op."""
+        a = self.arr(a)
+        if a.size and self.kind(a) != F:
+            _raise(self, f"a {name} reduction over integers or bools")
+        return self.fold(name, a, axis, keepdim, lambda: _raise(
+            self, f"a {name} reduction over no element"))
+
+    def fold(self, op, a, axis, keepdim, empty):
+        """``op`` folded left to right over ``axis`` (every axis for None or
+        []); ``empty()`` gives an empty row's value."""
         axes = tuple(range(a.ndim)) if axis is None or axis == [] else tuple(
             d % a.ndim for d in (axis if isinstance(axis, (list, tuple))
                                  else (axis,)))
         keep = [d for d in range(a.ndim) if d not in axes]
         t = np.transpose(a, keep + list(axes))
         t = t.reshape(t.shape[:len(keep)] + (-1,))
-        kind = self.kind(a) if a.size else F
         out = np.empty(t.shape[:-1], dtype=object)
         for idx in np.ndindex(*out.shape):
             row = t[idx]
-            s = row[0] if len(row) else self.b.lit(0, kind)
+            s = row[0] if len(row) else empty()
             for v in row[1:]:
-                s = self.b.op("add" if kind == F else "addi", s, v)
+                s = self.b.op(op, s, v)
             out[idx] = s
         if keepdim:
             out = out.reshape([1 if d in axes else a.shape[d]
@@ -525,6 +590,17 @@ def _raise(L, what):
     raise NotImplementedError(f"{L.name}: {what} has no lowering")
 
 
+class _Unlowered:
+    """The indices of ``max.dim`` / ``min.dim``: an index computed from
+    values, which no lowering reads (``_Lowering.arr`` refuses it)."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def __repr__(self):
+        return f"<the indices of {self.op}, computed from values>"
+
+
 def _where(L, c, a, b):
     return L.select(c, a, b)
 
@@ -576,7 +652,23 @@ LOWERINGS = {
     aten.sqrt.default: lambda L, a: L.unary("sqrt", a),
     aten.rsqrt.default: lambda L, a: L.unary("recip", L.unary("sqrt", a)),
     aten.abs.default: lambda L, a: L.unary("abs", a),
+    aten.tanh.default: lambda L, a: L.unary("tanh", a),
+    aten.sigmoid.default: lambda L, a: L.unary("sigmoid", a),
+    aten.log1p.default: lambda L, a: L.unary("log1p", a),
+    aten.exp2.default: lambda L, a: L.unary("exp2", a),
+    aten.erfinv.default: lambda L, a: L.unary("erfinv", a),
+    aten.floor.default: lambda L, a: L.rounding("floor", a),
+    aten.ceil.default: lambda L, a: L.rounding("ceil", a),
+    aten.round.default: lambda L, a: L.rounding("round", a),
+    aten.sign.default: lambda L, a: L.rounding("sign", a),
     aten.pow.Tensor_Scalar: lambda L, a, e: L.power(a, e),
+    aten.pow.Tensor_Tensor: lambda L, a, b: L.binary("pow", a, b),
+    aten.pow.Scalar: lambda L, a, b: L.binary("pow", a, b),
+    aten.fmod.Tensor: lambda L, a, b: L.binary("fmod", a, b),
+    aten.fmod.Scalar: lambda L, a, b: L.binary("fmod", a, b),
+    aten.remainder.Tensor: lambda L, a, b: L.binary("rem", a, b),
+    aten.remainder.Scalar: lambda L, a, b: L.binary("rem", a, b),
+    aten.remainder.Scalar_Tensor: lambda L, a, b: L.binary("rem", a, b),
     aten.square.default: lambda L, a: L.power(a, 2),
     aten.maximum.default: lambda L, a, b: L.map("max", *L.promote(a, b)[0]),
     aten.minimum.default: lambda L, a, b: L.map("min", *L.promote(a, b)[0]),
@@ -606,11 +698,23 @@ LOWERINGS = {
     aten.where.ScalarOther: _where,
     aten.where.ScalarSelf: _where,
     aten.where.Scalar: _where,
+    aten.masked_fill.Scalar: lambda L, a, mask, v: L.select(mask, v, a),
+    aten.masked_fill.Tensor: lambda L, a, mask, v: L.select(mask, v, a),
     # reductions and products
     aten.sum.default: _sum,
     aten.sum.dim_IntList: _sum,
     aten.mean.default: _mean,
     aten.mean.dim: _mean,
+    aten.amax.default: lambda L, a, dim=(), keepdim=False: L.extremum(
+        "max", a, list(dim), keepdim),
+    aten.amin.default: lambda L, a, dim=(), keepdim=False: L.extremum(
+        "min", a, list(dim), keepdim),
+    aten.max.default: lambda L, a: L.extremum("max", a),
+    aten.min.default: lambda L, a: L.extremum("min", a),
+    aten.max.dim: lambda L, a, dim, keepdim=False: (
+        L.extremum("max", a, dim, keepdim), _Unlowered("aten.max.dim")),
+    aten.min.dim: lambda L, a, dim, keepdim=False: (
+        L.extremum("min", a, dim, keepdim), _Unlowered("aten.min.dim")),
     aten.mm.default: lambda L, a, b: L.matmul(a, b),
     aten.mv.default: lambda L, a, b: L.matmul(a, b),
     aten.dot.default: lambda L, a, b: L.matmul(a, b),
@@ -679,6 +783,22 @@ LOWERINGS = {
         L, size, v, dtype, a),
 }
 _INPLACE = {aten.squeeze_.dim}
+
+
+def _hypot(a, b):
+    return torch.sqrt(a * a + b * b)
+
+
+# Composites decomposed in the trace into ops of LOWERINGS (torch._decomp's
+# rules, and hypot as sqrt(a^2 + b^2)); no op here has a lowering of its own,
+# so no program that lowered before changes its text.
+_DECOMPOSITIONS = {
+    **get_decompositions([
+        aten.softplus, aten.softplus_backward, aten.logaddexp, aten.silu,
+        aten.huber_loss, aten.smooth_l1_loss, aten.mse_loss, aten.logsumexp,
+        aten.tanh_backward, aten.sigmoid_backward]),
+    aten.hypot.default: _hypot,
+}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -814,8 +934,16 @@ def _eval_op(ins, env, ins_t, k, table, dt, dev):
         return -a[0]
     if name == "recip":
         return 1.0 / a[0]
-    if name in ("sin", "cos", "tan", "exp", "log", "sqrt", "abs"):
+    if name in ("sin", "cos", "tan", "exp", "log", "sqrt", "abs", "tanh",
+                "sigmoid", "log1p", "exp2", "erfinv", "floor", "ceil",
+                "round", "sign"):
         return getattr(torch, name)(a[0])
+    if name == "pow":
+        return torch.pow(a[0], a[1])
+    if name == "fmod":
+        return torch.fmod(a[0], a[1])
+    if name == "rem":
+        return torch.remainder(a[0], a[1])
     if name == "max":
         return torch.maximum(a[0], a[1])
     if name == "min":
@@ -895,8 +1023,8 @@ class Tracer:
                    for n in names]
         try:
             with _OnHost(), _KIndex(), _NoMoves():
-                gm = make_fx(torch.func.functionalize(fn, remove="mutations"))(
-                    *example)
+                gm = make_fx(torch.func.functionalize(fn, remove="mutations"),
+                             decomposition_table=_DECOMPOSITIONS)(*example)
         except RuntimeError as exc:
             if "_local_scalar_dense" in str(exc) or "data-dependent" in str(exc):
                 raise NotImplementedError(

@@ -12,6 +12,7 @@ the Riccati ones are those of the Pallas kernel's own test
 the line-search ones those of ``chip_smoke.py`` phase 4.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -48,6 +49,39 @@ K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "dV2": 1e-3, "gmax": 1e-4}
 CARD_K1_SIZES = HELD_SIZES + ((8, 4),)
 
 
+# csrc/traced_math.cuh's device functions, four a bank: each bank is an OCP
+# (4, 1) whose step applies function i to x[i] (pow, fmod and remainder take
+# u[0] as their second operand), so that one K2 launch at N = 1 evaluates
+# each at every problem's point.  The domain each function's points are
+# drawn from, and its tolerance against the float64 evaluator on the same
+# float32 points, relative to max(1, |ref|): 0 for the exact ones.
+MATH_BANKS = (("tanh", "sigmoid", "log1p", "exp2"),
+              ("erfinv", "floor", "ceil", "round"),
+              ("sign", "pow", "fmod", "remainder"))
+MATH_DOMAIN = {"tanh": (-10.0, 10.0), "sigmoid": (-20.0, 20.0),
+               "log1p": (-0.99, 10.0), "exp2": (-20.0, 20.0),
+               "erfinv": (-0.999, 0.999), "floor": (-50.0, 50.0),
+               "ceil": (-50.0, 50.0), "round": (-50.0, 50.0),
+               "sign": (-2.0, 2.0), "pow": (0.05, 5.0), "fmod": (-10.0, 10.0),
+               "remainder": (-10.0, 10.0)}
+MATH_TOL = {"floor": 0.0, "ceil": 0.0, "round": 0.0, "sign": 0.0,
+            "fmod": 0.0}
+
+
+def _bank_ocp(bank, device, dtype=torch.float32):
+    def F(x, u, p):
+        out = []
+        for i, name in enumerate(bank):
+            fn = getattr(torch, name)
+            out.append(fn(x[i], u[0]) if name in ("pow", "fmod", "remainder")
+                       else fn(x[i]))
+        return torch.stack(out)
+
+    return mt.OCP(dynamics=F, stage_cost=lambda x, u, p: u[0] * u[0], N=1,
+                  nx=4, nu=1, npar=0, device=torch.device(device),
+                  dtype=dtype)
+
+
 def _traced_programs():
     """The programs of the OCPs these tests run from their callables, traced
     on the CPU (the text, and so the library, is the card's)."""
@@ -62,7 +96,9 @@ def _traced_programs():
     ocps = [bare(), bare(box=False),
             *(cs.user_ocp(name, "cpu") for name in cs.USER_OCPS),
             *derived_ocps(bare(x_lb=TERM_BOX[0], x_ub=TERM_BOX[1])).values(),
-            rate["lane_al"], rate["rate_barrier"]]
+            *(rate[name] for name in ("lane_al", "rate_barrier", "obstacle",
+                                      "ops")),
+            *(_bank_ocp(bank, "cpu") for bank in MATH_BANKS)]
     return [trace_ocp(o) for o in ocps]
 
 
@@ -1499,6 +1535,111 @@ def test_traced_kernels_on_the_barrier_and_al_ocps(dev):
             ref = fused_backward_torch(*args_of(p), ocp=ocp, use_ddp=use_ddp)
             for (key, tol), o, r in zip(K1_TOL.items(), out, ref):
                 assert _rel_err(o, r) <= tol, (name, kw, use_ddp, key)
+
+
+@pytest.mark.parametrize("bank", range(len(MATH_BANKS)))
+def test_traced_math_functions_match_the_float64_evaluator(dev, bank):
+    """Each device function of csrc/traced_math.cuh in float32 (K2 at N = 1
+    on a bank OCP, one launch) against the float64 evaluator on the same
+    float32 points, 10^5 points a function over its domain (for floor, ceil
+    and round 1 in 8 a half-integer, for sign 1 in 8 a zero; pow's exponent
+    and fmod's and remainder's divisor +-U(0.25, 3)): MATH_TOL, else 1e-6 of
+    max(1, |ref|)."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import traced_device_model
+
+    names, B = MATH_BANKS[bank], 100_000
+    rng = np.random.default_rng(81 + bank)
+    x = np.stack([rng.uniform(*MATH_DOMAIN[n], B) for n in names], -1)
+    for i, name in enumerate(names):
+        if name in ("floor", "ceil", "round"):
+            x[::8, i] = np.round(x[::8, i]) + 0.5
+        if name == "sign":
+            x[::8, i] = 0.0
+    u = rng.choice([-1.0, 1.0], (B, 1)) * rng.uniform(0.25, 3.0, (B, 1))
+    f = dict(dtype=torch.float32, device=dev)
+    ocp = _bank_ocp(names, dev)
+    x0, u0 = torch.as_tensor(x, **f), torch.as_tensor(u, **f)
+    xs = torch.zeros((B, 2, 4), **f)
+    ps = torch.zeros((B, 2, 1), **f)
+    zero = lambda *shape: torch.zeros(shape, **f)
+    before = linesearch_forward.launches
+    xs_k, us_k, _, best = linesearch_forward(
+        x0, xs, u0[:, None].contiguous(), ps, zero(B, 1, 1), zero(B, 1, 1, 4),
+        (1.0,), ocp=ocp)
+    torch.cuda.synchronize()
+    assert linesearch_forward.launches == before + 1
+    assert bool((best == 0).all()) and torch.equal(us_k[:, 0], u0)
+    model = traced_device_model(ocp)
+    ref = model.step(x0.double(), u0.double(), ps[:, 0].double())
+    for i, name in enumerate(names):
+        got, r = xs_k[:, 1, i].double(), ref[:, i]
+        assert bool(torch.isfinite(r).all()), name
+        err = float(((got - r).abs() / r.abs().clamp(min=1.0)).max())
+        assert err <= MATH_TOL.get(name, 1e-6), (name, err)
+
+
+@pytest.mark.parametrize("name", ["ops", "obstacle"])
+def test_traced_kernels_on_the_new_ops(dev, name):
+    """chip_smoke.py phase 23 (f) and (e4): K2 (every variant) against the
+    float64 twin's candidates and K3 (DDP on and off, both variants) against
+    the float64 twin, on random trajectories and gains (the ops OCP's params
+    from op_params, at least 0.05 from a jump of its rounding ops; its
+    twins on its program's evaluator, as torch.func cannot differentiate
+    torch's huber_loss twice)."""
+    import chip_smoke as cs
+
+    B, N = 301, 40
+    make = cs.ops_ocp if name == "ops" else cs.obstacle_ocp
+    ocp, ocp64 = make(dev, torch.float32, N), make(dev, torch.float64, N)
+    rng = np.random.default_rng(83)
+    f = dict(dtype=torch.float32, device=dev)
+    t = lambda a: torch.as_tensor(a, **f).contiguous()
+    if name == "ops":
+        ps = cs.op_params(B)
+        xs = rng.uniform(-1.5, 1.5, (B, N + 1, 3))
+    else:
+        ps = np.broadcast_to([10.0, 10.0, 0.0], (B, 3))
+        xs = np.concatenate([rng.uniform(2.0, 8.0, (B, N + 1, 2)),
+                             rng.uniform(-1.0, 1.0, (B, N + 1, 1))], -1)
+    ps = t(np.broadcast_to(np.asarray(ps)[:, None], (B, N + 1, ocp.npar)))
+    xs, us = t(xs), t(rng.uniform(-0.9, 0.9, (B, N, 2)))
+    err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
+    twins = (tuple(cs.evaluator_ocp(o) for o in (ocp, ocp64))
+             if name == "ops" else None)
+    cs._traced_user_kernels(name, ocp, ocp64, SimpleNamespace(xs=xs, us=us),
+                            xs[:, 0].contiguous(), ps,
+                            tuple(0.4 ** i for i in range(8)), err,
+                            twins=twins)
+    assert all(np.isfinite(e) for e in err.values())
+
+
+def test_default_path_on_the_obstacle_ocp(dev):
+    """chip_smoke.py phase 23 (e4) at B = 256: backend=None on the obstacle
+    OCP (tanh and softplus in its callables) resolves to "cuda_fused" on the
+    traced model, launches K3 and K2 and neither K1 nor any twin, converges
+    on >= 0.99, and its first 32 answers are float64 optima
+    (chip_smoke._hold_optima against the float64 "torch" solve on the card,
+    by optimality: a start may pass the obstacle on either side)."""
+    import chip_smoke as cs
+    from mpc_verde_tpu_torch.solver.batched import resolve_backend
+
+    N, B, H = 40, 256, 32
+    ocp, ocp64 = (cs.obstacle_ocp(dev, dt, N) for dt in (torch.float32,
+                                                          torch.float64))
+    assert resolve_backend(ocp, None) == "cuda_fused"
+    queue = cs._queue(B, N)
+    make = lambda o, b: mt.make_streaming_solver(o, cs._opts(), backend=b,
+                                                 batch_width=B, restarts=2)
+    res, ran = _default_ran(lambda: make(ocp, None)(*queue, max_iters=60,
+                                                    restarts_n=2))
+    assert ran == {"fused_backward", "linesearch_forward"}
+    assert float(res.converged.float().mean()) >= 0.99
+    ref = make(ocp64, "torch")(*(a[:H] for a in queue), max_iters=60,
+                               restarts_n=2)
+    t = lambda a: torch.as_tensor(a[:H], device=dev)
+    _hold_optima("obstacle vs float64", SimpleNamespace(
+        converged=res.converged[:H], cost=res.cost[:H], us=res.us[:H]), ref,
+        ocp64, t(queue[0]), t(queue[1]), 1e-3, share_gate=0.0)
 
 
 def test_failed_traced_build_raises_with_its_log(dev, tmp_path, monkeypatch):

@@ -26,7 +26,11 @@ jaxpr.  Held here on the CPU:
   float and in double, and K3's dual-number derivatives (the stage cost and
   the step on second-order duals over z = [x; u], the terminal value over
   x_N), against the evaluator and ``torch.func``;
-* a program's text does not depend on the table's values.
+* a program's text does not depend on the table's values;
+* each lowering no OCP here reaches, on a function of x (3,) against the
+  function itself, the composites decomposed in the trace and the folds of
+  the ops added beside Mosaic's table among them (tests/test_torch_trace_ops.py
+  holds those ops on OCPs).
 """
 import dataclasses
 import gc
@@ -638,26 +642,34 @@ def test_generated_header_on_the_host(name, tmp_path):
     1e-12 (inputs, params and table rounded to float, as the header reads
     them); in float at 2e-5; K3's duals in float against torch.func's first
     and second derivatives of the evaluator at 1e-3, all of max(1, |ref|)."""
+    ocp = _zoo_ocp() if name == "zoo" else _case(name)[0]
+    x, u, p = _inputs(name, ocp, 12, seed=21)
+    if name == "zoo":
+        x, u = 0.5 * x, 0.7 * u
+    _check_header_on_the_host(ocp, x, u, p, tmp_path)
+
+
+def _check_header_on_the_host(ocp, x, u, p, tmp_path, main=_HOST_MAIN):
+    """The body of test_generated_header_on_the_host on ``ocp`` at the
+    points (x, u, p), stage k = b mod N at point b; ``main`` is the host
+    program (``_HOST_MAIN``, or one that defines more host functions before
+    it includes the model)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
-    ocp = _zoo_ocp() if name == "zoo" else _case(name)[0]
     model = traced_device_model(ocp)
     prog = model.program
     csrc = mt.__path__[0] + "/csrc"
     (tmp_path / "cuda_runtime.h").write_text("#pragma once\n")
     (tmp_path / "model.cuh").write_text(model_header(prog))
-    (tmp_path / "main.cpp").write_text(_HOST_MAIN)
+    (tmp_path / "main.cpp").write_text(main)
     build = subprocess.run(
         [gxx, "-std=c++17", "-O1", "-x", "c++", "-I", str(tmp_path), "-I",
          csrc, "-Wno-unknown-pragmas", str(tmp_path / "main.cpp"), "-o",
          str(tmp_path / "main")], capture_output=True, text=True)
     assert build.returncode == 0, build.stderr[-4000:]
 
-    B = 12
-    x, u, p = _inputs(name, ocp, B, seed=21)
-    if name == "zoo":
-        x, u = 0.5 * x, 0.7 * u
+    B = x.shape[0]
     k = np.arange(B) % N
     f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)
     x, u, p, table = f32(x), f32(u), f32(p), f32(prog.table().numpy())
@@ -763,7 +775,31 @@ LOWERING_CASES = {
     "inplace": lambda x: _inplace(x),
     "minimum_maximum": lambda x: torch.minimum(x, x.flip(0))
     + torch.maximum(x, 0.1 * x),
+    # beside the ops of Mosaic's table (tests/test_torch_trace_ops.py): the
+    # composites decomposed in the trace that no OCP there calls, masked_fill
+    # (logsumexp's), a scalar dividend, rounding an integer, and the folds
+    # of each new op on literals (a program of no instruction but the sum)
+    "logsumexp": lambda x: torch.logsumexp(x, 0),
+    "mse_loss": lambda x: torch.nn.functional.mse_loss(x, 0.5 * x.flip(0)),
+    "masked_fill": lambda x: x.masked_fill(x > 0.2, 0.7),
+    "backward_ops": lambda x: torch.func.grad(lambda y: (
+        torch.tanh(y) + torch.sigmoid(y)
+        + torch.nn.functional.softplus(y, beta=2.0)).sum())(x),
+    "remainder_scalar_dividend": lambda x: torch.remainder(2.5, x + 3.0),
+    "rounding_of_integers": lambda x: x * (torch.sign(torch.tensor(
+        [-2, 0, 3])) + torch.floor(torch.tensor([4, 5, 6]))),
+    "folds": lambda x: _folds(x),
 }
+
+
+def _folds(x):
+    """x plus every new op on literals, which the trace folds."""
+    c = lambda v: torch.full((), v, dtype=x.dtype)
+    return x + (c(0.5).tanh() + c(0.5).sigmoid() + c(0.5).log1p()
+                + c(0.5).exp2() + c(0.5).erfinv() + c(2.5).round()
+                + c(-2.5).floor() + c(-2.5).ceil() + c(-2.5).sign()
+                + c(2.0).pow(c(1.5)) + torch.fmod(c(-5.5), 2.0)
+                + torch.remainder(c(-5.5), 2.0))
 
 
 def _inplace(x):
@@ -777,6 +813,8 @@ def _inplace(x):
 def test_each_lowering_matches_torch(case):
     fn = LOWERING_CASES[case]
     prog, out = _trace_fn(fn, x=3)
+    if case == "folds":   # the constant folded to one literal
+        assert sum(o[0] not in ("in", "cf") for o in prog.ops) == 3
     rng = np.random.default_rng(sorted(LOWERING_CASES).index(case))
     x = torch.as_tensor(rng.uniform(-1, 1, (9, 3)), dtype=F64)
     got = torch.stack(prog.evaluate(out, like=x, x=x), -1)
