@@ -7,7 +7,9 @@ by one stage (the last control repeated).  The JAX driver is one
 stay on the OCP's device, and the only host reads are the solver's own
 termination checks.  The plant is a separate single-vector step
 ``(x, u, p_plant) -> x_next`` (the controller's model and the plant may
-differ), batched with ``torch.func.vmap`` in the batched driver.
+differ), batched with ``torch.func.vmap`` in the batched driver.  Each
+step is an ``mpc.step`` span with its plant call and warm-start shift in
+``mpc.plant`` (``utils.profiling``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch.func import vmap
 
 from ..ocp.spec import OCP
 from ..solver.batched import _as_tensor
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -67,11 +70,14 @@ def make_receding_horizon(ocp: OCP, solve: Callable, plant_step: Callable,
         plant_params = _zeros_or(plant_params, (n_steps, 1), z)
         rows = []
         for t in range(n_steps):
-            res = solve(x, params_seq[t], warm)
-            u0 = res.us[0]
-            rows.append((x, u0, res.cost, res.iterations, res.converged, res.xs))
-            x = plant_step(x, u0, plant_params[t])
-            warm = shift_warm_start(res.us)
+            with span("mpc.step"):
+                res = solve(x, params_seq[t], warm)
+                with span("mpc.plant"):
+                    u0 = res.us[0]
+                    rows.append((x, u0, res.cost, res.iterations,
+                                 res.converged, res.xs))
+                    x = plant_step(x, u0, plant_params[t])
+                    warm = shift_warm_start(res.us)
         xs, us, costs, iters, conv, preds = (torch.stack(c) for c in zip(*rows))
         return ClosedLoopResult(
             xs=torch.cat([xs, x[None]]), us=us, costs=costs, iterations=iters,
@@ -117,11 +123,14 @@ def make_batched_receding_horizon(ocp: OCP, solve_batch: Callable,
             (n_steps, B, 1) if plant_params_per_plant else (n_steps, 1), z)
         rows = []
         for t in range(n_steps):
-            res = solve_batch(x, params_seq[t], warm)
-            u0 = res.us[:, 0]
-            rows.append((x, u0, res.cost, res.iterations, res.converged))
-            x = plant_b(x, u0, plant_params[t])
-            warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1)
+            with span("mpc.step"):
+                res = solve_batch(x, params_seq[t], warm)
+                with span("mpc.plant"):
+                    u0 = res.us[:, 0]
+                    rows.append((x, u0, res.cost, res.iterations,
+                                 res.converged))
+                    x = plant_b(x, u0, plant_params[t])
+                    warm = torch.cat([res.us[:, 1:], res.us[:, -1:]], dim=1)
         xs, us, costs, iters, conv = (torch.stack(c) for c in zip(*rows))
         return ClosedLoopResult(xs=torch.cat([xs, x[None]]), us=us,
                                 costs=costs, iterations=iters, converged=conv,

@@ -84,6 +84,7 @@ from ..ops.cuda.rollout import (kernel_model, linesearch_forward,
                                 linesearch_forward_torch, traced_device_model)
 from ..ops.linearize import trajectory_derivatives
 from ..ops.parallel_riccati import lq_backward_parallel
+from ..utils.profiling import count, span, spanned
 from .ilqr import ILQROptions, ILQRResult
 
 BACKENDS = ("torch", "cuda_bw", "cuda", "cuda_fused", "scan")
@@ -407,7 +408,9 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     Args of ``solve`` have a leading batch axis: x0s (B, nx), params
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);
     they are cast to the OCP's device and dtype.  The loop runs on the host
-    and reads one flag from the device per iteration.
+    and reads one flag from the device per iteration (two under a quorum);
+    its work is marked by the spans and counted by the counters of
+    ``utils.profiling``.
 
     With state bounds, ``options.al_iters`` (>= 1) PHR rounds run in turn,
     each a full solve at fixed multipliers from the last one's controls:
@@ -436,33 +439,45 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     def _inner(x0s, ps, us_init):
         """One full batched DDP solve at fixed params."""
         B = x0s.shape[0]
-        xs0, us0, cost0 = parts.rollout(x0s, us_init, ps)
-        carry = (xs0, us0, cost0, torch.full((B,), opt.reg_init, **z),
-                 torch.zeros((B,), dtype=torch.int32, device=dev),
-                 torch.zeros((B,), dtype=torch.bool, device=dev),
-                 torch.full((B,), torch.inf, **z),
-                 torch.zeros((B,), dtype=torch.int32, device=dev),
-                 torch.zeros((B,), dtype=torch.bool, device=dev),
-                 torch.full((B,), bool(opt.use_ddp), device=dev))
+        with span("mpc.preroll"):
+            xs0, us0, cost0 = parts.rollout(x0s, us_init, ps)
+            carry = (xs0, us0, cost0, torch.full((B,), opt.reg_init, **z),
+                     torch.zeros((B,), dtype=torch.int32, device=dev),
+                     torch.zeros((B,), dtype=torch.bool, device=dev),
+                     torch.full((B,), torch.inf, **z),
+                     torch.zeros((B,), dtype=torch.int32, device=dev),
+                     torch.zeros((B,), dtype=torch.bool, device=dev),
+                     torch.full((B,), bool(opt.use_ddp), device=dev))
 
         def running(carry):
-            it, done = carry[4], carry[5]
-            go = bool(((it < opt.max_iters) & ~done).any())
-            if opt.quorum >= 1.0:
-                return go
-            # quorum exit: stop once `quorum` of the batch is done
-            return go and float(done.float().mean()) < opt.quorum
+            with span("mpc.flag"):
+                it, done = carry[4], carry[5]
+                go = bool(((it < opt.max_iters) & ~done).any())
+                count(flag_reads=1 + (go and opt.quorum < 1.0))
+                if opt.quorum >= 1.0:
+                    return go
+                # quorum exit: stop once `quorum` of the batch is done
+                return go and float(done.float().mean()) < opt.quorum
 
         while running(carry):
-            xs, us, cost, reg, it, done, gnorm, stall, fail, ddp_on = carry
-            kffs, Ks, dV1, dV2, gmax = _search_direction(
-                parts, xs, us, ps, reg, ddp_on.to(cost.dtype))
-            xs_b, us_b, new_cost = parts.linesearch(x0s, xs, us, ps, kffs, Ks)
-            carry = _accept_and_update(opt, carry, gmax, xs_b, us_b, new_cost)
+            with span("mpc.turn"):
+                xs, us, cost, reg, it, done, gnorm, stall, fail, ddp_on = carry
+                with span("mpc.direction"):
+                    kffs, Ks, dV1, dV2, gmax = _search_direction(
+                        parts, xs, us, ps, reg, ddp_on.to(cost.dtype))
+                with span("mpc.linesearch"):
+                    xs_b, us_b, new_cost = parts.linesearch(x0s, xs, us, ps,
+                                                            kffs, Ks)
+                with span("mpc.accept"):
+                    carry = _accept_and_update(opt, carry, gmax, xs_b, us_b,
+                                               new_cost)
+            count(turns=1, iterations=1, slot_iterations=B)
 
-        xs, us, cost, _, it, done, gnorm, _, fail, _ = carry
-        return xs, us, cost, it, gnorm, done & ~fail & torch.isfinite(cost)
+        with span("mpc.unpack"):
+            xs, us, cost, _, it, done, gnorm, _, fail, _ = carry
+            return xs, us, cost, it, gnorm, done & ~fail & torch.isfinite(cost)
 
+    @spanned("mpc.solve")
     def solve(x0s, params=None, us_init=None):
         x0s = _as_tensor(x0s, z).contiguous()
         B = x0s.shape[0]
@@ -481,15 +496,18 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         mu = torch.full((B,), opt.al_mu0, **z)
         its = torch.zeros((B,), dtype=torch.int32, device=dev)
         for _ in range(opt.al_iters):
-            ps_aug = torch.cat([ps, lam, mu[:, None, None].expand(B, N + 1, 1)],
-                               dim=-1)
+            with span("mpc.rebase"):
+                ps_aug = torch.cat(
+                    [ps, lam, mu[:, None, None].expand(B, N + 1, 1)], dim=-1)
             xs, us, _, it, gnorm, conv = _inner(x0s, ps_aug, us)
-            its = its + it
-            lam = _lam_update(lam, mu[:, None, None], cvals(xs))
-            mu = mu * opt.al_mu_factor
-        return ILQRResult(
-            xs=xs, us=us, cost=_trajectory_cost(ocp_in, xs, us, ps),
-            grad_norm=gnorm, iterations=its, converged=conv,
-            max_violation=_violation(cvals(xs)))
+            with span("mpc.rebase"):
+                its = its + it
+                lam = _lam_update(lam, mu[:, None, None], cvals(xs))
+                mu = mu * opt.al_mu_factor
+        with span("mpc.unpack"):
+            return ILQRResult(
+                xs=xs, us=us, cost=_trajectory_cost(ocp_in, xs, us, ps),
+                grad_norm=gnorm, iterations=its, converged=conv,
+                max_violation=_violation(cvals(xs)))
 
     return solve

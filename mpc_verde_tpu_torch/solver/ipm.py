@@ -37,6 +37,7 @@ import torch
 from torch.func import vmap
 
 from ..ocp.spec import OCP
+from ..utils.profiling import span, spanned
 from .batched import (_al_cvals, _as_tensor, _augment_ocp_al,
                       _broadcast_params, _lam_update, _trajectory_cost,
                       _violation, make_batched_ilqr_solver, resolve_backend)
@@ -159,30 +160,35 @@ def make_barrier_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                if crossover and nu <= 4 else None)
     z = dict(dtype=ocp.dtype, device=ocp.device)
 
+    @spanned("mpc.solve")
     def solve(x0s, params=None, us_init=None):
-        x0s = _as_tensor(x0s, z).contiguous()
-        B = x0s.shape[0]
-        ps = _broadcast_params(ocp, params, B)
-        if us_init is None:
-            us_init = torch.zeros((B, N, nu), **z)
-        margin = interior_margin * (ub - lb)
-        us = torch.clamp(_as_tensor(us_init, z), lb + margin, ub - margin)
+        with span("mpc.preroll"):
+            x0s = _as_tensor(x0s, z).contiguous()
+            B = x0s.shape[0]
+            ps = _broadcast_params(ocp, params, B)
+            if us_init is None:
+                us_init = torch.zeros((B, N, nu), **z)
+            margin = interior_margin * (ub - lb)
+            us = torch.clamp(_as_tensor(us_init, z), lb + margin, ub - margin)
+            total_it = torch.zeros((B,), dtype=torch.int32, device=ocp.device)
 
-        total_it = torch.zeros((B,), dtype=torch.int32, device=ocp.device)
         res = None
         for mu in mus:
-            mu_col = torch.full((B, N + 1, 1), mu, **z)
-            res = solve_b(x0s, torch.cat([ps, mu_col], dim=-1), us)
+            with span("mpc.rebase"):
+                mu_col = torch.full((B, N + 1, 1), mu, **z)
+                ps_mu = torch.cat([ps, mu_col], dim=-1)
+            res = solve_b(x0s, ps_mu, us)
             us = res.us
             total_it = total_it + res.iterations
         if solve_x is not None:
             res = solve_x(x0s, ps, us)
             us = res.us
             total_it = total_it + res.iterations
-        return ILQRResult(
-            xs=res.xs, us=us, cost=_rollout_cost(ocp, x0s, us, ps),
-            grad_norm=res.grad_norm, iterations=total_it,
-            converged=res.converged, max_violation=res.max_violation)
+        with span("mpc.unpack"):
+            return ILQRResult(
+                xs=res.xs, us=us, cost=_rollout_cost(ocp, x0s, us, ps),
+                grad_norm=res.grad_norm, iterations=total_it,
+                converged=res.converged, max_violation=res.max_violation)
 
     return solve
 
@@ -330,32 +336,37 @@ def make_streaming_barrier_solver(
             ocp, options, backend=backend, batch_width=batch_width,
             restarts=restarts, refill_every=refill_every)
 
+    @spanned("mpc.solve")
     def solve(x0s, params=None, us_init=None, max_iters=None,
               restarts_n=None):
-        x0s = _as_tensor(x0s, z).contiguous()
-        M = x0s.shape[0]
-        ps = _broadcast_params(ocp, params, M)
-        if us_init is None:
-            us_init = torch.zeros((M, N, nu), **z)
+        with span("mpc.preroll"):
+            x0s = _as_tensor(x0s, z).contiguous()
+            M = x0s.shape[0]
+            ps = _broadcast_params(ocp, params, M)
+            if us_init is None:
+                us_init = torch.zeros((M, N, nu), **z)
         it_warm = None
         if dsolve is not None:
             r0 = dsolve(x0s, ps, us_init, max_iters, restarts_n)
             us_init, it_warm = r0.us, r0.iterations
-        margin = interior_margin * (ub - lb)
-        us = torch.clamp(_as_tensor(us_init, z), lb + margin, ub - margin)
-        cols = [ps, torch.full((M, N + 1, 1), mus[0], **z)]
-        if has_xb:
-            cols += [torch.zeros((M, N + 1, 2 * nx), **z),
-                     torch.full((M, N + 1, 1), opt.al_mu0, **z)]
-        res = ssolve(x0s, torch.cat(cols, dim=-1), us.contiguous(),
-                     max_iters, restarts_n)
-        if it_warm is not None:   # both phases' iterations
-            res = dataclasses.replace(res, iterations=res.iterations + it_warm)
-        if not has_xb:
-            return res
-        # the loop's cost is the AL-augmented one at the last multipliers
-        return dataclasses.replace(
-            res, cost=_trajectory_cost(ocp, res.xs, res.us, ps),
-            max_violation=_violation(cvals(res.xs)))
+        with span("mpc.preroll"):
+            margin = interior_margin * (ub - lb)
+            us = torch.clamp(_as_tensor(us_init, z), lb + margin, ub - margin)
+            cols = [ps, torch.full((M, N + 1, 1), mus[0], **z)]
+            if has_xb:
+                cols += [torch.zeros((M, N + 1, 2 * nx), **z),
+                         torch.full((M, N + 1, 1), opt.al_mu0, **z)]
+            ps_b, us = torch.cat(cols, dim=-1), us.contiguous()
+        res = ssolve(x0s, ps_b, us, max_iters, restarts_n)
+        with span("mpc.unpack"):
+            if it_warm is not None:   # both phases' iterations
+                res = dataclasses.replace(
+                    res, iterations=res.iterations + it_warm)
+            if not has_xb:
+                return res
+            # the loop's cost is the AL-augmented one at the last multipliers
+            return dataclasses.replace(
+                res, cost=_trajectory_cost(ocp, res.xs, res.us, ps),
+                max_violation=_violation(cvals(res.xs)))
 
     return solve
