@@ -726,6 +726,73 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
             "max_abs_diff_vs_thread": diffs["thread"]}
 
 
+def _same_bits(a, b):
+    """Whether two float32 tensors hold the same bits (NaNs included)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def phase_rebase(dev, B=131072, N=BENCH_N, share=0.04):
+    """The rounds' cost re-base (``trajectory_cost``) at the interior-point
+    cell's width, on the barrier-derived bench OCP (npar 4, mu 1e-2): the
+    trajectories are K2's pre-roll of interior controls, some with a control
+    on the box edge (priced +inf); a seeded ``share`` of the slots masked,
+    then all of them.  The masked costs must be K2's bit for bit and within
+    1e-5 of the float32 twin, the others ``cost_in`` bit for bit; the kernel
+    is timed against its byte bound and the twin (the solver's plain
+    re-base, every slot priced)."""
+    from mpc_verde_tpu_torch.interop import (bench_ocp, derived_ocps,
+                                             derived_params)
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        linesearch_forward, trajectory_cost, trajectory_cost_torch)
+
+    ocp = derived_ocps(bench_ocp(N, dev, torch.float32))["barrier"]
+    rng = np.random.default_rng(21)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    z = dict(dtype=torch.float32, device=dev)
+    us = rng.uniform(-0.6, 0.6, (B, N, 2))
+    us[rng.uniform(size=B) < 0.01, N // 2, 0] = 1.0     # on the box edge
+    x0 = t(rng.uniform(-2, 2, (B, 3)))
+    ps = derived_params("barrier", t(np.broadcast_to(
+        np.array([10.0, 10.0, 0.0]), (B, N + 1, 3)).copy()), mu=1e-2)
+    xs, us, c_k, _ = linesearch_forward(
+        x0, torch.zeros((B, N + 1, 3), **z), t(us), ps,
+        torch.zeros((B, N, 2), **z), torch.zeros((B, N, 2, 3), **z), (1.0,),
+        ocp=ocp)
+    cost_in = t(rng.normal(size=B))
+    cost_in[:3] = torch.tensor([np.nan, np.inf, -np.inf])
+    twin = trajectory_cost_torch(xs, us, ps, ocp=ocp)
+    out = {}
+    for label, mask in ((f"{100 * share:g}%", t(rng.uniform(size=B)) < share),
+                        ("100%", torch.ones(B, dtype=torch.bool, device=dev))):
+        run = lambda: trajectory_cost(xs, us, ps, mask, cost_in, ocp=ocp)
+        got = run()
+        torch.cuda.synchronize()
+        fin = mask & torch.isfinite(twin)
+        rel = float(((got - twin).abs() / twin.abs().clamp(min=1.0))[fin].max())
+        exact = _same_bits(got[mask], c_k[mask])
+        kept = _same_bits(got[~mask], cost_in[~mask])
+        if not (exact and kept and rel <= 1e-5 and bool(
+                torch.equal(got[mask & ~torch.isfinite(twin)],
+                            twin[mask & ~torch.isfinite(twin)]))):
+            raise AssertionError(f"re-base {label}: K2's bits {exact}, "
+                                 f"cost_in kept {kept}, twin rel err {rel}")
+        n = int(mask.sum())
+        n_bytes = 4 * (n * ((N + 1) * 3 + N * 2 + (N + 1) * 4)
+                       + (B - n) + B) + B      # rows or cost_in, out; mask
+        ms = _time_ms(run, reps=50)
+        plain_ms = _time_ms(
+            lambda: torch.where(mask, trajectory_cost_torch(xs, us, ps, ocp=ocp),
+                                cost_in), reps=5, warmup=1, queued=False)
+        bound = _bound(n_bytes, 0)
+        print(f"[rebase] B={B} N={N} npar=4 mask {label} ({n} slots): kernel "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms (bytes), twin "
+              f"{plain_ms:.4f} ms; K2's cost bit for bit, twin rel err "
+              f"{rel:.2e}", flush=True)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, **bound}
+    return out
+
+
 def _hold(out, ref, tag, label):
     """Hold backward-pass outputs against the twin's at K1_TOL; max abs err."""
     errs = {n: _rel_err(o, r) for n, o, r in zip(BACKWARD_OUT, out, ref)}
@@ -4363,6 +4430,7 @@ def _phases(dev, gpu, refs, compat):
     entries."""
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
+    phase_rebase(dev)
     by_path = {}
     by_path["main"], res_main = phase_main(dev, gpu)
     phase_cross(dev)

@@ -1,6 +1,6 @@
-// Fused parallel line search / pre-roll (K2): the C entry point, and the
-// kernels of rollout.cuh instantiated for the unicycle device model
-// (unicycle.cuh).  The rate-form models' instantiations are in
+// Fused parallel line search / pre-roll (K2) and the rounds' cost re-base:
+// the C entry points, and the kernels of rollout.cuh instantiated for the
+// unicycle device model (unicycle.cuh).  The rate-form models' instantiations are in
 // rollout_linear.cu and rollout_frenet.cu, compiled in parallel with this
 // file.
 //
@@ -23,6 +23,11 @@ cudaError_t mv_linesearch_linear(int kind, const float* model, const int* ints,
 cudaError_t mv_linesearch_frenet(const float* model, const int* ints, const float* tables,
                                  const RolloutArgs& g, const Alphas& al, int variant,
                                  const LanesLayout& L, cudaStream_t s);
+// The re-base on the same kinds, in the same files.
+cudaError_t mv_trajectory_cost_linear(int kind, const float* model, const int* ints,
+                                      const float* tables, const CostArgs& g, cudaStream_t s);
+cudaError_t mv_trajectory_cost_frenet(const float* model, const int* ints, const float* tables,
+                                      const CostArgs& g, cudaStream_t s);
 
 // Plain C entry point (loaded with ctypes).  Tensor pointers are device
 // pointers to contiguous float32 tensors: x0 (B,nx), xs (B,N+1,nx),
@@ -64,4 +69,26 @@ extern "C" int mv_linesearch_forward(int kind, int B, int N, int npar, const flo
   if (kind == 3) return mv_linesearch_frenet(model, model_ints, tables, g, al, variant, L, s);
   if (kind != 0) return mv_linesearch_linear(kind, model, model_ints, tables, g, al, variant, L, s);
   return linesearch_run(m, g, al, variant, L, s);
+}
+
+// Plain C entry point of the rounds' cost re-base (trajectory_cost_kernel):
+// xs (B,N+1,nx), us (B,N,nu), ps (B,N+1,npar), cost_in (B,) contiguous
+// float32 and mask (B,) bool, device pointers; cost_out (B,) float32.
+// `kind`, `model`, `model_ints` and `tables` as for mv_linesearch_forward.
+// Returns the CUDA error of the launch, or cudaErrorInvalidValue for a bad
+// model kind or a model that reads columns past npar.
+extern "C" int mv_trajectory_cost(int kind, int B, int N, int npar, const float* xs,
+                                  const float* us, const float* ps, const bool* mask,
+                                  const float* cost_in, const float* model,
+                                  const int* model_ints, const float* tables, float* cost_out,
+                                  void* stream) {
+  if (kind < 0 || kind > 5) return cudaErrorInvalidValue;
+  const UnicycleModel m = kind == 0 ? unpack_model(model, model_ints) : UnicycleModel{};
+  if (kind == 0 && !model_fits(m, npar)) return cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const CostArgs g{xs, us, ps, mask, cost_in, cost_out, B, N, npar};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 3) return mv_trajectory_cost_frenet(model, model_ints, tables, g, s);
+  if (kind != 0) return mv_trajectory_cost_linear(kind, model, model_ints, tables, g, s);
+  return trajectory_cost_run(m, g, s);
 }

@@ -58,7 +58,9 @@
 // clip, and the templates step / stage_cost / has_terminal_cost /
 // terminal_cost, which K3 evaluates on dual numbers.  This header holds the kernels; each .cu file
 // that includes it, after its model's header, instantiates them for its
-// models and gives them one launcher (linesearch_run).
+// models and gives them one launcher (linesearch_run).  The same models
+// price given trajectories for the rounds' cost re-base
+// (trajectory_cost_kernel, at the end: glue of the solver loop, not K2).
 
 #pragma once
 
@@ -82,6 +84,15 @@ struct RolloutArgs {
   const float *x0, *xs, *us, *ps, *kff, *K;
   float *xs_out, *us_out, *cost_out;
   int *best_out;
+  int B, N, npar;
+};
+
+// The rounds' cost re-base's arguments (trajectory_cost_kernel).
+struct CostArgs {
+  const float *xs, *us, *ps;
+  const bool* mask;
+  const float* cost_in;
+  float* cost_out;
   int B, N, npar;
 };
 
@@ -319,6 +330,69 @@ cudaError_t linesearch_run(const Model& m, const RolloutArgs& g, const Alphas& a
   }
   return variant == 1 ? launch_lanes<Model, true>(g, m, al, L, s)
                       : launch_lanes<Model, false>(g, m, al, L, s);
+}
+
+// ---- the rounds' cost re-base: the cost of given trajectories ---------------
+//
+// Replaces no TPU kernel: the JAX streaming solver re-bases the cost of the
+// slots whose continuation round ended (mpc_verde_tpu/solver/streaming.py)
+// by an elementwise cost that XLA fuses into one fusion of the solver loop.
+// Eager PyTorch runs the same expression as dozens of launches over every
+// slot, GEMVs among them; this kernel is that fusion, written by hand, and
+// prices only the masked slots.  For each problem b with mask[b] it sums
+// stage_cost over k = 0..N-1 in order and adds the terminal cost, the loop
+// and summation order of roll(), so the cost of an accepted trajectory (a
+// rollout already clipped to its box) is the float K2 returned for it; it
+// copies cost_in[b] where mask[b] is false.
+//
+// What bounds it: bytes.  A masked problem reads (N+1) nx + N nu + (N+1)
+// npar floats, 1.5 KB at the bench's N = 40, nx 3, nu 2, npar 4.  When a few
+// percent of the slots are masked, as at a round boundary, one thread a
+// problem walks its own rows and the unmasked threads read and write one
+// float; the time is then one problem's chain of N stages, each waiting on
+// its loads: 0.053 ms on the H100 with 4% of 131,072 slots masked, against
+// 0.003 ms of bytes.  With every slot masked, 0.33 ms against 0.058 ms: a
+// warp's threads read rows 1.5 KB apart, so no load coalesces.  Either is
+// small beside the solver iteration it serves (several ms at that width).
+
+template <class Model>
+__global__ void trajectory_cost_kernel(CostArgs g, Model m) {
+  constexpr int kNX = Model::kNX, kNU = Model::kNU;
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= g.B) return;
+  if (!g.mask[b]) {
+    g.cost_out[b] = g.cost_in[b];
+    return;
+  }
+  const int N = g.N;
+  const float* xs = g.xs + (size_t)b * (N + 1) * kNX;
+  const float* us = g.us + (size_t)b * N * kNU;
+  const float* ps = g.ps + (size_t)b * (N + 1) * g.npar;
+  float x[kNX], u[kNU];
+  float cost = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) x[i] = xs[k * kNX + i];
+#pragma unroll
+    for (int a = 0; a < kNU; ++a) u[a] = us[k * kNU + a];
+    cost = cost + stage_cost(m, x, u, ps + k * g.npar);
+  }
+  if (has_terminal_cost(m)) {
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) x[i] = xs[N * kNX + i];
+    cost = cost + terminal_cost(m, x, ps + N * g.npar);
+  }
+  g.cost_out[b] = cost;
+}
+
+// Launch the re-base on model m; the caller has checked the model.
+template <class Model>
+cudaError_t trajectory_cost_run(const Model& m, const CostArgs& g, cudaStream_t s) {
+  constexpr int kThreads = 128;
+  const int blocks = (g.B + kThreads - 1) / kThreads;
+  trajectory_cost_kernel<Model><<<blocks, kThreads, 0, s>>>(g, m);
+  return cudaGetLastError();
 }
 
 }  // namespace

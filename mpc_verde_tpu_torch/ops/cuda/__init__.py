@@ -6,4 +6,5 @@ tensors; the kernels are built on first use (``build.py``).
 from .fused import fused_backward, fused_backward_torch
 from .riccati import riccati_backward, riccati_backward_torch
 from .rollout import (UnicycleDeviceModel, linesearch_forward,
-                      linesearch_forward_torch)
+                      linesearch_forward_torch, trajectory_cost,
+                      trajectory_cost_torch)

@@ -65,6 +65,8 @@ _SIGNATURES = {
                              + [_P] * 4 + [_I, _I, _IP] + [_P],
     "mv_fused_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP, _P]
                          + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
+    "mv_trajectory_cost": [_I, _I, _I, _I] + [_P] * 5 + [_FP, _IP, _P]
+                          + [_P, _P],
 }
 _RICCATI_SIGNATURE = ([_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_I, _I, _IP, _P]
                       + [_P])
@@ -315,8 +317,9 @@ def riccati_entry(nx: int, nu: int):
 
 
 def traced_entry(program, name: str):
-    """The entry point ``name`` ("mv_linesearch_forward" or
-    "mv_fused_backward", the kernels library's signatures) of a traced
+    """The entry point ``name`` ("mv_linesearch_forward",
+    "mv_trajectory_cost" or "mv_fused_backward", the kernels library's
+    signatures) of a traced
     program's library, built at first use and loaded once per process."""
     h = program_hash(program)
     if h not in _TRACED:

@@ -28,8 +28,9 @@ weights.  Literals are written exactly, as hex floats.
 
 ``units(program)`` gives the two translation units of the program's library
 (``build.py`` builds it at first use): K2's and K3's, each the header's text
-followed by the kernels' header and a C entry point named with the text's
-hash, of the signature of the kernels library's (``mv_linesearch_forward``,
+followed by the kernels' header and C entry points named with the text's
+hash, of the signatures of the kernels library's (``mv_linesearch_forward``
+and the rounds' cost re-base ``mv_trajectory_cost`` in K2's unit,
 ``mv_fused_backward``), whose model arguments are the table alone.
 """
 from __future__ import annotations
@@ -255,6 +256,18 @@ extern "C" int mv_linesearch_forward_{h}(
   const RolloutArgs g{{x0, xs, us, ps, kff, K, xs_out, us_out, cost_out, best_out, B, N, npar}};
   return linesearch_run(TracedModel{{tables}}, g, al, variant, L,
                         static_cast<cudaStream_t>(stream));
+}}
+
+// The rounds' cost re-base on the generated model: the arguments of
+// mv_trajectory_cost (rollout.cu), `tables` as above.
+extern "C" int mv_trajectory_cost_{h}(
+    int kind, int B, int N, int npar, const float* xs, const float* us, const float* ps,
+    const bool* mask, const float* cost_in, const float* model, const int* model_ints,
+    const float* tables, float* cost_out, void* stream) {{
+  if (tables == nullptr || npar < TracedModel::kMinNpar) return cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const CostArgs g{{xs, us, ps, mask, cost_in, cost_out, B, N, npar}};
+  return trajectory_cost_run(TracedModel{{tables}}, g, static_cast<cudaStream_t>(stream));
 }}
 """
 

@@ -46,6 +46,13 @@ instantiated in ``rollout.cu``, ``rollout_linear.cu`` and
 ``linesearch_forward_torch`` is the plain PyTorch version: the JAX
 materialising line search (``mpc_verde_tpu/solver/batched.py``) on the
 OCP's own callables, with alpha as a batch dimension.
+
+``trajectory_cost`` prices given trajectories on the same device models:
+the cost re-base of the streaming solver's continuation rounds, for the
+masked slots only, one launch where the plain PyTorch cost
+(``trajectory_cost_torch``, elementwise over every slot) is dozens.  Its
+kernel sums the stages in ``roll``'s order, so an accepted trajectory's
+re-based cost is the float K2 returned for it.
 """
 from __future__ import annotations
 
@@ -903,6 +910,16 @@ def model_entry(model, name: str):
     return getattr(load_library(), name)
 
 
+def _checked_model(ocp, nx: int, nu: int, npar: int):
+    """``kernel_model(ocp)``; raises ``ValueError`` unless it takes these
+    sizes."""
+    model = kernel_model(ocp)
+    if (nx, nu) != (model.nx, model.nu) or npar < model.min_npar:
+        raise ValueError(f"the {type(model).__name__} needs nx={model.nx}, "
+                         f"nu={model.nu}, npar>={model.min_npar}")
+    return model
+
+
 def linesearch_forward_torch(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float],
                              *, ocp):
     """Plain PyTorch line search on ``ocp``'s callables (same contract as the kernel).
@@ -977,13 +994,10 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
                                         ocp=ocp)
     if not x0.is_cuda:
         raise ValueError(f"linesearch_forward: unsupported device {x0.device}")
-    model = kernel_model(ocp)
     B, N, nu = us.shape
     nx, npar = x0.shape[-1], ps.shape[-1]
     A = len(alphas)
-    if (nx, nu) != (model.nx, model.nu) or npar < model.min_npar:
-        raise ValueError(f"the {type(model).__name__} needs nx={model.nx}, "
-                         f"nu={model.nu}, npar>={model.min_npar}")
+    model = _checked_model(ocp, nx, nu, npar)
     plan = linesearch_launch_plan(N, A, npar, variant, nx=nx, nu=nu)
     named = [("x0", x0, (B, nx)), ("xs", xs, (B, N + 1, nx)),
              ("us", us, (B, N, nu)), ("ps", ps, (B, N + 1, npar)),
@@ -1015,3 +1029,61 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
 
 linesearch_forward.launches = 0
 linesearch_forward.launches_by_variant = dict.fromkeys(LINESEARCH_VARIANTS, 0)
+
+
+def trajectory_cost_torch(xs, us, ps, *, ocp):
+    """Plain PyTorch cost of (B) trajectories under ``ocp``'s callables,
+    elementwise over the stages: the sum of the stage costs plus the
+    terminal cost, (B,).  xs (B, N+1, nx), us (B, N, nu), ps (B, N+1,
+    npar)."""
+    N = ocp.N
+    c = vmap(vmap(ocp.stage_cost))(xs[:, :N], us, ps[:, :N]).sum(-1)
+    if ocp.terminal_cost is not None:
+        c = c + vmap(ocp.terminal_cost)(xs[:, N], ps[:, N])
+    return c
+
+
+def trajectory_cost(xs, us, ps, mask, cost_in, *, ocp):
+    """The rounds' cost re-base: the cost of trajectory b where ``mask[b]``,
+    ``cost_in[b]`` elsewhere, (B,).
+
+    xs (B, N+1, nx), us (B, N, nu) and ps (B, N+1, npar) as for
+    ``trajectory_cost_torch``; mask (B,) bool; cost_in (B,).  On CPU tensors
+    ``torch.where(mask, trajectory_cost_torch(...), cost_in)``.  On the card
+    one launch of the kernel on ``kernel_model(ocp)``, as
+    ``linesearch_forward`` evaluates it: each masked problem's stage costs
+    summed in K2's order, no clip and no dynamics (the trajectories are
+    rollouts already), and cost_in copied bit for bit elsewhere.  CUDA
+    tensors must be contiguous, float32 but for the mask.  ``launches``
+    counts every launch.
+    """
+    if xs.device.type == "cpu":
+        return torch.where(mask, trajectory_cost_torch(xs, us, ps, ocp=ocp),
+                           cost_in)
+    if not xs.is_cuda:
+        raise ValueError(f"trajectory_cost: unsupported device {xs.device}")
+    B, N, nu = us.shape
+    nx, npar = xs.shape[-1], ps.shape[-1]
+    model = _checked_model(ocp, nx, nu, npar)
+    check_args("trajectory_cost", xs.device,
+               [("xs", xs, (B, N + 1, nx)), ("us", us, (B, N, nu)),
+                ("ps", ps, (B, N + 1, npar)), ("cost_in", cost_in, (B,))])
+    if (mask.device != xs.device or mask.dtype != torch.bool
+            or tuple(mask.shape) != (B,) or not mask.is_contiguous()):
+        raise ValueError(f"trajectory_cost: mask must be a contiguous bool "
+                         f"tensor of shape ({B},) on {xs.device}")
+
+    launch = model_entry(model, "mv_trajectory_cost")
+    cost = torch.empty((B,), dtype=torch.float32, device=xs.device)
+    c_model, c_ints, c_tables = model.kernel_args(xs.device)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(model.kind, B, N, npar, xs.data_ptr(), us.data_ptr(),
+                    ps.data_ptr(), mask.data_ptr(), cost_in.data_ptr(),
+                    c_model, c_ints, c_tables, cost.data_ptr(), stream)
+    check_launch(rc, "mv_trajectory_cost")
+    trajectory_cost.launches += 1
+    return cost
+
+
+trajectory_cost.launches = 0

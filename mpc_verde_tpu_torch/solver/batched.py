@@ -73,7 +73,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ..ocp.spec import OCP
 from ..ops.cuda.fused import fused_backward
@@ -81,7 +80,8 @@ from ..ops.cuda.build import check_riccati_size
 from ..ops.cuda.riccati import (riccati_backward, riccati_backward_cast,
                                 riccati_backward_torch)
 from ..ops.cuda.rollout import (kernel_model, linesearch_forward,
-                                linesearch_forward_torch, traced_device_model)
+                                linesearch_forward_torch, traced_device_model,
+                                trajectory_cost, trajectory_cost_torch)
 from ..ops.linearize import trajectory_derivatives
 from ..ops.parallel_riccati import lq_backward_parallel
 from ..utils.profiling import count, span, spanned
@@ -98,6 +98,10 @@ class _Parts:
     derivs: Callable       # (xs, us, ps) -> d, gN, HN, dlb, dub
     backward: Callable     # (d, gN, HN, dlb, dub, reg, ddp) -> kffs, Ks, dV1, dV2, gmax
     linesearch: Callable   # (x0s, xs, us, ps, kffs, Ks) -> xs_b, us_b, new_cost
+    # the rounds' cost re-base, priced by what prices the line search:
+    # (xs, us, ps, mask, cost) -> the cost of the masked trajectories,
+    # ``cost`` elsewhere
+    cost: Callable
     # derivs + backward in one kernel ("cuda_fused"), None otherwise:
     # (xs, us, ps, reg, ddp) -> kffs, Ks, dV1, dV2, gmax
     fused: Optional[Callable] = None
@@ -209,6 +213,13 @@ def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
             (1.0,), ocp=ocp)
         return xs_b, us_b, cost
 
+    def cost(xs, us, ps, mask, cost_in):
+        if ls_fn is linesearch_forward:
+            return trajectory_cost(xs.contiguous(), us.contiguous(), ps, mask,
+                                   cost_in, ocp=ocp)
+        return torch.where(mask, trajectory_cost_torch(xs, us, ps, ocp=ocp),
+                           cost_in)
+
     def derivs(xs, us, ps):
         return trajectory_derivatives(ocp, xs, us, ps,
                                       second_order=opt.use_ddp)
@@ -224,7 +235,7 @@ def _make_parts(ocp: OCP, opt: ILQROptions, backend: str) -> _Parts:
                                   use_ddp=opt.use_ddp, tol=opt.boxqp_tol)
 
     return _Parts(rollout=rollout, derivs=derivs, backward=backward,
-                  linesearch=linesearch, fused=fused)
+                  linesearch=linesearch, cost=cost, fused=fused)
 
 
 def _search_direction(parts: _Parts, xs, us, ps, reg, ddp_scale):
@@ -303,16 +314,6 @@ def _augment_ocp_al(ocp: OCP) -> OCP:
         control_bounds=None if cb is None else (
             lambda x, p, k: cb(x, p[:npar], k)),
         npar=npar + nlam + 1, x_lb=None, x_ub=None, device_model=model)
-
-
-def _trajectory_cost(ocp: OCP, xs, us, ps):
-    """Cost of (B) trajectories under ``ocp``'s callables, elementwise over
-    the stages: sum of the stage costs plus the terminal cost."""
-    N = ocp.N
-    c = vmap(vmap(ocp.stage_cost))(xs[:, :N], us, ps[:, :N]).sum(-1)
-    if ocp.terminal_cost is not None:
-        c = c + vmap(ocp.terminal_cost)(xs[:, N], ps[:, N])
-    return c
 
 
 def _as_tensor(a, z):
@@ -506,7 +507,8 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                 mu = mu * opt.al_mu_factor
         with span("mpc.unpack"):
             return ILQRResult(
-                xs=xs, us=us, cost=_trajectory_cost(ocp_in, xs, us, ps),
+                xs=xs, us=us,
+                cost=trajectory_cost_torch(xs, us, ps, ocp=ocp_in),
                 grad_norm=gnorm, iterations=its, converged=conv,
                 max_violation=_violation(cvals(xs)))
 

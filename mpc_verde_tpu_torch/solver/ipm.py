@@ -37,10 +37,11 @@ import torch
 from torch.func import vmap
 
 from ..ocp.spec import OCP
+from ..ops.cuda.rollout import trajectory_cost_torch
 from ..utils.profiling import span, spanned
 from .batched import (_al_cvals, _as_tensor, _augment_ocp_al,
-                      _broadcast_params, _lam_update, _trajectory_cost,
-                      _violation, make_batched_ilqr_solver, resolve_backend)
+                      _broadcast_params, _lam_update, _violation,
+                      make_batched_ilqr_solver, resolve_backend)
 from .ilqr import ILQROptions, ILQRResult
 from .streaming import make_streaming_solver
 
@@ -366,7 +367,7 @@ def make_streaming_barrier_solver(
                 return res
             # the loop's cost is the AL-augmented one at the last multipliers
             return dataclasses.replace(
-                res, cost=_trajectory_cost(ocp, res.xs, res.us, ps),
+                res, cost=trajectory_cost_torch(res.xs, res.us, ps, ocp=ocp),
                 max_violation=_violation(cvals(res.xs)))
 
     return solve

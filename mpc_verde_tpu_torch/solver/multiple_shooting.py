@@ -24,9 +24,9 @@ import torch
 from torch.func import vmap
 
 from ..ocp.spec import OCP
+from ..ops.cuda.rollout import trajectory_cost_torch
 from ..ops.linearize import trajectory_derivatives
-from .batched import (_as_tensor, _bcast, _broadcast_params,
-                      _trajectory_cost)
+from .batched import _as_tensor, _bcast, _broadcast_params
 from .ilqr import ILQROptions, ILQRResult, _stage_boxqp_with_gain
 
 _STAGE_KEYS = ("fx", "fu", "lx", "lu", "lxx", "luu", "lux")
@@ -189,7 +189,7 @@ def make_batched_ms_solver(ocp: OCP, options: ILQROptions = ILQROptions()):
         xs = (x0s[:, None].expand(B, N + 1, nx) if xs_init is None
               else _as_tensor(xs_init, z))
         xs = torch.cat([x0s[:, None], xs[:, 1:]], dim=1)
-        cost0 = _trajectory_cost(ocp, xs, us, ps)
+        cost0 = trajectory_cost_torch(xs, us, ps, ocp=ocp)
         gap0 = gaps_of(xs, us, ps).abs().reshape(B, -1).amax(-1)
         flag = lambda v: torch.full((B,), v, dtype=torch.bool, device=dev)
         zi = torch.zeros((B,), dtype=torch.int32, device=dev)

@@ -36,10 +36,11 @@ from typing import Optional
 import torch
 
 from ..ocp.spec import OCP
+from ..ops.cuda.rollout import trajectory_cost_torch
 from .batched import (_accept_and_update, _al_cvals, _as_tensor,
                       _augment_ocp_al, _broadcast_params, _lam_update,
-                      _make_parts, _search_direction, _trajectory_cost,
-                      _violation, backend_options, resolve_backend)
+                      _make_parts, _search_direction, _violation,
+                      backend_options, resolve_backend)
 from ..utils.profiling import count, span, spanned
 from .ilqr import ILQROptions, ILQRResult
 
@@ -282,8 +283,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                                          ps).contiguous()
                         alr = alr + adv.to(torch.int32)
                         iacc = torch.where(adv, iacc + it.clamp(min=0), iacc)
-                        cost = torch.where(
-                            adv, _trajectory_cost(ocp, xs, us, ps), cost)
+                        cost = parts.cost(xs, us, ps, adv, cost)
                         reg = torch.where(adv, opt.reg_init, reg)
                         it = torch.where(adv, 0, it)
                         stall = torch.where(adv, 0, stall)
@@ -304,7 +304,7 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
             if has_xb:
                 # the loop's cost is the augmented one at the last
                 # multipliers
-                cost_q = _trajectory_cost(ocp_in, xs_q, us_q, psq_in)
+                cost_q = trajectory_cost_torch(xs_q, us_q, psq_in, ocp=ocp_in)
                 viol_q = _violation(cvals(xs_q))
             return ILQRResult(
                 xs=xs_q, us=us_q, cost=cost_q, grad_norm=o[:, sx + su + 1],

@@ -109,14 +109,16 @@ def count(**increments: int) -> None:
 
 def counters() -> dict:
     """A snapshot of the process's counters: ``COUNTER_NAMES`` and the
-    launches of K1, K2 and K3 (``k1``, ``k2``, ``k3``), read from the
-    kernel wrappers' own ``launches``."""
+    launches of K1, K2 and K3 (``k1``, ``k2``, ``k3``) and of the rounds'
+    cost re-base (``rebase``, one an iteration of a loop with rounds on a
+    kernel backend), read from the kernel wrappers' own ``launches``."""
     from ..ops.cuda.fused import fused_backward
     from ..ops.cuda.riccati import riccati_backward
-    from ..ops.cuda.rollout import linesearch_forward
+    from ..ops.cuda.rollout import linesearch_forward, trajectory_cost
 
     return dict(_COUNTS, k1=riccati_backward.launches,
-                k2=linesearch_forward.launches, k3=fused_backward.launches)
+                k2=linesearch_forward.launches, k3=fused_backward.launches,
+                rebase=trajectory_cost.launches)
 
 
 def _union(intervals) -> list:
