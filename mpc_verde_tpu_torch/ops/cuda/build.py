@@ -208,7 +208,10 @@ def _compile(libraries: dict) -> dict:
     each library's link.  Returns {path: BuildResult}; raises with the logs
     if a unit or a link fails (the libraries that compiled are kept).  Each
     unit's log carries its own seconds, start to finish; a library's
-    ``seconds`` run from its first unit's start to its link's end."""
+    ``seconds`` run from its first unit's start to its link's end.  Each
+    traced program's library built counts one ``traced_builds``."""
+    from ...utils.profiling import count   # utils imports this module
+
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, objdirs = {}, {}
@@ -253,6 +256,8 @@ def _compile(libraries: dict) -> dict:
                 failed.append(f"link {out.name}")
             else:
                 os.replace(tmp, out)   # atomic: no one sees half a file
+                if out.name.startswith("libmv_traced_"):
+                    count(traced_builds=1)
                 first = min(jobs[(out, name)][0] for name in units)
                 results[out] = BuildResult(out, time.perf_counter() - first,
                                            "".join(parts))
@@ -320,13 +325,18 @@ def traced_entry(program, name: str):
     """The entry point ``name`` ("mv_linesearch_forward",
     "mv_trajectory_cost" or "mv_fused_backward", the kernels library's
     signatures) of a traced
-    program's library, built at first use and loaded once per process."""
+    program's library, built at first use and loaded once per process
+    (inside the span ``mpc.build``)."""
+    from ...utils.profiling import count, span   # utils imports this module
+
     h = program_hash(program)
     if h not in _TRACED:
-        path = traced_library_path(program)
-        if not path.is_file():
-            _compile({path: traced_units(program)})
-        _TRACED[h] = ctypes.CDLL(str(path))
+        with span("mpc.build"):
+            path = traced_library_path(program)
+            if not path.is_file():
+                _compile({path: traced_units(program)})
+            _TRACED[h] = ctypes.CDLL(str(path))
+        count(traced_loads=1)
     fn = getattr(_TRACED[h], f"{name}_{h}")
     fn.argtypes = _SIGNATURES[name]
     fn.restype = _I

@@ -67,6 +67,7 @@ from torch.func import vmap
 from .build import (SMEM_MAX_BYTES, LaunchPlan, check_args, check_launch,
                     load_library, traced_entry)
 from .trace import Program, trace_ocp
+from ...utils.profiling import count, span
 
 MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cuh: one problem's lanes fit a warp
 LINESEARCH_VARIANTS = ("thread", "lanes", "lanes_reroll")  # the C entry's ids
@@ -844,6 +845,7 @@ class TracedDeviceModel:
                 max(values.numel(), 1), dtype=torch.float32, device=device)
             buf[:values.numel()].copy_(values)
             self._tables[device] = (versions, buf)
+            count(traced_table_fills=1)
         return self._tables[device][1]
 
     def kernel_args(self, device):
@@ -891,7 +893,9 @@ def traced_device_model(ocp) -> TracedDeviceModel:
     traced once per OCP object: the model is kept on the OCP."""
     model = ocp.__dict__.get("_traced_device_model")
     if model is None:
-        model = TracedDeviceModel(trace_ocp(ocp))
+        with span("mpc.trace"):
+            model = TracedDeviceModel(trace_ocp(ocp))
+        count(traced_traces=1)
         object.__setattr__(ocp, "_traced_device_model", model)
     return model
 

@@ -34,6 +34,12 @@ it:
   ``mpc.unpack``      the results after the loop, the state-bounds cost
   ``mpc.step``        one closed-loop step
   ``mpc.plant``       the step's plant call and warm-start shift
+  ``mpc.trace``       the trace of an OCP's callables into the program of
+                      its traced device model (``ops/cuda/trace.py``), once
+                      per OCP
+  ``mpc.build``       the build or load of a traced program's library
+                      (``ops/cuda/build.traced_entry``), once per program
+                      per process
 
 Counters (``counters()``): host integers kept where the loops already are
 on the host, always on, with no kernel and no synchronisation of their
@@ -72,7 +78,16 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #                    slots, finished ones included; with the iterations the
 #                    solves return, the share of the slot-work spent on
 #                    problems still being solved
-COUNTER_NAMES = ("turns", "flag_reads", "iterations", "slot_iterations")
+# and of the traced device models (ops/cuda/rollout.TracedDeviceModel), on
+# their path alone, none a launch:
+#   traced_traces       OCPs traced into a program (trace_ocp)
+#   traced_builds       traced programs' libraries compiled by nvcc
+#   traced_loads        traced programs' libraries opened
+#   traced_table_fills  refills of a traced model's table buffer: its first
+#                       fill on a device and one a change of a hoisted weight
+COUNTER_NAMES = ("turns", "flag_reads", "iterations", "slot_iterations",
+                 "traced_traces", "traced_builds", "traced_loads",
+                 "traced_table_fills")
 _COUNTS = dict.fromkeys(COUNTER_NAMES, 0)
 _NO_SPAN = contextlib.nullcontext()
 # the range device_trace opens around its block
