@@ -732,6 +732,100 @@ def _same_bits(a, b):
                        b.contiguous().view(torch.int32))
 
 
+def _refill_bytes(B, n_fin, n_load, W, Q, fsize):
+    """Bytes the refill must move, each read once and each written once:
+    the scan's flags and problem ids; each finished slot's trajectory, cost,
+    gradient, counters and flags read and its row of ``out`` written; each
+    loaded problem's packed row read and written into the slot with a fresh
+    state; the rest of the finished slots' ``prob``."""
+    scan = B * (1 + 4) + 4 * (n_fin + 2)
+    fin = n_fin * (fsize * (W - 2) + 4 + 4 + 4 + 2 + fsize * W)
+    load = n_load * (fsize * Q + fsize * (Q - 1) + 3 * fsize + 6 * 4 + 4)
+    return scan + fin + load + 4 * (n_fin - n_load)
+
+
+def phase_refill(dev, B=131072, M=1048576, N=BENCH_N, share=0.042):
+    """The streaming refill (``refill_slots``) at the stream cell's shapes
+    (the unicycle, npar 3, float32): a seeded ``share`` of the slots
+    finished, in mid-queue (each loads a problem) and in the drain tail
+    (none does), and every slot finished.  The kernel must give the twin's
+    bits; it is timed by CUDA events around its call alone, the slots
+    restored before each, against its byte bound and the twin (the solver's
+    refill before the kernel)."""
+    from mpc_verde_tpu_torch.ops.cuda.refill import (SLOT_STATE, refill_slots,
+                                                     refill_slots_torch)
+
+    nx, nu, npar = 3, 2, 3
+    sx, su, sp = (N + 1) * nx, N * nu, (N + 1) * npar
+    W, Q = sx + su + 4, nx + sp + su + sx + 1
+    rng = np.random.default_rng(23)
+    g = torch.Generator(device=dev).manual_seed(23)
+    f = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rand = lambda *shape: torch.rand(shape, generator=g, **f)
+    qpk, out = rand(M, Q), rand(M + 1, W)
+    out_keep = out[M].clone()
+    base = dict(xs=rand(B, N + 1, nx), us=rand(B, N, nu), cost=rand(B),
+                reg=rand(B), it=torch.randint(0, 40, (B,), generator=g, **i32),
+                gnorm=rand(B), stall=torch.zeros(B, **i32),
+                fail=rand(B) < 0.01, ddp_on=rand(B) < 0.5, x0s=rand(B, nx),
+                ps=rand(B, N + 1, npar), capped=rand(B) < 0.01,
+                rst=torch.zeros(B, **i32), iacc=torch.zeros(B, **i32),
+                alr=torch.zeros(B, **i32))
+    res = {}
+    for label, frac, nq0 in ((f"{100 * share:g}% mid-queue", share, M // 2),
+                             (f"{100 * share:g}% drain tail", share, M),
+                             ("100% mid-queue", 1.0, M // 4)):
+        # the slots hold distinct problems below nq0
+        prob = torch.as_tensor(rng.choice(nq0, B, replace=False), **i32)
+        done = torch.as_tensor(rng.uniform(size=B) < frac, device=dev)
+        state = tuple({**base, "done": done, "prob": prob}[k]
+                      for k in SLOT_STATE)
+        nq = torch.tensor(nq0, **i32)
+        kw = dict(reg_init=1e-3, use_ddp=True)
+        want_out = out.clone()
+        want, want_nq = refill_slots_torch(state, nq.clone(), want_out, qpk,
+                                           **kw)
+        mine = tuple(t.clone() for t in state)
+        got, got_nq = refill_slots(mine, nq.clone(), out, qpk, **kw)
+        torch.cuda.synchronize()
+        ok = (all(_same_bits(a, b) if a.is_floating_point()
+                  else torch.equal(a, b) for a, b in zip(got, want))
+              and torch.equal(got_nq, want_nq)
+              and _same_bits(out[:M], want_out[:M])
+              and _same_bits(out[M], out_keep))
+        if not ok:
+            raise AssertionError(f"refill {label}: the kernel is not the twin")
+        n_fin = int(done.sum())
+        n_load = min(n_fin, M - nq0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        times = []
+        for _ in range(32):
+            for t, t0 in zip(mine, state):
+                t.copy_(t0)
+            nq_k = nq.clone()
+            # a device spin, so that the call is queued before the start
+            # event runs and the events time the two kernels alone
+            torch.cuda._sleep(20_000_000)
+            start.record()
+            refill_slots(mine, nq_k, out, qpk, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = sum(times[2:]) / len(times[2:])
+        plain_ms = _time_ms(lambda: refill_slots_torch(
+            state, nq, want_out, qpk, **kw), reps=5, warmup=1, queued=False)
+        bound = _bound(_refill_bytes(B, n_fin, n_load, W, Q, 4), 0)
+        print(f"[refill] B={B} M={M} N={N} {label} ({n_fin} finished, "
+              f"{n_load} loaded): kernel {ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms (bytes), twin {plain_ms:.4f} ms; "
+              "the twin's bits", flush=True)
+        res[label] = {"ms": ms, "plain_ms": plain_ms, "finished": n_fin,
+                      "loaded": n_load, **bound}
+    return res
+
+
 def phase_rebase(dev, B=131072, N=BENCH_N, share=0.04):
     """The rounds' cost re-base (``trajectory_cost``) at the interior-point
     cell's width, on the barrier-derived bench OCP (npar 4, mu 1e-2): the
@@ -4431,6 +4525,7 @@ def _phases(dev, gpu, refs, compat):
     meas = {"riccati_backward": phase_k1(dev),
             "linesearch_forward": phase_k2(dev)}
     phase_rebase(dev)
+    phase_refill(dev)
     by_path = {}
     by_path["main"], res_main = phase_main(dev, gpu)
     phase_cross(dev)

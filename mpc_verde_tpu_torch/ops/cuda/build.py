@@ -11,7 +11,11 @@ Two kinds of library, each a plain C interface loaded with ``ctypes``:
 * K2 and K3 on a device model generated from the trace of an OCP's own
   callables (``trace.py``, ``codegen.py``), one library per traced program:
   its K2 unit and its K3 unit (``codegen.units``), entry points named with
-  the hash of the model's text, built the first time the program runs.
+  the hash of the model's text, built the first time the program runs;
+* the streaming refill (``csrc/refill.cuh``, ``refill.py``), a library of
+  one generated unit, built the first time a streaming solver runs on the
+  card: outside the kernels library, so that a solve on a traced model
+  never builds or loads that one.
 
 Tensors pass as ``data_ptr()`` integers and the launch goes on PyTorch's
 current stream.  Nothing here includes PyTorch's headers, whose build takes
@@ -54,6 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _FP = ctypes.POINTER(ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 
@@ -70,6 +75,9 @@ _SIGNATURES = {
 }
 _RICCATI_SIGNATURE = ([_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_I, _I, _IP, _P]
                       + [_P])
+# mv_refill_slots: dtype, B, M, nx, sp, su, sx, reg_init, use_ddp, 21 device
+# pointers, the stream.
+_REFILL_SIGNATURE = [_I] * 7 + [_D, _I] + [_P] * 21 + [_P]
 
 # Dynamic shared memory one block can use on sm_90 (227 KB of the SM's 256):
 # kSmemMaxBytes in csrc/launch.cuh.
@@ -135,6 +143,13 @@ cudaError_t mv_riccati_warps_launch_{nx}x{nu}(const RiccatiArgs& a, bool ddp, in
 """
 
 
+# The refill's unit: its kernels and entry point are the header's.
+_REFILL_UNIT = """// The streaming refill, float32 and float64, and its C entry point.
+// Generated by mpc_verde_tpu_torch/ops/cuda/build.py (refill_units).
+#include "refill.cuh"
+"""
+
+
 def check_riccati_size(nx: int, nu: int) -> None:
     """Raise unless K1 takes (nx, nu): nx >= 1 and 1 <= nu <= 4.  nu > 4
     raises ``NotImplementedError``, as the JAX kernel does: the stage box QP
@@ -155,6 +170,11 @@ def riccati_units(nx: int, nu: int) -> dict:
     return {f"riccati_{nx}x{nu}.cu": _RICCATI_UNIT.format(nx=nx, nu=nu),
             f"riccati_warps_{nx}x{nu}.cu": _RICCATI_WARPS_UNIT.format(nx=nx,
                                                                       nu=nu)}
+
+
+def refill_units() -> dict:
+    """The generated translation unit of the refill: {file name: text}."""
+    return {"refill.cu": _REFILL_UNIT}
 
 
 def _kernels_units() -> dict:
@@ -194,6 +214,11 @@ def library_path() -> Path:
 def riccati_library_path(nx: int, nu: int) -> Path:
     """Path of K1's library at (nx, nu) for the current sources and flags."""
     return _library(f"mv_riccati_{nx}x{nu}", riccati_units(nx, nu))
+
+
+def refill_library_path() -> Path:
+    """Path of the refill's library for the current sources and flags."""
+    return _library("mv_refill", refill_units())
 
 
 def traced_library_path(program) -> Path:
@@ -291,6 +316,7 @@ def build(riccati_sizes=(), programs=()) -> dict:
 _LIB = None
 _RICCATI = {}
 _TRACED = {}
+_REFILL = None
 
 
 def load_library() -> ctypes.CDLL:
@@ -319,6 +345,21 @@ def riccati_entry(nx: int, nu: int):
         fn.restype = _I
         _RICCATI[(nx, nu)] = fn
     return _RICCATI[(nx, nu)]
+
+
+def refill_entry():
+    """The refill's C entry point ``mv_refill_slots``, its library built at
+    first use and loaded once per process."""
+    global _REFILL
+    if _REFILL is None:
+        path = refill_library_path()
+        if not path.is_file():
+            _compile({path: refill_units()})
+        fn = ctypes.CDLL(str(path)).mv_refill_slots
+        fn.argtypes = _REFILL_SIGNATURE
+        fn.restype = _I
+        _REFILL = fn
+    return _REFILL
 
 
 def traced_entry(program, name: str):

@@ -14,7 +14,7 @@ As in the JAX solver:
   problem's initial trajectory and cost, stored in one packed row per
   problem, so a refilled slot's first pass is a real DDP iteration;
 * one packed output buffer holds ``[xs | us | cost gnorm it conv]`` per
-  problem, with a dummy row M as the target of idle slots;
+  problem, with a dummy row M (the plain refill's target of idle slots);
 * a problem that fails or exhausts its budget restarts in place (fresh
   regularization, stall counters and DDP mode, warm-started at its best
   iterate) up to ``restarts`` times before it is reported unconverged.
@@ -26,8 +26,11 @@ As in the JAX solver:
 
 The JAX device-side ``lax.while_loop`` becomes a host loop over one refill
 and ``refill_every`` compute iterations; it reads one flag from the device
-per loop turn.  The spans and counters of ``utils.profiling`` mark and
-count the turns and their parts.
+per loop turn.  The refill is ``ops.cuda.refill.refill_slots``: on the card
+one hand-written kernel call that moves the finished and loaded slots alone
+and updates the slot tensors in place, on the CPU its PyTorch twin.  The
+spans and counters of ``utils.profiling`` mark and count the turns and
+their parts.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from typing import Optional
 import torch
 
 from ..ocp.spec import OCP
+from ..ops.cuda.refill import refill_slots
 from ..ops.cuda.rollout import trajectory_cost_torch
 from .batched import (_accept_and_update, _al_cvals, _as_tensor,
                       _augment_ocp_al, _broadcast_params, _lam_update,
@@ -191,47 +195,14 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
         while running():
             with span("mpc.turn"):
                 # ---- refill: scatter finished problems, load queued ones ---
+                # (on the card in place, in one kernel call)
                 with span("mpc.refill"):
-                    fin = done & (prob < M)
-                    widx = torch.where(fin, prob, M)
-                    conv = ~fail & torch.isfinite(cost) & ~capped
-                    row = torch.cat(
-                        [xs.reshape(B, sx), us.reshape(B, su), cost[:, None],
-                         gnorm[:, None],
-                         (iacc + it.clamp(min=0)).to(z["dtype"])[:, None],
-                         conv.to(z["dtype"])[:, None]], dim=1)
-                    out[widx] = row
-
-                    rank = torch.cumsum(fin.to(torch.int32), 0,
-                                        dtype=torch.int32) - 1
-                    cand = nq + rank
-                    has = fin & (cand < M)
-                    qrow = qpk[cand.clamp(0, M - 1)]
-                    h2, h3 = has[:, None], has[:, None, None]
-                    x0s = torch.where(h2, qrow[:, :nx], x0s)
-                    ps = torch.where(
-                        h3, qrow[:, nx:nx + sp].reshape(B, N + 1, npar_q), ps)
-                    us = torch.where(
-                        h3, qrow[:, nx + sp:nx + sp + su].reshape(B, N, nu),
-                        us)
-                    xs = torch.where(
-                        h3, qrow[:, nx + sp + su:nx + sp + su + sx].reshape(
-                            B, N + 1, nx), xs)
-                    cost = torch.where(has, qrow[:, -1], cost)
-                    reg = torch.where(has, opt.reg_init, reg)
-                    it = torch.where(has, 0, it)
-                    gnorm = torch.where(has, torch.inf, gnorm)
-                    stall = torch.where(has, 0, stall)
-                    fail = fail & ~has
-                    ddp_on = torch.where(has, bool(opt.use_ddp), ddp_on)
-                    capped = capped & ~has
-                    done = done & ~has
-                    prob = torch.where(has, cand, torch.where(fin, M, prob))
-                    rst = torch.where(has, 0, rst)
-                    iacc = torch.where(has, 0, iacc)
-                    alr = torch.where(has, 0, alr)
-                    nq = nq + has.sum(dtype=torch.int32)
-                    x0s, ps = x0s.contiguous(), ps.contiguous()
+                    slots, nq = refill_slots(
+                        (xs, us, cost, reg, it, done, gnorm, stall, fail,
+                         ddp_on, x0s, ps, capped, rst, iacc, alr, prob), nq,
+                        out, qpk, reg_init=opt.reg_init, use_ddp=opt.use_ddp)
+                    (xs, us, cost, reg, it, done, gnorm, stall, fail, ddp_on,
+                     x0s, ps, capped, rst, iacc, alr, prob) = slots
 
                 for _ in range(R):
                     # ---- one shared solver iteration -----------------------
@@ -294,6 +265,8 @@ def make_streaming_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
                         rst = torch.where(adv, 0, rst)
                         done = done & ~adv
             count(turns=1, iterations=R, slot_iterations=R * B)
+        # every problem's row out once, every problem past the first load in
+        count(refill_rows=2 * M - n0)
 
         with span("mpc.unpack"):
             o = out[:M]

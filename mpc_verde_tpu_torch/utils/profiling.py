@@ -78,6 +78,10 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #                    slots, finished ones included; with the iterations the
 #                    solves return, the share of the slot-work spent on
 #                    problems still being solved
+#   refill_rows      rows the streaming refill moved: each problem's result
+#                    row out, and each problem it loaded (all but the first
+#                    batch_width of a queue); beside slot_iterations, how
+#                    much of the slots' state the refill changes
 # and of the traced device models (ops/cuda/rollout.TracedDeviceModel), on
 # their path alone, none a launch:
 #   traced_traces       OCPs traced into a program (trace_ocp)
@@ -86,8 +90,8 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 #   traced_table_fills  refills of a traced model's table buffer: its first
 #                       fill on a device and one a change of a hoisted weight
 COUNTER_NAMES = ("turns", "flag_reads", "iterations", "slot_iterations",
-                 "traced_traces", "traced_builds", "traced_loads",
-                 "traced_table_fills")
+                 "refill_rows", "traced_traces", "traced_builds",
+                 "traced_loads", "traced_table_fills")
 _COUNTS = dict.fromkeys(COUNTER_NAMES, 0)
 _NO_SPAN = contextlib.nullcontext()
 # the range device_trace opens around its block
@@ -124,16 +128,19 @@ def count(**increments: int) -> None:
 
 def counters() -> dict:
     """A snapshot of the process's counters: ``COUNTER_NAMES`` and the
-    launches of K1, K2 and K3 (``k1``, ``k2``, ``k3``) and of the rounds'
-    cost re-base (``rebase``, one an iteration of a loop with rounds on a
-    kernel backend), read from the kernel wrappers' own ``launches``."""
+    launches of K1, K2 and K3 (``k1``, ``k2``, ``k3``), of the rounds' cost
+    re-base (``rebase``, one an iteration of a loop with rounds on a kernel
+    backend) and of the streaming refill (``refill``, one a turn on the
+    card), read from the kernel wrappers' own ``launches``."""
     from ..ops.cuda.fused import fused_backward
+    from ..ops.cuda.refill import refill_slots
     from ..ops.cuda.riccati import riccati_backward
     from ..ops.cuda.rollout import linesearch_forward, trajectory_cost
 
     return dict(_COUNTS, k1=riccati_backward.launches,
                 k2=linesearch_forward.launches, k3=fused_backward.launches,
-                rebase=trajectory_cost.launches)
+                rebase=trajectory_cost.launches,
+                refill=refill_slots.launches)
 
 
 def _union(intervals) -> list:

@@ -182,8 +182,9 @@ def test_spans_nest_and_agree_with_the_counters(case, tmp_path):
     # the slots' work covers every iteration the solves report
     assert sum(int(r[0].sum()) for r in traced) <= d["slot_iterations"]
     # counters() reads the kernels' launch counters; no kernel runs here
-    assert set(COUNTER_NAMES) | {"k1", "k2", "k3", "rebase"} == set(d)
-    assert d["k1"] == d["k2"] == d["k3"] == d["rebase"] == 0
+    assert (set(COUNTER_NAMES) | {"k1", "k2", "k3", "rebase", "refill"}
+            == set(d))
+    assert d["k1"] == d["k2"] == d["k3"] == d["rebase"] == d["refill"] == 0
 
 
 def test_quorum_reads_twice_a_test_while_the_batch_runs():
