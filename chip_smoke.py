@@ -7,12 +7,15 @@
 Phases, one line each; any failure raises and the exit code is non-zero:
   1. device:  needs CUDA (no CPU path); prints the card and toolchain.
   2. build:   compiles the CUDA kernels from mpc_verde_tpu_torch/csrc: the
-              kernels library (K2, K3), K1's library at each size of
-              HELD_SIZES and the library of each program phase 23 traces
-              (K2 and K3 on a device model generated from an OCP's
+              kernels library (K2, K3 on the unicycle), K1's library at
+              each size of HELD_SIZES and the library of each program that
+              phase 23 and the rate-form families (phases 10, 15-17, 21)
+              trace (K2 and K3 on a device model generated from an OCP's
               callables, traced on the CPU first), one nvcc process a unit,
               all started together; phase 20, which launches no kernel, runs
-              meanwhile.
+              meanwhile.  The script's wall time is printed against its
+              1300 s limit, and the traced libraries built after this phase
+              (0 when it built every program the phases run).
   3. K1:      Riccati backward kernel vs its PyTorch twin, float32 on the
               card: random problems at every (nx, nu) of HELD_SIZES (the
               seven sizes of the package's models and the JAX kernel's
@@ -60,14 +63,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               circular track's derived AL OCP (npar 12), the RK4 quadrature
               cost at M = 1 and M = 4 under RK4 and under Euler dynamics;
               every variant; each case's times and bounds.  Then the linear
-              rate-form model (K1, K2 and K3, held to the float64 twin): the
-              lane change's v1 shape (nx 4, N 20, move blocking after Ntu 3,
-              npar 4), LTV (N 5, npar 16), the dynamic bicycle (nx 5, N 10,
-              npar 25) and the pendulum (N 50, npar 0 and padded to 1);
-              then the path-frame models, held to the float64 twin as well:
-              the Frenet model ((5, 2), N 20, npar 4: sin, cos, tan and a
-              reciprocal on K3's dual numbers, K1 at (5, 2)) and the
-              curvature cost on the LTV model ((4, 1), N 20, npar 16).
+              rate-form families on the models traced from their callables
+              (K1, K2 and K3, held to the float64 twin; the bounds from the
+              program's instructions): the lane change's v1 shape (nx 4, N
+              20, move blocking after Ntu 3, npar 4), LTV (N 5, npar 16),
+              the dynamic bicycle (nx 5, N 10, npar 25) and the pendulum (N
+              50, npar 0 and padded to 1); then the path-frame families,
+              held to the float64 twin as well: the Frenet OCP ((5, 2), N
+              20, npar 4: sin, cos, tan and a reciprocal on K3's dual
+              numbers, K1 at (5, 2)) and the curvature cost on the LTV model
+              ((4, 1), N 20, npar 16).
  11. ipm:     make_streaming_barrier_solver on phase 5's queue on
               "cuda_fused": cold (mu 1e-2, 1e-4, then the mu = 0 crossover,
               inexact_kappa 10) and hybrid (warmstart="ddp", mu 1e-4); final
@@ -92,7 +97,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               Euler + discrete, RK4 quadrature cost (M=4) with an RK4 plant;
               gates steps_to_target in 1..84 and ss_error < 0.1; then
               compare_diffdrive_methods (Euler against RK4, 90 steps).
- 15. lanechange: the lane-change families at B=1 on "cuda_fused" with the
+ 15. lanechange: the lane-change families at B=1 on "cuda_fused" (like
+              phases 16, 17 and 21, on the models traced from their
+              callables: backend=None must resolve there) with the
               JAX tests' gates: LTI 250 steps, v1 (N=20, Ntu=3) 300 steps,
               LTV and leitura 250 steps; the exact pin of move blocking in
               v1's open-loop plan at B=1 and over 301 problems; 30 steps of
@@ -147,7 +154,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               their first steps held within 1e-6 of the same scripts in
               float64 on the CPU.
  21. host:    the tools and the scale-out layer.  (a) K2 and K3 on the
-              weight term (Q[0, 0] = p[4]: LinearRateDeviceModel's q_param)
+              weight term (Q[0, 0] = p[4]: linear_rate_ocp's q_param)
               at (3, 1), N 20, npar 5, B 1024 against the float64 twin, as
               phase 10 holds the linear cases; then the tuning sweep
               (sweep.py) at the JAX package's defaults: five Q_y at B = 5,
@@ -267,6 +274,8 @@ SOURCES = {
                        "mpc_verde_tpu/ops/pallas/fused.py:135"),
 }
 BENCH_N, WIDTH, QUEUE, CROSS = 40, 1024, 16384, 256
+# the wall-clock limit the script is given on one H100 (1300 s)
+WALL_LIMIT_S = 1300
 # kernel vs twin, float32, relative to max(1, |ref|): the Pallas Riccati
 # kernel's own test tolerances (tests/test_pallas_riccati.py)
 K1_TOL = {"kff": 2e-4, "K": 2e-3, "dV1": 1e-3, "gmax": 1e-4}
@@ -325,28 +334,21 @@ def _queue(M, N, seed=0):
     return x0q, psq, np.zeros((M, N, 2), np.float32)
 
 
-PTXAS_SOURCES = ("riccati_", "rollout.cu",
-                 "rollout_linear.cu", "rollout_frenet.cu", "fused.cu",
-                 "fused_linear.cu", "fused_frenet.cu", "traced_")
+PTXAS_SOURCES = ("riccati_", "rollout.cu", "fused.cu", "traced_")
 
 
 def _kernel_name(mangled):
     """kernel<args> from a kernel template's mangled name: the model (the
-    unicycle, the Frenet model, the linear model or its curvature-cost or
-    weighted variant with its (nx0, nu), or a model traced from an OCP's
-    callables) and the int and bool arguments;
-    the mangled name where it does not parse."""
+    unicycle, or a model traced from an OCP's callables) and the int and
+    bool arguments; the mangled name where it does not parse."""
     t = re.search(r"\d([a-z_]+_kernel)I(.+)", mangled)
     if not t:
         return mangled
     targs = t.group(2).split("Ev")[0]
     args = []
-    model = re.search(r"(UnicycleModel|FrenetRateModel|LinearRateModel|"
-                      r"CurvatureRateModel|WeightedRateModel|TracedModel)"
-                      r"(?:ILi(\d+)ELi(\d+)EE)?", targs)
+    model = re.search(r"UnicycleModel|TracedModel", targs)
     if model:
-        args.append(model.group(1) + (f"<{model.group(2)},{model.group(3)}>"
-                                      if model.group(2) else ""))
+        args.append(model.group(0))
         targs = targs.replace(model.group(0), "")
     args += re.findall(r"L[ib](\d+)E", targs)
     return f"{t.group(1)}<{','.join(args)}>"
@@ -1262,45 +1264,16 @@ def _k2_kernel_rule(data, alphas, ocp):
             float((~valid).any(0).float().mean()))
 
 
-def _linear_flops(nx0, nu):
-    """(K2 step, K3 stage) operations of the linear rate-form model, counted
-    from its formulas: on floats the step 2 nx0 (nx0 + nu), the cost's three
-    quadratic forms 2 (nx0^2 + 2 nu^2) plus the differences, the box and the
-    clip, about 8 nu; on second-order duals over nz = nx0 + 2 nu numbers (d =
-    1 + nz + nz (nz + 1) / 2 a dual), 2 d a multiply-add by a constant and
-    about 3 d a product of two duals, plus the stage QP (K1_STAGE_FLOPS)."""
-    nz = nx0 + 2 * nu
-    d = 1 + nz + nz * (nz + 1) // 2
-    step = 2 * nx0 * (nx0 + nu)
-    cost = 2 * (nx0 * nx0 + 2 * nu * nu) + 2 * (nx0 + 2 * nu)
-    k2 = step + cost + 8 * nu
-    k3 = K1_STAGE_FLOPS + 2 * d * (step // 2 + nx0 * nx0 + 2 * nu * nu) + (
-        3 * d * (nx0 + 2 * nu))
-    return k2, k3
+def _program_flops(ocp):
+    """(K2 step, K3 stage) operations of the model traced from ``ocp``'s
+    callables, counted from its program's instructions (``_traced_flops``):
+    K2 adds the feedback and the clip, K3 K1's stage QP at (nx, nu)."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import traced_device_model
 
-
-def _frenet_flops():
-    """(K2 step, K3 stage) operations of the Frenet rate-form model, counted
-    from its formulas as ``_linear_flops`` counts (a sinf, cosf, tanf or a
-    division 16): on floats a right-hand side is about 60 (its sin, cos and
-    tan, one division, a dozen products and sums), an RK4 step four of them
-    and 45 for the stage sums, the cost about 40 (a tan), the feedback, box
-    and clip about 40; on second-order duals over the five seeds (d = 21 a
-    dual) a right-hand side is about 25 d and the step 4 x 25 d + 36 d, the
-    cost about 50 d, plus the stage QP at (5, 2) (K1_STAGE_FLOPS scaled as
-    ``_k1_on_case`` scales it)."""
-    d = 21
-    k2 = 4 * 60 + 45 + 40 + 40
-    k3 = (4 * 25 + 36 + 50) * d + K1_STAGE_FLOPS * 25 * 7 // 45
-    return k2, k3
-
-
-def _curvature_flops():
-    """(K2 step, K3 stage) operations of the linear model with the curvature
-    cost: ``_linear_flops(3, 1)`` plus its tan (16 on floats, a chain of
-    about 2 d on duals) and the reciprocal of kappa_t (16, a float in both)."""
-    k2, k3 = _linear_flops(3, 1)
-    return k2 + 32, k3 + 2 * 21 + 16
+    program = traced_device_model(ocp).program
+    nx, nu = program.nx, program.nu
+    return (_traced_flops(program, False) + 2 * nu * nx + 3 * nu,
+            _traced_flops(program, True) + _k1_flops(1, 1, nx, nu))
 
 
 # Phase 10's linear cases: (label, builder, its keywords, state scale, rate
@@ -1375,19 +1348,18 @@ def _linear_cases(dev, B):
     return [(c[0], *_linear_case(dev, B, c[0])) for c in LINEAR_CASES]
 
 
-# Phase 10's path-frame cases, the Frenet model ((5, 2), N 20, npar 4) and
+# Phase 10's path-frame cases, the Frenet OCP ((5, 2), N 20, npar 4) and
 # the curvature cost on the LTV model ((4, 1), N 20, move blocking after Ntu
 # 3, npar 16): (label, builder, its keywords, scales of (y, phi, v or r)
-# about the stage's reference, rate scale, FLOP counter).  |y - y_t| <= 0.4
+# about the stage's reference, rate scale).  |y - y_t| <= 0.4
 # and the courses' kappa <= 1 keep |(y - y_t) kappa| below 0.5 at the start,
-# away from the Frenet model's pole at 1; the curvature case's steering
+# away from the Frenet OCP's pole at 1; the curvature case's steering
 # (u_prev up to 0.65, three free rates of 0.1) stays below 1.2 rad, away
 # from the poles of its tan.
 PATH_CASES = [
-    ("frenet", "build_frenet", dict(n_steps=500), (0.4, 0.3, 0.5), 0.15,
-     _frenet_flops),
+    ("frenet", "build_frenet", dict(n_steps=500), (0.4, 0.3, 0.5), 0.15),
     ("curvature", "build_curvature_ltv", dict(n_steps=500), (0.4, 0.3, 0.5),
-     0.1, _curvature_flops),
+     0.1),
 ]
 
 
@@ -1400,7 +1372,7 @@ def _path_case(dev, B, label, seed=33):
     from mpc_verde_tpu_torch import scenarios
     from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_forward_torch
 
-    _, builder, kw, scales, u_scale, _ = next(
+    _, builder, kw, scales, u_scale = next(
         c for c in PATH_CASES if c[0] == label)
     build = lambda dtype: getattr(scenarios, builder)(
         device=dev, dtype=dtype,
@@ -1416,7 +1388,8 @@ def _path_case(dev, B, label, seed=33):
     z0[:, 1] = ps[:, 0, 1] + rng.uniform(-scales[1], scales[1], B)
     z0[:, 2] = (ps[:, 0, 3] if nu == 2 else 0.0) + rng.uniform(
         -scales[2], scales[2], B)
-    u_max = np.minimum(np.asarray(ocp.device_model.u_ub, float), 0.5)
+    spec = built["spec"]
+    u_max = np.minimum([spec["delta_max"], spec.get("a_max", 0.0)][:nu], 0.5)
     z0[:, 3:] = rng.uniform(-1.3 * u_max, 1.3 * u_max, (B, nu))
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
     z = dict(dtype=torch.float32, device=dev)
@@ -1452,28 +1425,47 @@ def _k2_candidates(data, alphas, ocp):
     return tuple(torch.stack([o[i] for o in outs]).double() for i in range(3))
 
 
-def _hold_k2_f64(label, out, cand32, cand64, model):
+def _rate_boxes(ocp, zs):
+    """The rate-form OCP's stage boxes at the states zs (B, N(+1), nx), as
+    its callables give them: (lo, hi), each (B, N, nu)."""
+    from torch.func import vmap
+
+    B, N = zs.shape[0], ocp.N
+    p = torch.zeros((B, ocp.npar), dtype=zs.dtype, device=zs.device)
+    box = vmap(ocp.control_bounds, in_dims=(0, 0, None))
+    lo, hi = zip(*(box(zs[:, k], p, k) for k in range(N)))
+    return torch.stack(lo, 1), torch.stack(hi, 1)
+
+
+def _pinned(ocp):
+    """The move-blocked stages of a rate-form OCP (N,): where its box at
+    u_prev = 0 is the point 0, for the first control."""
+    z0 = torch.zeros((1, ocp.N, ocp.nx), dtype=ocp.dtype, device=ocp.device)
+    lo, hi = _rate_boxes(ocp, z0)
+    return ((lo[0, :, 0] == 0) & (hi[0, :, 0] == 0)).cpu().numpy()
+
+
+def _hold_k2_f64(label, out, cand32, cand64, ocp):
     """K2's outputs against the float64 twin's candidates: the picked
     alpha's cost and trajectory within the bounds above, the pick a first
     minimum within the cost bound, and on the move-blocked stages of
-    ``model`` (a rate-form device model) the rates exactly 0 wherever the
-    rolled u_prev lies inside the control box.  (Where a free stage's rate
+    ``ocp`` (a rate-form OCP, or None for no move blocking) the rates
+    exactly 0 wherever the rolled u_prev lies inside the control box: there
+    the blocked stage's box is the point 0.  (Where a free stage's rate
     clipped to the box's edge, u_prev + w may round past it in float32; the
     blocked stage's box [0, u_ub - u_prev] then pulls it back by that
     rounding, in the kernel as in the twin.)  Returns the max abs error
     against float64."""
     xs_k, us_k, c_k, b_k = out
-    blocked = (np.zeros(us_k.shape[1], bool) if model is None
-               else model.du_ub[:, 0] == 0.0)   # None: no move blocking
+    blocked = (np.zeros(us_k.shape[1], bool) if ocp is None
+               else _pinned(ocp))
     pinned = torch.as_tensor(blocked, device=us_k.device)
-    if model is None:
+    if ocp is None:
         inside = torch.zeros((us_k.shape[0], 0, us_k.shape[2]), dtype=torch.bool,
                              device=us_k.device)
     else:
-        up = xs_k[:, :-1][:, pinned][..., model.nx0:]
-        t = lambda a: torch.as_tensor(np.asarray(a), dtype=up.dtype,
-                                      device=up.device)
-        inside = (up >= t(model.u_lb)) & (up <= t(model.u_ub))
+        lo, hi = _rate_boxes(ocp, xs_k)
+        inside = (lo[:, pinned] == 0) & (hi[:, pinned] == 0)
     b = b_k.long()
     rows = torch.arange(b.shape[0], device=b.device)
     c64 = cand64[2]
@@ -1704,10 +1696,11 @@ def _time_case(label, ocp, data, alphas, flops, twin=None):
     return row2, row3
 
 
-def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err, flops):
-    """K2 (every variant) and K3 (DDP on and off, both variants) on a linear
-    case against the float64 twin (``_hold_k2_f64``, ``_hold_f64``); then
-    the case's times."""
+def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err):
+    """K2 (every variant) and K3 (DDP on and off, both variants) on a
+    rate-form case (its model traced from its callables) against the
+    float64 twin (``_hold_k2_f64``, ``_hold_f64``); then the case's times
+    and bounds (``_program_flops``)."""
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
@@ -1715,6 +1708,7 @@ def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err, flops):
 
     x0, xs, us, kff, K = data
     B, N, nu = us.shape
+    _resolves_fused(label, ocp)
     full = (x0, xs, us, ps, kff, K)
     full64 = _to64(*full)
     cand32 = _k2_candidates(full, alphas, ocp)
@@ -1728,8 +1722,7 @@ def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err, flops):
         if used != {variant or planned}:
             raise AssertionError(f"K2 {label} ran variants {used}")
         err["linesearch_forward"] = max(err["linesearch_forward"], _hold_k2_f64(
-            f"{label} variant {sorted(used)}", out, cand32, cand64,
-            ocp.device_model))
+            f"{label} variant {sorted(used)}", out, cand32, cand64, ocp))
     f = dict(dtype=torch.float32, device=xs.device)
     args = (xs, us, ps, torch.full((B,), 1e-6, **f), torch.ones((B,), **f))
     for use_ddp in (True, False):
@@ -1745,12 +1738,13 @@ def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err, flops):
             err["fused_backward"] = max(err["fused_backward"], _hold_f64(
                 out, ref, ref64, "terms", f"K3 {label} DDP={use_ddp} "
                 f"variant {sorted(used)}"))
-    return _time_case(label, ocp, full, alphas, flops)
+    return _time_case(label, ocp, full, alphas, _program_flops(ocp))
 
 
 def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
     """K2 and K3 against their twins on the barrier and AL terms and the
-    scenario terms of the unicycle, then on the linear rate-form model."""
+    scenario terms of the unicycle, then on the rate-form families' traced
+    models."""
     inputs = _term_inputs(dev, B, N)
     x0, xs, us, _, kff, K = inputs[:6]
     alphas = tuple(0.4 ** i for i in range(A))
@@ -1771,12 +1765,11 @@ def phase_terms(dev, B=WIDTH, N=BENCH_N, A=8):
         by_case["linesearch_forward"][label] = row2
         by_case["fused_backward"][label] = row3
     k1_rows = {}
-    cases = [(*c, _linear_flops(c[1].device_model.nx0, c[1].device_model.nu))
-             for c in _linear_cases(dev, B)]
-    cases += [(c[0], *_path_case(dev, B, c[0]), c[5]()) for c in PATH_CASES]
-    for label, ocp, ocp64, data, ps, flops in cases:
+    cases = _linear_cases(dev, B)
+    cases += [(c[0], *_path_case(dev, B, c[0])) for c in PATH_CASES]
+    for label, ocp, ocp64, data, ps in cases:
         row2, row3 = _hold_linear_case(label, ocp, ocp64, data, ps, alphas,
-                                       err, flops)
+                                       err)
         by_case["linesearch_forward"][label] = row2
         by_case["fused_backward"][label] = row3
         k1_rows[label] = _k1_on_case(label, ocp, ocp64, data, ps)
@@ -2207,6 +2200,7 @@ def phase_lanechange(dev, gpu, n_lti=250, n_v1=300, n_ltv=250):
     built_v1 = None
     for name, (build, run, n, gates, jax_ref) in runs.items():
         built = build()
+        _resolves_fused(name, built["ocp"])
         if name == "lti_v1":
             built_v1 = built
         m, wall, by_path[name] = _closed_loop(
@@ -2270,6 +2264,7 @@ def phase_pendulum_dynamic(dev, gpu, n_dyn=200, n_dyn_c=300):
     run_pendulum(build_pendulum(n_steps=3, device=dev))   # warm-up
     by_path, ms = {}, {}
     built = build_pendulum(device=dev)
+    _resolves_fused("pendulum", built["ocp"])
     n = built["spec"]["n_steps"]
     m, wall, by_path["pendulum"] = _closed_loop(
         "pendulum", gpu, lambda: run_pendulum(built), n, FUSED_PATH, nx=5)
@@ -2294,6 +2289,7 @@ def phase_pendulum_dynamic(dev, gpu, n_dyn=200, n_dyn_c=300):
     for name, kw, n_d in (("dynamic", {}, n_dyn),
                           ("dynamic_corrected", dict(corrected=True), n_dyn_c)):
         built = build_dynamic_bicycle(n_steps=n_d, device=dev, **kw)
+        _resolves_fused(name, built["ocp"])
         m, wall, by_path[name] = _closed_loop(
             name, gpu, lambda: run_dynamic_bicycle(built), n_d, FUSED_PATH,
             nx=5)
@@ -2373,6 +2369,7 @@ def phase_frenet_curvature(dev, gpu, refs, n_frenet=120, n_dlc=60,
     }
     for name, (build, run, n, gate, jax_ref) in runs.items():
         built = build()
+        _resolves_fused(name, built["ocp"])
         m, wall, by_path[name] = _closed_loop(
             name, gpu, lambda: run(built), n, FUSED_PATH, nx=built["ocp"].nx)
         ms[name] = 1e3 * wall / n
@@ -3065,9 +3062,6 @@ SWEEP_REL_TOL = 0.02
 # The card's least was 0.8967 (N = 8 and 10, q_y = 100), JAX's float32 sweep
 # on the CPU 0.89 (N = 5 and 10, q_y = 100); float64 converges every step
 SWEEP_CONV_GATE = 0.85
-# the weight term alone: K2 and K3 at (3, 1), N 20, npar 5, B 1024 against
-# the float64 twin; it adds a compare and a select of the weight per stage
-TERM_FLOPS["q_param"] = (2, 2)
 # (b) traces one horizon at fewer steps: torch.profiler records every
 # host-side op, and the whole 300 steps would make a trace of hundreds of MiB
 SWEEP_TRACE_HORIZON, SWEEP_TRACE_STEPS = 5, 40
@@ -3178,10 +3172,9 @@ def phase_host(dev, gpu, refs, meas):
     # (a) the weight term alone, then the sweep
     err = {"linesearch_forward": 0.0, "fused_backward": 0.0}
     ocp, ocp64, data, ps = _sweep_case(dev, WIDTH, 20)
-    k2f, k3f = _linear_flops(3, 1)
     row2, row3 = _hold_linear_case(
         "sweep q_param", ocp, ocp64, data, ps, tuple(0.4 ** i for i in range(8)),
-        err, (k2f + TERM_FLOPS["q_param"][0], k3f + TERM_FLOPS["q_param"][1]))
+        err)
     for name, row in (("linesearch_forward", row2), ("fused_backward", row3)):
         t = meas[name]["terms"]
         t["by_case"]["sweep q_param"] = row
@@ -3963,11 +3956,37 @@ def traced_ocps(device, N=BENCH_N):
             "obstacle": obstacle_ocp(device, N=N), "ops": ops_ocp(device, N=N)}
 
 
+def rate_form_ocps(device):
+    """The float32 OCPs of the rate-form families as phases 10, 15-17 and
+    21 build them, each run on the model traced from its callables: the
+    lane change (LTI at N 5 and the v1 shape, LTV), the dynamic bicycle,
+    the pendulum, Frenet, curvature and the sweep at each of its
+    horizons."""
+    from mpc_verde_tpu_torch import scenarios as sc
+    from mpc_verde_tpu_torch.sweep import sweep_ocp
+
+    kw = dict(n_steps=2, device=device)
+    built = {"lti": sc.build_lane_change_lti(**kw),
+             "lti_v1": sc.build_lane_change_lti(N=20, Ntu=3, **kw),
+             "ltv": sc.build_lane_change_ltv(**kw),
+             "dynamic": sc.build_dynamic_bicycle(**kw),
+             "pendulum": sc.build_pendulum(**kw),
+             "frenet": sc.build_frenet(**kw),
+             "curvature": sc.build_curvature_ltv(**kw)}
+    ocps = {name: b["ocp"] for name, b in built.items()}
+    Ad, Bd, _ = _sweep_model(device)
+    ocps.update({f"sweep_N{N}": sweep_ocp(N, Ad, Bd, device, torch.float32)
+                 for N in SWEEP_HORIZONS})
+    return ocps
+
+
 def traced_programs():
-    """Phase 23's programs, traced on the CPU, for phase 2's build."""
+    """Phase 23's programs and the rate-form families', traced on the CPU,
+    for phase 2's build."""
     from mpc_verde_tpu_torch.ops.cuda.trace import trace_ocp
 
-    return [trace_ocp(o) for o in traced_ocps("cpu").values()]
+    return [trace_ocp(o) for o in (*traced_ocps("cpu").values(),
+                                   *rate_form_ocps("cpu").values())]
 
 
 def _traced_flops(program, use_duals):
@@ -4104,8 +4123,7 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err,
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch, fused_launch_plan)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan,
-        traced_device_model)
+        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan)
 
     xs, us = res.xs.contiguous(), res.us.contiguous()
     B, N, nu = us.shape
@@ -4144,11 +4162,8 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err,
             err["fused_backward"] = max(err["fused_backward"], _hold_f64(
                 out, ref, ref64, "traced", f"K3 {label} DDP={use_ddp} "
                 f"variant {sorted(used)}"))
-    program = traced_device_model(ocp).program
-    k1 = _k1_flops(1, 1, nx, nu)
-    row2, row3 = _time_case(label, ocp, full, alphas, twin=twin, flops=(
-        _traced_flops(program, False) + 2 * nu * nx + 3 * nu,
-        _traced_flops(program, True) + k1))
+    row2, row3 = _time_case(label, ocp, full, alphas, twin=twin,
+                            flops=_program_flops(ocp))
     return {"nx": nx, "nu": nu, **row2}, {"nx": nx, "nu": nu, **row3}
 
 
@@ -4500,13 +4515,19 @@ def main() -> int:
         for line in _ptxas_summary(built.log):
             print(f"[build] ptxas {line}", flush=True)
 
+    from mpc_verde_tpu_torch.utils.profiling import counters
+
+    built_before = counters()["traced_builds"]
     refs = CpuReferences(CIRC_HOLD_STEPS, LC_HOLD, LC_START)
     try:
         kernels = _phases(dev, gpu, refs, compat)
     finally:
         refs.stop()
-    print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s",
-          flush=True)
+    print(f"[build] traced libraries built after phase 2: "
+          f"{counters()['traced_builds'] - built_before} (each a program "
+          "phase 2 did not build)", flush=True)
+    print(f"[total] chip_smoke wall {time.perf_counter() - t_start:.1f} s "
+          f"of its {WALL_LIMIT_S} s limit", flush=True)
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

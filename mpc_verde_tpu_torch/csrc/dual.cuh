@@ -7,8 +7,8 @@
 // model on variables seeded by Dual::var gives every first and second
 // derivative in one pass: forward over forward, the order of the JAX fused
 // kernel's nested jacfwd (mpc_verde_tpu/ops/pallas/fused.py, dfun).  Only
-// what the device models (unicycle.cuh, linear_rate.cuh, frenet_rate.cuh and
-// the models generated from a trace, ops/cuda/codegen.py) need is defined:
+// what the device models (unicycle.cuh and the models generated from a
+// trace, ops/cuda/codegen.py) need is defined:
 // + - * between duals and with float constants, negation, / by a float
 // constant, the reciprocal and with it / of a float or a dual by a dual, sin,
 // cos, tan, log, exp, sqrt and abs, max with a constant that follows the

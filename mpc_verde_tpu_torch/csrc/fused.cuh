@@ -6,16 +6,13 @@
 // What it computes: from the trajectory alone (x_k, u_k, p_k) every stage's
 // derivatives, the terminal value and the step bounds, then K1's recursion.
 // The kernels are templates on the device model: the unicycle of
-// unicycle.cuh (instantiated in fused.cu), the linear rate-form model of
-// linear_rate.cuh with its curvature-cost variant (fused_linear.cu), the
-// Frenet rate-form model of frenet_rate.cuh (fused_frenet.cu, whose stage
-// type, StageOf, takes the derivatives over five seeds) and a model
-// generated from the trace of an OCP's own callables (ops/cuda/codegen.py,
-// one unit per traced program, its terminal value from duals over x_N).  The derivatives come from the model
-// evaluated once on the dual numbers of dual.cuh over z = [x; u]: the
-// dynamics on second-order duals with DDP and first-order ones without, the
-// cost always on second-order ones, as the JAX kernel's nested-jacfwd pyramid
-// does (fused.py:156-185).  The stage cost carries the model's optional
+// unicycle.cuh (instantiated in fused.cu) and a model generated from the
+// trace of an OCP's own callables (ops/cuda/codegen.py, one unit per traced
+// program, its terminal value from duals over x_N).  The derivatives come
+// from the model evaluated once on the dual numbers of dual.cuh over z =
+// [x; u]: the dynamics on second-order duals with DDP and first-order ones
+// without, the cost always on second-order ones, as the JAX kernel's
+// nested-jacfwd pyramid does (fused.py:156-185).  The stage cost carries the model's optional
 // barrier and AL terms (unicycle.cuh), so the derivative records hold
 // theirs; the barrier at mu = 0 adds exact zeros.  The terminal value is the
 // model's (model_terminal_value; for the unicycle, in fused.cu, gN = (Qf +
@@ -123,14 +120,6 @@ struct DualStage {
   __device__ __forceinline__ float hi(int a) const { return hi_[a]; }
 };
 
-// The stage type the kernels fill for Model: DualStage, unless the model's
-// unit specializes it (fused_frenet.cu: derivatives over fewer seeds, read
-// through the same accessors).
-template <class Model, bool DDP>
-struct StageOf {
-  using type = DualStage<Model, DDP>;
-};
-
 // Stage k's derivatives at (x, u, p): F(z) and l(z) on duals seeded at
 // z = [x; u], and the step bounds: the stage box at x less u.
 template <class Model, bool DDP>
@@ -164,7 +153,7 @@ __device__ __forceinline__ void linearize_stage(const Model& m, const float (&x)
 // Stage (b, k)'s derivatives from the trajectory in device memory.
 template <class Model, bool DDP>
 __device__ __forceinline__ void linearize_at(const FusedArgs& g, const Model& m, int b, int k,
-                                             typename StageOf<Model, DDP>::type& d) {
+                                             DualStage<Model, DDP>& d) {
   constexpr int kNX = Model::kNX, kNU = Model::kNU;
   const size_t s = (size_t)b * g.N + k;
   const size_t sx = (size_t)b * (g.N + 1) + k;
@@ -205,7 +194,7 @@ __global__ void fused_thread_kernel(FusedArgs g, Model m) {
 #pragma unroll 1
   for (int k = g.N - 1; k >= 0; --k) {
     const size_t s = (size_t)b * g.N + k;
-    typename StageOf<Model, DDP>::type d;
+    DualStage<Model, DDP> d;
     linearize_at<Model, DDP>(g, m, b, k, d);
     float kff[kNU], Kg[kNU][kNX];
     backward_stage<kNX, kNU, DDP>(d, rg, ds, g.tol, Vx, Vxx, dV1, dV2, gmax, kff, Kg);
@@ -265,7 +254,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   // phase 1: one (problem, stage) per thread and turn
   for (int s = threadIdx.x; s < nb * N; s += blockDim.x) {
     const int p = s / N, k = s - p * N;
-    typename StageOf<Model, DDP>::type d;
+    DualStage<Model, DDP> d;
     linearize_at<Model, DDP>(g, m, b0 + p, k, d);
     store_record(d, rec + p * L.rec + k * S::kStride);
   }

@@ -48,11 +48,9 @@
 // The kernels are templates on the device model: the unicycle of
 // unicycle.cuh (instantiated in rollout.cu, with its optional barrier and AL
 // terms, which read more columns of ps: at N = 40 and npar = 11 a "lanes"
-// block of 8 problems takes 84 KB of shared memory), the linear rate-form
-// model of linear_rate.cuh with its curvature-cost variant
-// (rollout_linear.cu) and the Frenet rate-form model of frenet_rate.cuh
-// (rollout_frenet.cu), and a model generated from the trace of an OCP's own
-// callables (ops/cuda/codegen.py, one unit per traced program).  A model
+// block of 8 problems takes 84 KB of shared memory) and a model generated
+// from the trace of an OCP's own callables (ops/cuda/codegen.py, one unit
+// per traced program).  A model
 // gives kNX / kNU, the stage's box (model_box of box.cuh, evaluated on the
 // state being rolled, so a state-dependent box follows the candidate), the
 // clip, and the templates step / stage_cost / has_terminal_cost /

@@ -35,8 +35,8 @@
 // The kernels (rollout.cuh, fused.cuh) are templates on the model and read
 // every model through the same members: kNX, kNU, bounds (the stage's
 // control box; here the constant one), clip, and the free functions step /
-// stage_cost / has_terminal_cost / terminal_cost (linear_rate.cuh gives the
-// linear rate-form model the same surface).
+// stage_cost / has_terminal_cost / terminal_cost (ops/cuda/codegen.py
+// gives a model generated from a trace the same surface).
 // T needs +, -, * with T and float, / by a float, construction from a
 // float, and mv_sin / mv_cos / mv_log / mv_max / mv_value overloads (scalar.cuh
 // for float, dual.cuh for the dual numbers).

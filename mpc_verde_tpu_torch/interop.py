@@ -4,9 +4,9 @@ The JAX package (``mpc_verde_tpu``) is the reference; the port never imports
 it.  Data crosses as numpy arrays: ``from_numpy`` turns what the JAX side
 feeds or returns into tensors, ``result_to_numpy`` turns a port result back.
 ``unicycle_ocp`` builds a unicycle OCP with its matching device model,
-``linear_rate_ocp`` the rate form of a linear plant with its own,
-``frenet_rate_ocp`` and ``curvature_rate_ocp`` those of the Frenet and
-curvature families,
+``linear_rate_ocp`` the rate form of a linear plant, ``frenet_rate_ocp``
+and ``curvature_rate_ocp`` those of the Frenet and curvature families (their
+callables only: the kernels run them on the model traced from those),
 ``bench_ocp`` the diff-drive point-stabilization OCP that the JAX package's
 ``bench.py`` headlines (``build_ocp``), constants included, optionally with a
 state box, and ``derived_ocps`` the OCPs that the interior-point and
@@ -23,8 +23,7 @@ import torch
 from .models import frenet_path_frame, unicycle
 from .ocp import OCP, box_bounds, to_rate_form
 from .ops import discretize, rk4_step, rk4_step_with_quadrature
-from .ops.cuda.rollout import (FrenetRateDeviceModel, LinearRateDeviceModel,
-                               UnicycleDeviceModel)
+from .ops.cuda.rollout import UnicycleDeviceModel
 from .runtime import ClosedLoopResult
 from .solver.ilqr import ILQRResult
 
@@ -146,8 +145,7 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
                     u_ref=None, curvature=None, q_param=None) -> OCP:
     """The rate form (``to_rate_form``) of the linear plant ``x' = Ad x +
     Bd u`` with the cost ``(x - r)' Q (x - r) + (u - u_r)' R (u - u_r) + du'
-    R_du du``, and its matching ``LinearRateDeviceModel``, from one set of
-    numbers.
+    R_du du``.
 
     ``Ad`` (nx0, nx0) and ``Bd`` (nx0, nu) are constants, or with
     ``ab_col`` each stage's params hold them (``Ad`` row-major from column
@@ -159,30 +157,25 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
     ``du_lb`` / ``du_ub`` ((nu,) or (N, nu)) are the magnitude and rate
     boxes (+-inf where None).  ``curvature = (L, lambda1, lambda2,
     lambda3)`` replaces the quadratic cost with the curvature family's
-    (``LinearRateDeviceModel``; nx0 3, nu 1, params from column 0 on).  The
-    OCP's npar is the columns the model reads.  The numbers keep the
-    caller's values; the kernels take them rounded to float32.
+    (``scenarios/curvature.py``: nx0 3, nu 1, ``p[:4] = (y_t, phi_t,
+    kappa_t, v_des)``).  The OCP's npar is the columns the callables read.
+    The numbers keep the caller's values; the kernels take them rounded to
+    float32.
     """
     device = torch.device(device)
     num = lambda a: np.asarray(a, dtype=np.float64)
     Qn, Rn = num(Q), num(R)
     nx0, nu = Qn.shape[0], Rn.shape[0]
     R_dun = np.zeros((nu, nu)) if R_du is None else num(R_du)
-
-    def table(b, fill):
-        return np.broadcast_to(np.full(nu, fill) if b is None else num(b),
-                               (N, nu)).copy()
-
-    bounds = dict(u_lb=np.full(nu, -np.inf) if u_lb is None else num(u_lb),
-                  u_ub=np.full(nu, np.inf) if u_ub is None else num(u_ub),
-                  du_lb=table(du_lb, -np.inf), du_ub=table(du_ub, np.inf))
-    model = LinearRateDeviceModel(
-        N=N, Q=Qn, R=Rn, R_du=R_dun, **bounds,
-        Ad=None if Ad is None else num(Ad), Bd=None if Bd is None else num(Bd),
-        ab_col=ab_col, x_ref=x_ref,
-        target=None if target is None else num(target), u_ref=u_ref,
-        curvature=None if curvature is None else tuple(map(float, curvature)),
-        q_param=None if q_param is None else tuple(map(int, q_param)))
+    cols = [0 if curvature is None else 4]
+    if ab_col is not None:
+        cols.append(ab_col + nx0 * (nx0 + nu))
+    if x_ref is not None:
+        cols.append(x_ref + nx0)
+    if u_ref is not None:
+        cols.append(u_ref + nu)
+    if q_param is not None:
+        cols.append(q_param[1] + 1)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     Qt, Rt, Rdt = t(Qn), t(Rn), t(R_dun)
     rt = t(np.zeros(nx0) if target is None else num(target))
@@ -211,7 +204,7 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
         return e @ Q_of(p) @ e + eu @ Rt @ eu + du @ Rdt @ du
 
     if curvature is not None:
-        L, lam1, lam2, lam3 = model.curvature
+        L, lam1, lam2, lam3 = map(float, curvature)
 
         def l(x, u, p, du):
             # scenarios/curvature.py's cost: R_t = 1 / kappa_t is the turn
@@ -223,9 +216,9 @@ def linear_rate_ocp(N: int, device, dtype=torch.float32, *, Q, R, R_du=None,
             return (lam2 * (y - yt) ** 2 + lam3 * (phi - phit) ** 2
                     + lam1 * (r * Rt - vdes) ** 2 + Rt * z * z)
 
-    return to_rate_form(F, l, N=N, nx=nx0, nu=nu, npar=model.min_npar,
-                        **bounds, device=device, dtype=dtype,
-                        device_model=model)
+    return to_rate_form(F, l, N=N, nx=nx0, nu=nu, npar=max(cols), u_lb=u_lb,
+                        u_ub=u_ub, du_lb=du_lb, du_ub=du_ub, device=device,
+                        dtype=dtype)
 
 
 def frenet_rate_ocp(N: int, device, dtype=torch.float32, *, T: float,
@@ -238,17 +231,11 @@ def frenet_rate_ocp(N: int, device, dtype=torch.float32, *, T: float,
     (phi - phi_t)^2 + l4 a^2 + l5 (tan(delta) - L kappa_t)^2) / (N + 1)``
     over ``p = (y_t, phi_t, kappa_t, v_des)``, the box ``|delta| <=
     delta_max``, ``|a| <= a_max``, ``|du_delta| <= delta_dot_max`` (``du_a``
-    free), and its matching ``FrenetRateDeviceModel``, from one set of
-    numbers (the JAX package's ``SPEC``)."""
+    free), from one set of numbers (the JAX package's ``SPEC``)."""
     device = torch.device(device)
-    lam = (lambda1, lambda2, lambda3, lambda4, lambda5)
     u_lb, u_ub = np.array([-delta_max, -a_max]), np.array([delta_max, a_max])
     du_lb = np.array([-delta_dot_max, -np.inf])
     du_ub = np.array([delta_dot_max, np.inf])
-    model = FrenetRateDeviceModel(
-        N=N, T=float(T), L=float(L), weights=tuple(map(float, lam)),
-        u_lb=u_lb, u_ub=u_ub, du_lb=np.broadcast_to(du_lb, (N, 2)).copy(),
-        du_ub=np.broadcast_to(du_ub, (N, 2)).copy())
     F = rk4_step(frenet_path_frame(L).f, T, M=1)
 
     def l(x, u, p, du):
@@ -260,9 +247,8 @@ def frenet_rate_ocp(N: int, device, dtype=torch.float32, *, T: float,
                 + lambda3 * (phi - phit) ** 2 + lambda4 * a ** 2
                 + lambda5 * z ** 2) / (N + 1)
 
-    return to_rate_form(F, l, N=N, nx=3, nu=2, npar=model.min_npar,
-                        u_lb=u_lb, u_ub=u_ub, du_lb=du_lb, du_ub=du_ub,
-                        device=device, dtype=dtype, device_model=model)
+    return to_rate_form(F, l, N=N, nx=3, nu=2, npar=4, u_lb=u_lb, u_ub=u_ub,
+                        du_lb=du_lb, du_ub=du_ub, device=device, dtype=dtype)
 
 
 def curvature_rate_ocp(N: int, device, dtype=torch.float32, *, Ntu: int,

@@ -44,7 +44,6 @@ def to_rate_form(
     *,
     device,
     dtype=torch.float32,
-    device_model=None,
 ) -> OCP:
     """Build the augmented-state OCP.
 
@@ -56,10 +55,8 @@ def to_rate_form(
       du_lb, du_ub: (nu,) or (N, nu) rate bounds (move blocking via 0/0 rows).
       x_lb, x_ub: optional original-state box.
       device, dtype: where the bound tables live, and their type (the
-        port's additions, as on ``OCP``).
-      device_model: the kernels' description of the same problem
-        (``ops.cuda.rollout.LinearRateDeviceModel``, which
-        ``interop.linear_rate_ocp`` builds from the same numbers), or None.
+        port's additions, as on ``OCP``).  The OCP carries no device model:
+        the kernels run the model traced from its callables.
 
     Returns an ``OCP`` over z = [x; u_prev] with control w = Du.  Solve it
     with initial state ``z0 = concat([x0, uprev])``.  Missing bounds are
@@ -124,5 +121,4 @@ def to_rate_form(
         x_ub=zx_ub,
         device=torch.device(device),
         dtype=dtype,
-        device_model=device_model,
     )

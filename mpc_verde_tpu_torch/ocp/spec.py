@@ -67,8 +67,8 @@ class OCP:
         augmented Lagrangian (``options.al_iters`` rounds).
       device, dtype: where the callables' constants live.
       device_model: hand-written kernel-side description of the same
-        problem (``ops.cuda.rollout.UnicycleDeviceModel`` and its kin) or
-        ``None`` (the kernels then trace the callables).
+        problem (``ops.cuda.rollout.UnicycleDeviceModel``, the unicycle's)
+        or ``None`` (the kernels then trace the callables).
     """
 
     dynamics: Callable

@@ -66,11 +66,11 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # library's, and K1's, whose library of size (nx, nu) names it
 # mv_riccati_backward_<nx>x<nu>.
 _SIGNATURES = {
-    "mv_linesearch_forward": [_I, _I, _I, _I] + [_P] * 6 + [_FP, _IP, _P, _FP, _I]
+    "mv_linesearch_forward": [_I, _I, _I] + [_P] * 6 + [_FP, _IP, _P, _FP, _I]
                              + [_P] * 4 + [_I, _I, _IP] + [_P],
-    "mv_fused_backward": [_I, _I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP, _P]
+    "mv_fused_backward": [_I, _I, _I, _I, _F] + [_P] * 5 + [_FP, _IP, _P]
                          + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
-    "mv_trajectory_cost": [_I, _I, _I, _I] + [_P] * 5 + [_FP, _IP, _P]
+    "mv_trajectory_cost": [_I, _I, _I] + [_P] * 5 + [_FP, _IP, _P]
                           + [_P, _P],
 }
 _RICCATI_SIGNATURE = ([_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_I, _I, _IP, _P]

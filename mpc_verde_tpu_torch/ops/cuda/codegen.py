@@ -4,7 +4,7 @@
 ``TracedModel``, that meets the concept ``csrc/rollout.cuh`` states, so that
 the hand-written kernels K2 (``rollout.cuh``) and K3 (``fused.cuh``, with
 K1's ``backward_stage``) are instantiated on it as on the hand-written
-models:
+unicycle model:
 
 * ``kNX`` / ``kNU``, ``clip`` (``torch.clamp``'s rule), and the stage box
   ``model_box(m, x, p, k, lo, hi)`` on floats, reading p and the stage index;
@@ -239,10 +239,10 @@ _K2_ENTRY = """
 #include "rollout.cuh"
 
 // K2 on the generated model: the arguments of mv_linesearch_forward
-// (rollout.cu), of which `kind`, `model` and `model_ints` are unused and
-// `tables` is the hoisted table (TracedModel::kTable floats, device memory).
+// (rollout.cu), of which `model` and `model_ints` are unused and `tables` is
+// the hoisted table (TracedModel::kTable floats, device memory).
 extern "C" int mv_linesearch_forward_{h}(
-    int kind, int B, int N, int npar, const float* x0, const float* xs, const float* us,
+    int B, int N, int npar, const float* x0, const float* xs, const float* us,
     const float* ps, const float* kff, const float* K, const float* model,
     const int* model_ints, const float* tables, const float* alphas, int n_alphas,
     float* xs_out, float* us_out, float* cost_out, int* best_out, int variant, int problems,
@@ -261,7 +261,7 @@ extern "C" int mv_linesearch_forward_{h}(
 // The rounds' cost re-base on the generated model: the arguments of
 // mv_trajectory_cost (rollout.cu), `tables` as above.
 extern "C" int mv_trajectory_cost_{h}(
-    int kind, int B, int N, int npar, const float* xs, const float* us, const float* ps,
+    int B, int N, int npar, const float* xs, const float* us, const float* ps,
     const bool* mask, const float* cost_in, const float* model, const int* model_ints,
     const float* tables, float* cost_out, void* stream) {{
   if (tables == nullptr || npar < TracedModel::kMinNpar) return cudaErrorInvalidValue;
@@ -275,10 +275,10 @@ _K3_ENTRY = """
 #include "fused.cuh"
 
 // K3 on the generated model: the arguments of mv_fused_backward (fused.cu),
-// of which `kind`, `model` and `model_ints` are unused and `tables` is the
-// hoisted table; no timing instantiation (`clocks` must be null).
+// of which `model` and `model_ints` are unused and `tables` is the hoisted
+// table; no timing instantiation (`clocks` must be null).
 extern "C" int mv_fused_backward_{h}(
-    int kind, int use_ddp, int B, int N, int npar, float tol, const float* xs, const float* us,
+    int use_ddp, int B, int N, int npar, float tol, const float* xs, const float* us,
     const float* ps, const float* reg, const float* ddp, const float* model,
     const int* model_ints, const float* tables, float* kff, float* K, float* dV1, float* dV2,
     float* gmax, int variant, int problems, int threads, const int* strides, void* clocks,

@@ -10,18 +10,14 @@ memory.
 Its kernel is ``csrc/fused.cu``, two phases in one launch.  In phase 1 a
 block's threads take its problems' stages one (problem, stage) at a time:
 each evaluates the OCP's device model (``UnicycleDeviceModel``,
-``csrc/unicycle.cuh``, ``LinearRateDeviceModel``, ``csrc/linear_rate.cuh``,
-``FrenetRateDeviceModel``, ``csrc/frenet_rate.cuh``, or for an OCP without
-one the ``TracedDeviceModel`` generated from its callables, ``codegen.py``:
-the models K2 evaluates; the kernels, templates on the model, are in
-``csrc/fused.cuh``)
-on second-order forward-mode dual numbers (``csrc/dual.cuh``) over z = [x;
-u] and stores the stage's derivatives as one record in shared memory.  The
-Frenet model's duals run over its five numbers (x, u_prev + w) and its
-derivatives are scattered to (z, w) exactly (``csrc/fused_frenet.cu``).  In phase 2 one thread per problem walks the
-stages N-1..0 with K1's stage recursion (``backward_stage`` in
-``csrc/riccati.cuh``) on those records, and the gains leave through a
-shared-memory staging area as coalesced slabs.  ``fused_launch_plan`` picks
+``csrc/unicycle.cuh``, or for an OCP without one the ``TracedDeviceModel``
+generated from its callables, ``codegen.py``: the models K2 evaluates; the
+kernels, templates on the model, are in ``csrc/fused.cuh``) on second-order
+forward-mode dual numbers (``csrc/dual.cuh``) over z = [x; u] and stores
+the stage's derivatives as one record in shared memory.  In phase 2 one
+thread per problem walks the stages N-1..0 with K1's stage recursion
+(``backward_stage`` in ``csrc/riccati.cuh``) on those records, and the gains
+leave through a shared-memory staging area as coalesced slabs.  ``fused_launch_plan`` picks
 the variant from the shape alone: ``"staged"`` as described, and
 ``"thread"`` (one thread per problem, each stage's derivatives computed in
 registers just before its stage QP) for horizons at which fewer than 4
@@ -201,7 +197,7 @@ def _launch(xs, us, ps, reg, ddp_scale, ocp, use_ddp, tol, variant,
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(
-            model.kind, int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
+            int(use_ddp), B, N, npar, float(tol), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), reg.data_ptr(), ddp_scale.data_ptr(),
             c_model, c_ints, c_tables, kff.data_ptr(),
             K.data_ptr(), dV1.data_ptr(), dV2.data_ptr(), gmax.data_ptr(),

@@ -30,18 +30,14 @@ carries, or for an OCP given only by its callables the
 ``TracedDeviceModel`` generated from their trace (``traced_device_model``:
 ``trace.py`` lowers the callables to a scalar program, ``codegen.py`` writes
 it as a model, and its own library instantiates the kernel on it, as the
-Pallas kernel inlines the traced jaxpr).  Three hand-written models exist,
-plain numbers describing the same dynamics, cost and box as the OCP's torch
-callables: ``UnicycleDeviceModel``
-(``csrc/unicycle.cuh``), ``LinearRateDeviceModel`` (``csrc/linear_rate.cuh``),
-the rate form of a linear plant that ``ocp/rate.py`` builds, with the
-quadratic cost or the curvature family's, and ``FrenetRateDeviceModel``
-(``csrc/frenet_rate.cuh``), the rate form of the Frenet path-frame model.
-Their ``step`` / ``stage_cost`` / ... methods are those formulas in
-PyTorch, in the kernels' order, so a test can tie the two definitions
-together.  The kernels are templates on the model (``csrc/rollout.cuh``,
-instantiated in ``rollout.cu``, ``rollout_linear.cu`` and
-``rollout_frenet.cu``); K3 shares the models' device code.
+Pallas kernel inlines the traced jaxpr).  One hand-written model exists,
+``UnicycleDeviceModel`` (``csrc/unicycle.cuh``): plain numbers describing
+the same dynamics, cost and box as the unicycle OCP's torch callables.  Its
+``step`` / ``stage_cost`` / ... methods are those formulas in PyTorch, in
+the kernel's order, so a test can tie the two definitions together.  Every
+other OCP is its callables and nothing else.  The kernels are templates on
+the model (``csrc/rollout.cuh``, instantiated in ``rollout.cu`` and in each
+traced program's unit); K3 shares the models' device code.
 
 ``linesearch_forward_torch`` is the plain PyTorch version: the JAX
 materialising line search (``mpc_verde_tpu/solver/batched.py``) on the
@@ -151,7 +147,7 @@ STAGE_COSTS = ("discrete", "quadrature")
 @dataclasses.dataclass(frozen=True)
 class UnicycleDeviceModel:
     """Kernel-side description of a unicycle OCP (nx = 3, nu = 2, npar >= 3;
-    model kind 0 of the kernels' C entry points).
+    the model of the kernels library's C entry points).
 
     Dynamics: unicycle kinematics, ``integrator`` "rk4" (``substeps`` equal
     substeps over ``dt``) or "euler" (one step).  Running cost
@@ -232,7 +228,6 @@ class UnicycleDeviceModel:
 
     nx = 3
     nu = 2
-    kind = 0
 
     @property
     def al_mu(self) -> int:
@@ -433,360 +428,6 @@ class UnicycleDeviceModel:
         return g, H
 
 
-# (nx0, nu) of the linear rate-form instantiations -> their model kind in
-# the kernels' C entry points (csrc/rollout_linear.cu, fused_linear.cu); the
-# curvature cost's instantiation at (3, 1) is kind 4, the one with a state
-# weight from the params (q_param) at (3, 1) kind 5, the Frenet model kind 3
-LINEAR_KINDS = {(3, 1): 1, (4, 1): 2}
-CURVATURE_KIND = 4
-WEIGHTED_KIND = 5
-
-
-class _RateFormModel:
-    """What the rate-form device models share: the stage box of
-    ``to_rate_form`` on the rate tables and the magnitude box, the tables as
-    the kernels read them, and no terminal cost, barrier or AL term."""
-
-    def _t(self, a, like):
-        return torch.as_tensor(np.asarray(a), dtype=like.dtype,
-                               device=like.device)
-
-    def with_barrier(self, lb, ub, mu_col: int, rule: str, clip: bool = True):
-        """None: a rate-form model carries no barrier term."""
-        return None
-
-    def with_al(self, x_lb, x_ub, lam_col: int):
-        """None: a rate-form model carries no AL term."""
-        return None
-
-    def tables(self, device) -> torch.Tensor:
-        """The rate bounds as the kernels read them: float32 (2, N, nu),
-        du_lb then du_ub, on ``device`` (made once a device)."""
-        device = torch.device(device)
-        if device not in self._tables:
-            self._tables[device] = torch.as_tensor(
-                np.stack([self.du_lb, self.du_ub]), dtype=torch.float32,
-                device=device).contiguous()
-        return self._tables[device]
-
-    def kernel_args(self, device):
-        """The model as the kernels' C entry points take it: (packed floats,
-        packed ints, the device pointer of ``tables(device)``).  The pointers
-        keep the packed arrays alive."""
-        return (self.packed().ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-                self.packed_ints().ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                self.tables(device).data_ptr())
-
-    def bounds(self, z, k):
-        """Stage ``k``'s box at ``z``: k an int, or a tensor of stage
-        indices with z's leading dims."""
-        up = z[..., self.nx0:]
-        dlb, dub = self._t(self.du_lb, z)[k], self._t(self.du_ub, z)[k]
-        return (torch.maximum(dlb, self._t(self.u_lb, z) - up),
-                torch.minimum(dub, self._t(self.u_ub, z) - up))
-
-    def terminal_cost(self, z, p):
-        return torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
-
-
-@dataclasses.dataclass(frozen=True)
-class LinearRateDeviceModel(_RateFormModel):
-    """Kernel-side description of the rate form of a linear plant
-    (``ocp.rate.to_rate_form``; model kinds 1, 2 and 4 of the C entry
-    points).
-
-    State ``z = [x; u_prev]`` (nx = nx0 + nu), control ``w = du``, ``u =
-    u_prev + w``.  Dynamics ``x' = Ad x + Bd u``, ``u_prev' = u``: ``Ad``
-    (nx0, nx0) and ``Bd`` (nx0, nu) are constants (LTI), or with ``ab_col``
-    read from each stage's params, ``Ad`` row-major in ``p[ab_col : ab_col +
-    nx0^2]`` and then ``Bd`` row-major (LTV).  Stage cost ``(x - r)' Q (x -
-    r) + (u - u_r)' R (u - u_r) + w' R_du w``: ``r = p[x_ref : x_ref + nx0]``
-    or the constant ``target`` (zeros if not given), ``u_r = p[u_ref :
-    u_ref + nu]`` or zero.  With ``curvature = (L, lambda1, lambda2,
-    lambda3)`` (nx0 3, nu 1: ``scenarios/curvature.py``) the stage cost is
-    instead ``l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l1 (r R_t - v_des)^2 +
-    R_t (tan(delta) - L kappa_t)^2`` over ``x = (y, phi, r)``, ``delta = u``,
-    ``p[:4] = (y_t, phi_t, kappa_t, v_des)`` and ``R_t = 1 / kappa_t``; Q, R
-    and R_du are then unused.  With ``q_param = (i, col)`` (quadratic cost
-    only) the state weight's diagonal entry ``Q[i, i]`` is ``p[col]`` at
-    every stage in place of the constant, a weight each problem of a batch
-    sets for itself (the tuning sweep, ``sweep.py``).  No terminal cost.  Stage k's box is
-    ``max(du_lb[k], u_lb - u_prev) <= w <= min(du_ub[k], u_ub - u_prev)``,
-    the ``w_bounds`` of ``to_rate_form``; the kernels evaluate it on the
-    state being rolled (K2) and on the nominal state (K3), and read the
-    (N, nu) rate tables from device memory.
-
-    The model carries no barrier and no AL term: ``with_barrier`` and
-    ``with_al`` return None, so the OCPs the interior-point and state-bound
-    solvers derive from a rate-form OCP have no device model, and run on the
-    card only with ``backend="torch"``.  The kernels exist for (nx0, nu) in
-    ``LINEAR_KINDS``, and with the curvature cost or ``q_param`` for (3,
-    1).
-    """
-
-    N: int
-    Q: np.ndarray
-    R: np.ndarray
-    R_du: np.ndarray
-    u_lb: np.ndarray
-    u_ub: np.ndarray
-    du_lb: np.ndarray
-    du_ub: np.ndarray
-    Ad: Optional[np.ndarray] = None
-    Bd: Optional[np.ndarray] = None
-    ab_col: Optional[int] = None
-    x_ref: Optional[int] = None
-    target: Optional[np.ndarray] = None
-    u_ref: Optional[int] = None
-    curvature: Optional[tuple] = None
-    q_param: Optional[tuple] = None
-
-    def __post_init__(self):
-        nx0, nu = np.shape(self.Q)[0], np.shape(self.R)[0]
-        if self.q_param is not None:
-            i, col = self.q_param
-            if self.curvature is not None or not (0 <= i < nx0 and col >= 0):
-                raise ValueError("q_param = (i, col) is a diagonal entry of "
-                                 "the quadratic cost's Q, 0 <= i < nx0, and "
-                                 "a column index >= 0")
-        if (self.ab_col is None) == (self.Ad is None or self.Bd is None):
-            raise ValueError("give the constant Ad and Bd, or ab_col")
-        if self.x_ref is not None and self.target is not None:
-            raise ValueError("give x_ref or target, not both")
-        if self.curvature is not None and (
-                (nx0, nu) != (3, 1) or len(self.curvature) != 4):
-            raise ValueError("the curvature cost is (L, lambda1, lambda2, "
-                             "lambda3) on nx0 = 3, nu = 1")
-        for col in ("ab_col", "x_ref", "u_ref"):
-            if getattr(self, col) is not None and getattr(self, col) < 0:
-                raise ValueError(f"{col} must be a column index >= 0")
-        shapes = {"Q": (nx0, nx0), "R": (nu, nu), "R_du": (nu, nu),
-                  "u_lb": (nu,), "u_ub": (nu,), "du_lb": (self.N, nu),
-                  "du_ub": (self.N, nu)}
-        if self.ab_col is None:
-            shapes.update(Ad=(nx0, nx0), Bd=(nx0, nu))
-        if self.target is not None:
-            shapes["target"] = (nx0,)
-        for name, shape in shapes.items():
-            if np.shape(getattr(self, name)) != shape:
-                raise ValueError(f"{name} must have shape {shape}")
-        object.__setattr__(self, "_tables", {})
-
-    @property
-    def nx0(self) -> int:
-        return int(np.shape(self.Q)[0])
-
-    @property
-    def nu(self) -> int:
-        return int(np.shape(self.R)[0])
-
-    @property
-    def nx(self) -> int:
-        return self.nx0 + self.nu
-
-    @property
-    def kind(self) -> int:
-        """The kernels' model kind; raises for sizes without kernels."""
-        if self.curvature is not None:
-            return CURVATURE_KIND
-        if self.q_param is not None:
-            if (self.nx0, self.nu) != (3, 1):
-                raise NotImplementedError(
-                    "the kernels take a state weight from the params "
-                    f"(q_param) at (nx0, nu) = (3, 1) only, not ({self.nx0}, "
-                    f"{self.nu})")
-            return WEIGHTED_KIND
-        if (self.nx0, self.nu) not in LINEAR_KINDS:
-            raise NotImplementedError(
-                f"no linear rate-form kernels for (nx0, nu) = ({self.nx0}, "
-                f"{self.nu}); built for {sorted(LINEAR_KINDS)}")
-        return LINEAR_KINDS[(self.nx0, self.nu)]
-
-    @property
-    def min_npar(self) -> int:
-        """The fewest parameter columns the model reads (0 for none)."""
-        cols = [0 if self.curvature is None else 4]
-        if self.ab_col is not None:
-            cols.append(self.ab_col + self.nx0 * (self.nx0 + self.nu))
-        if self.x_ref is not None:
-            cols.append(self.x_ref + self.nx0)
-        if self.u_ref is not None:
-            cols.append(self.u_ref + self.nu)
-        if self.q_param is not None:
-            cols.append(self.q_param[1] + 1)
-        return max(cols)
-
-    def packed(self) -> np.ndarray:
-        """float32 [Ad, Bd, Q, R, R_du, target, u_lb, u_ub], row-major, the
-        kernels' layout (zeros for Ad and Bd of an LTV model and for an
-        absent target), then the curvature cost's (L, lambda1, lambda2,
-        lambda3) where it has one."""
-        z = lambda a, n: np.zeros(n) if a is None else np.ravel(a)
-        nx0, nu = self.nx0, self.nu
-        return np.concatenate([
-            z(self.Ad, nx0 * nx0), z(self.Bd, nx0 * nu), np.ravel(self.Q),
-            np.ravel(self.R), np.ravel(self.R_du), z(self.target, nx0),
-            np.ravel(self.u_lb), np.ravel(self.u_ub),
-            np.asarray(() if self.curvature is None else self.curvature,
-                       np.float64)]).astype(np.float32)
-
-    def packed_ints(self) -> np.ndarray:
-        """int32 [ab_col, x_ref, u_ref (-1 for none), N, q_row, q_col (-1,
-        -1 without ``q_param``)]."""
-        c = lambda v: -1 if v is None else v
-        q_row, q_col = (-1, -1) if self.q_param is None else self.q_param
-        return np.array([c(self.ab_col), c(self.x_ref), c(self.u_ref),
-                         self.N, q_row, q_col], np.int32)
-
-    # --- the kernel's formulas in PyTorch (batched over leading dims) -------
-    def _matrices(self, p, like):
-        """(Ad, Bd) of each stage: from p's columns or the constants."""
-        nx0, nu = self.nx0, self.nu
-        if self.ab_col is None:
-            return self._t(self.Ad, like), self._t(self.Bd, like)
-        c = self.ab_col
-        A = p[..., c:c + nx0 * nx0].reshape(p.shape[:-1] + (nx0, nx0))
-        B = p[..., c + nx0 * nx0:c + nx0 * (nx0 + nu)].reshape(
-            p.shape[:-1] + (nx0, nu))
-        return A, B
-
-    def step(self, z, w, p):
-        nx0 = self.nx0
-        x, u = z[..., :nx0], z[..., nx0:] + w
-        A, B = self._matrices(p, z)
-        xn = (A @ x[..., None])[..., 0] + (B @ u[..., None])[..., 0]
-        return torch.cat([xn, u], dim=-1)
-
-    @staticmethod
-    def _quad(W, v):
-        return ((v[..., :, None] * W).sum(-2) * v).sum(-1)
-
-    def _curvature_cost(self, z, w, p):
-        L, l1, l2, l3 = self.curvature
-        y, phi, r = z[..., 0], z[..., 1], z[..., 2]
-        yt, phit, kt, vdes = p[..., 0], p[..., 1], p[..., 2], p[..., 3]
-        Rt = 1.0 / kt
-        e_r = r * Rt - vdes
-        zt = torch.tan(z[..., 3] + w[..., 0]) - L * kt
-        return ((l2 * (y - yt) ** 2 + l3 * (phi - phit) ** 2) + l1 * e_r ** 2
-                ) + Rt * zt * zt
-
-    def state_weight(self, p, like):
-        """Q as each stage reads it: the constant, with ``Q[i, i] = p[col]``
-        under ``q_param = (i, col)`` (leading dims of p).  Masks, not an
-        in-place write, so that torch.func differentiates it."""
-        Q = self._t(self.Q, like)
-        if self.q_param is None:
-            return Q
-        i, col = self.q_param
-        M = torch.zeros_like(Q)
-        M[i, i] = 1.0
-        return Q * (1.0 - M) + p[..., col, None, None] * M
-
-    def stage_cost(self, z, w, p):
-        if self.curvature is not None:
-            return self._curvature_cost(z, w, p)
-        nx0, nu = self.nx0, self.nu
-        if self.x_ref is None:
-            r = self._t(np.zeros(nx0) if self.target is None else self.target, z)
-        else:
-            r = p[..., self.x_ref:self.x_ref + nx0]
-        du = z[..., nx0:] + w
-        if self.u_ref is not None:
-            du = du - p[..., self.u_ref:self.u_ref + nu]
-        return ((self._quad(self.state_weight(p, z), z[..., :nx0] - r)
-                 + self._quad(self._t(self.R, z), du))
-                + self._quad(self._t(self.R_du, z), w))
-
-
-@dataclasses.dataclass(frozen=True)
-class FrenetRateDeviceModel(_RateFormModel):
-    """Kernel-side description of the rate form of the Frenet path-frame OCP
-    (``scenarios/frenet.py``; model kind 3 of the C entry points).
-
-    State ``z = [y, phi, v, delta_prev, a_prev]``, control ``w = du``, ``u =
-    u_prev + w``; params ``p = (y_t, phi_t, kappa_t, v_des)``.  Dynamics:
-    one RK4 step over ``T`` of ``models/frenet.py``'s ``f(x, u, p)`` (with
-    ``tan(delta / L)``), u held, then ``u_prev' = u``.  Stage cost ``(l1 (v
-    - v_des)^2 + l2 (y - y_t)^2 + l3 (phi - phi_t)^2 + l4 a^2 + l5
-    (tan(delta) - L kappa_t)^2) / (N + 1)`` with ``weights = (l1, ..., l5)``.
-    No terminal cost.  Stage k's box is that of ``to_rate_form``, as for
-    ``LinearRateDeviceModel``.  The numbers keep the caller's values; the
-    kernels take them rounded to float32.
-    """
-
-    N: int
-    T: float
-    L: float
-    weights: tuple
-    u_lb: np.ndarray
-    u_ub: np.ndarray
-    du_lb: np.ndarray
-    du_ub: np.ndarray
-
-    nx0 = 3
-    nu = 2
-    nx = 5
-    kind = 3
-    min_npar = 4
-
-    def __post_init__(self):
-        shapes = {"u_lb": (2,), "u_ub": (2,), "du_lb": (self.N, 2),
-                  "du_ub": (self.N, 2), "weights": (5,)}
-        for name, shape in shapes.items():
-            if np.shape(getattr(self, name)) != shape:
-                raise ValueError(f"{name} must have shape {shape}")
-        object.__setattr__(self, "_tables", {})
-
-    def _consts(self):
-        """(h, h/2, h/6) of one RK4 step over T, in double as
-        ``ops.integrators.rk4_step`` computes them."""
-        return self.T, 0.5 * self.T, self.T / 6.0
-
-    def packed(self) -> np.ndarray:
-        """float32 [h, h/2, h/6, L, N + 1, l1..l5, u_lb, u_ub], the
-        kernels' layout."""
-        return np.concatenate([
-            np.asarray(self._consts()), [self.L, self.N + 1],
-            np.asarray(self.weights, np.float64), np.ravel(self.u_lb),
-            np.ravel(self.u_ub)]).astype(np.float32)
-
-    def packed_ints(self) -> np.ndarray:
-        """int32 [N]."""
-        return np.array([self.N], np.int32)
-
-    # --- the kernel's formulas in PyTorch (batched over leading dims) -------
-    def rhs(self, x, u, p):
-        """``models/frenet.py``'s f(x, u, p)."""
-        y, phi, v = x[..., 0], x[..., 1], x[..., 2]
-        yt, phit, kt = p[..., 0], p[..., 1], p[..., 2]
-        e = phi - phit
-        return torch.stack([
-            v * torch.sin(e),
-            v * (torch.tan(u[..., 0] / self.L)
-                 - (kt / (1.0 - (y - yt) * kt)) * torch.cos(e)),
-            u[..., 1]], dim=-1)
-
-    def step(self, z, w, p):
-        h, hh, h6 = self._consts()
-        x, u = z[..., :3], z[..., 3:] + w
-        k1 = self.rhs(x, u, p)
-        k2 = self.rhs(x + hh * k1, u, p)
-        k3 = self.rhs(x + hh * k2, u, p)
-        k4 = self.rhs(x + h * k3, u, p)
-        xn = x + h6 * (((k1 + 2.0 * k2) + 2.0 * k3) + k4)
-        return torch.cat([xn, u], dim=-1)
-
-    def stage_cost(self, z, w, p):
-        l1, l2, l3, l4, l5 = self.weights
-        y, phi, v = z[..., 0], z[..., 1], z[..., 2]
-        u = z[..., 3:] + w
-        zt = torch.tan(u[..., 0]) - self.L * p[..., 2]
-        return ((((l1 * (v - p[..., 3]) ** 2 + l2 * (y - p[..., 0]) ** 2)
-                  + l3 * (phi - p[..., 1]) ** 2) + l4 * u[..., 1] ** 2)
-                + l5 * zt ** 2) / (self.N + 1)
-
-
 @dataclasses.dataclass(frozen=True, eq=False)
 class TracedDeviceModel:
     """Kernel-side model generated from the trace of an OCP's own callables.
@@ -804,7 +445,6 @@ class TracedDeviceModel:
     """
 
     program: Program
-    kind = 0   # the C entry points' model kind, which the program's ignore
 
     def __post_init__(self):
         object.__setattr__(self, "_tables", {})
@@ -982,9 +622,8 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
 
     Same arguments and results as ``linesearch_forward_torch``, which is
     what runs when the tensors lie on the CPU.  On the card the kernel
-    evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel``, a
-    ``LinearRateDeviceModel`` or a ``FrenetRateDeviceModel``), or for an OCP
-    without one the model traced from its callables
+    evaluates ``ocp.device_model`` (a ``UnicycleDeviceModel``), or for an
+    OCP without one the model traced from its callables
     (``traced_device_model``, whose library builds at its first launch); a
     callable that does not lower raises ``NotImplementedError``, a failed
     build ``RuntimeError``.  CUDA tensors must be contiguous float32.
@@ -1019,7 +658,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(
-            model.kind, B, N, npar, x0.data_ptr(), xs.data_ptr(),
+            B, N, npar, x0.data_ptr(), xs.data_ptr(),
             us.data_ptr(), ps.data_ptr(), kffs.data_ptr(), Ks.data_ptr(),
             c_model, c_ints, c_tables, c_alphas, A, xs_o.data_ptr(),
             us_o.data_ptr(), cost.data_ptr(), best.data_ptr(),
@@ -1082,7 +721,7 @@ def trajectory_cost(xs, us, ps, mask, cost_in, *, ocp):
     c_model, c_ints, c_tables = model.kernel_args(xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(model.kind, B, N, npar, xs.data_ptr(), us.data_ptr(),
+        rc = launch(B, N, npar, xs.data_ptr(), us.data_ptr(),
                     ps.data_ptr(), mask.data_ptr(), cost_in.data_ptr(),
                     c_model, c_ints, c_tables, cost.data_ptr(), stream)
     check_launch(rc, "mv_trajectory_cost")

@@ -857,9 +857,11 @@ class Program:
 
     @property
     def min_npar(self) -> int:
-        """The fewest parameter columns the program reads (0 for none)."""
-        return 1 + max((o[2] for o in self.ops if o[0] == "in"
-                        and o[1] == "p"), default=-1)
+        """The fewest parameter columns the program reads (0 for none): the
+        columns its outputs depend on, not every column traced."""
+        roots = [v for vs in self.outputs.values() for v in vs]
+        return 1 + max((self.ops[v][2] for v in self.reachable(roots)
+                        if self.ops[v][:2] == ("in", "p")), default=-1)
 
     def reachable(self, roots) -> list:
         """The value numbers ``roots`` depend on, in program order."""

@@ -15,9 +15,9 @@ order (y_t, phi_t, kappa_t, v_des), then each step's (Ad, Bd) in p[4:16],
 as the JAX package does.
 
 The controller is the rate form of the LTV model with the curvature cost:
-``interop.curvature_rate_ocp``, whose ``LinearRateDeviceModel`` carries the
-cost (model kind 4 of the kernels).  One problem at a time (B = 1) through
-``make_ilqr_solver``, on ``"cuda_fused"`` on the card.  The plant is the
+``interop.curvature_rate_ocp``.  One problem at a time (B = 1) through
+``make_ilqr_solver``, on ``"cuda_fused"`` on the card, on the model traced
+from the OCP's callables.  The plant is the
 same step's exact discretization, ``Ad x + Bd u``.
 """
 from __future__ import annotations

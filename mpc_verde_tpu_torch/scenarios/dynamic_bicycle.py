@@ -12,7 +12,7 @@ NameError when run fresh (SURVEY.md §2.1).  As in the JAX package, the
 coefficients are computed before delta_ref is synthesized, the only order
 under which the program is well-defined.  In rate form the state is
 z = [y, phi, v_lat, r, delta_prev] (nx 5); each step's (Ad, Bd) ride in
-p[5:21] and p[21:25], where the ``LinearRateDeviceModel`` reads them.
+p[5:21] and p[21:25], where the OCP's dynamics read them.
 """
 from __future__ import annotations
 

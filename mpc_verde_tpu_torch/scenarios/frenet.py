@@ -12,8 +12,8 @@ v_des), as the JAX package does.
 The controller is the rate form (``ocp/rate.py``) of one RK4 step of the
 path-frame model: z = [y, phi, v, delta_prev, a_prev] (nx 5, nu 2).  One
 problem at a time (B = 1) through ``make_ilqr_solver``; on the card the
-solve runs ``"cuda_fused"`` on the ``FrenetRateDeviceModel`` that
-``interop.frenet_rate_ocp`` builds.  The plant is a separate 10-substep RK4
+solve runs ``"cuda_fused"`` on the model traced from the callables of
+``interop.frenet_rate_ocp``.  The plant is a separate 10-substep RK4
 of the same model (:115).
 """
 from __future__ import annotations

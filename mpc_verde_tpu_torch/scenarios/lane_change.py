@@ -10,7 +10,7 @@ synthesized from the path by finite differences (:104-128).  The rate form
 the control the steering rate; the plant is the ZOH-discretized model, as
 in the JAX package.  One problem at a time (B = 1) through
 ``make_ilqr_solver``; on the card the solve runs ``"cuda_fused"`` on the
-``LinearRateDeviceModel`` that ``interop.linear_rate_ocp`` builds.
+model traced from the callables of ``interop.linear_rate_ocp``.
 """
 from __future__ import annotations
 

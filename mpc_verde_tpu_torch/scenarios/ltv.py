@@ -5,8 +5,7 @@ The reference re-linearizes ``Ac`` with the time-varying speed ``c[t]`` and
 rebuilds its solver every step (:124-146).  Here the per-step (Ad_t, Bd_t)
 are data: all Nsim discretizations come from one batched ``c2d``, the
 matrices ride in the per-stage params (p[4:13] Ad row-major, p[13:16] Bd),
-and one solver handles every step; the ``LinearRateDeviceModel`` reads them
-from the same columns.  Constants follow the LTI variant (Nt = 5, Ntu = 1,
+and one solver handles every step.  Constants follow the LTI variant (Nt = 5, Ntu = 1,
 Q = diag(10, 1, 0), R = 0.01, delta_max = 0.3491).
 """
 from __future__ import annotations

@@ -402,9 +402,10 @@ def make_batched_ilqr_solver(ocp: OCP, options: ILQROptions = ILQROptions(),
     state bounds: ``"torch"`` on the CPU; on a CUDA device ``"cuda_fused"``
     for a float32 OCP with a ``device_model`` or whose callables lower to a
     traced one, else ``"cuda_bw"``; nu > 4 raises there.  So a rate-form
-    OCP with a state box, whose AL-derived OCP has no device model, runs
-    ``"cuda_fused"`` on the model traced from that OCP; its library builds
-    once per program text at the first solve and is cached.
+    OCP, which carries no device model, runs ``"cuda_fused"`` on the model
+    traced from its callables, and under a state box on the one traced from
+    its AL-derived OCP; the library builds once per program text at the
+    first solve and is cached.
 
     Args of ``solve`` have a leading batch axis: x0s (B, nx), params
     (B, N+1, npar) (or (npar,) / (N+1, npar), broadcast), us_init (B, N, nu);

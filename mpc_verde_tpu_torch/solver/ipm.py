@@ -19,9 +19,9 @@ subproblem warm-started from the previous one.
 Every derived OCP carries the derived device model
 (``UnicycleDeviceModel.with_barrier`` / ``with_al``) or None, so the
 ``"cuda"`` backends evaluate the barrier and AL terms in the kernels.  A
-derived OCP without one (the rate-form models') runs ``"cuda_fused"`` under
-the default backend on the model traced from its own callables
-(``ops/cuda/trace.py``), whose terms the trace carries.
+derived OCP without one (any OCP's but the unicycle's) runs
+``"cuda_fused"`` under the default backend on the model traced from its
+own callables (``ops/cuda/trace.py``), whose terms the trace carries.
 
 Limitations (by construction of the barrier): bounds must be constant boxes
 with lb < ub strictly; move blocking and state-dependent boxes belong to the
@@ -259,9 +259,9 @@ def make_streaming_barrier_solver(
     bounds), and for ``warmstart="ddp"`` the OCP itself.  On a CUDA device
     that is ``"cuda_fused"`` for a float32 OCP: on the derived device model
     where the derived OCP keeps one, else on the model traced from its
-    callables (the rate-form models; its library built once per program
-    text, at the first solve); ``"cuda_bw"`` in float64 or where the
-    callables do not lower; nu > 4 raises.
+    callables (any OCP's but the unicycle's; its library built once per
+    program text, at the first solve); ``"cuda_bw"`` in float64 or where
+    the callables do not lower; nu > 4 raises.
 
     Returns ``solve(x0s, params, us_init, max_iters=None, restarts_n=None)``
     with the streaming solver's calling convention.

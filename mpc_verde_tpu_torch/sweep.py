@@ -5,7 +5,7 @@ The reference sweeps horizon lists and weight lists by re-running the whole
 closed loop serially per config (``Trajectory Tracking/Phiref.py:22-28``,
 loop at :27-355).  Here weight configs become a *batch dimension*: the stage
 cost reads its lateral weight from the parameter vector
-(``LinearRateDeviceModel``'s ``q_param``), so one batched closed loop
+(``interop.linear_rate_ocp``'s ``q_param``), so one batched closed loop
 evaluates every weight config at once.  On the card that loop runs the
 kernels (``"cuda_fused"``: K3, then K2).  The JAX package maps a
 single-plant runner over the batch (``vmap``); here the batched solver and

@@ -98,7 +98,8 @@ def _traced_programs():
             *derived_ocps(bare(x_lb=TERM_BOX[0], x_ub=TERM_BOX[1])).values(),
             *(rate[name] for name in ("lane_al", "rate_barrier", "obstacle",
                                       "ops")),
-            *(_bank_ocp(bank, "cpu") for bank in MATH_BANKS)]
+            *(_bank_ocp(bank, "cpu") for bank in MATH_BANKS),
+            *cs.rate_form_ocps("cpu").values()]
     return [trace_ocp(o) for o in ocps]
 
 
@@ -741,7 +742,7 @@ def test_scenario_20_steps_on_the_card(dev, scenario):
     assert float(dx) <= CIRC_STATE_TOL
 
 
-# ---- the linear rate-form model: phase 10's linear cases --------------------
+# ---- the linear rate-form families: phase 10's linear cases -----------------
 # Held against the float64 twin within chip_smoke.py's bounds (_hold_k2_f64,
 # _hold_f64: the larger of the unicycle's tolerance and F32_MARGIN times the
 # float32 twin's own distance from float64; the pendulum's unstable plant
@@ -760,11 +761,11 @@ LINEAR_LABELS = ["lti N=20 Ntu=3", "ltv", "dynamic", "pendulum",
 @pytest.mark.parametrize("B", [1, 8, 301])
 @pytest.mark.parametrize("label", LINEAR_LABELS)
 def test_linesearch_kernel_on_the_linear_model(dev, label, B):
-    """K2 on the linear rate-form model, every variant: the pick is a first
-    minimum of the float64 twin's candidates, its cost and trajectory are
-    that candidate's, the box follows the rolled u_prev, and the
-    move-blocked stages' rates come out exactly 0 where u_prev lies inside
-    the control box."""
+    """K2 on the linear rate-form families' traced models, every variant: the
+    pick is a first minimum of the float64 twin's candidates, its cost and
+    trajectory are that candidate's, the box follows the rolled u_prev, and
+    the move-blocked stages' rates come out exactly 0 where u_prev lies
+    inside the control box."""
     from chip_smoke import _hold_k2_f64, _k2_candidates, _to64
 
     ocp, ocp64, (x0, xs, us, kff, K), ps = _linear(dev, label, B)
@@ -777,17 +778,17 @@ def test_linesearch_kernel_on_the_linear_model(dev, label, B):
         out = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
         torch.cuda.synchronize()
         assert _launched(linesearch_forward, by_variant) == {variant: 1}
-        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64,
-                     ocp.device_model)
+        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64, ocp)
 
 
 @pytest.mark.parametrize("use_ddp", [True, False])
 @pytest.mark.parametrize("B", [1, 8, 301])
 @pytest.mark.parametrize("label", LINEAR_LABELS)
 def test_fused_kernel_on_the_linear_model(dev, label, B, use_ddp):
-    """K3 on the linear rate-form model, both variants, and K1 at the
-    model's (nx, nu) on the twin's derivatives of the same trajectories (lo
-    == hi on the blocked stages), each against the float64 twin."""
+    """K3 on the linear rate-form families' traced models, both variants,
+    and K1 at the model's (nx, nu) on the twin's derivatives of the same
+    trajectories (lo == hi on the blocked stages), each against the float64
+    twin."""
     from chip_smoke import _hold_f64, _to64
     from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
 
@@ -874,15 +875,16 @@ def test_linear_family_20_steps_on_the_card(dev, family):
             PEND_STATE_TOL)
 
 
-# The Frenet and curvature families' models (chip_smoke.py phase 10's path
-# cases at B = 1 and 301), held to the float64 twin as the linear model is.
+# The Frenet and curvature families' traced models (chip_smoke.py phase
+# 10's path cases at B = 1 and 301), held to the float64 twin as the linear
+# families are.
 PATH_LABELS = ["frenet", "curvature"]
 
 
 @pytest.mark.parametrize("B", [1, 301])
 @pytest.mark.parametrize("label", PATH_LABELS)
 def test_linesearch_kernel_on_the_path_models(dev, label, B):
-    """K2 on the Frenet model and the curvature cost, every variant: the pick
+    """K2 on the Frenet OCP and the curvature cost, every variant: the pick
     is a first minimum of the float64 twin's candidates, and its cost and
     trajectory are that candidate's."""
     from chip_smoke import _hold_k2_f64, _k2_candidates, _path_case, _to64
@@ -898,18 +900,16 @@ def test_linesearch_kernel_on_the_path_models(dev, label, B):
         out = linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
         torch.cuda.synchronize()
         assert _launched(linesearch_forward, by_variant) == {variant: 1}
-        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64,
-                     ocp.device_model)
+        _hold_k2_f64(f"{label} B={B} {variant}", out, cand32, cand64, ocp)
 
 
 @pytest.mark.parametrize("use_ddp", [True, False])
 @pytest.mark.parametrize("B", [1, 301])
 @pytest.mark.parametrize("label", PATH_LABELS)
 def test_fused_kernel_on_the_path_models(dev, label, B, use_ddp):
-    """K3 on the Frenet model (its five-seed duals scattered to (z, w)) and
-    on the curvature cost, both variants, and K1 at the model's (nx, nu),
-    (5, 2) and (4, 1), on the twin's derivatives of the same trajectories,
-    each against the float64 twin."""
+    """K3 on the Frenet OCP and on the curvature cost, both variants, and
+    K1 at the model's (nx, nu), (5, 2) and (4, 1), on the twin's derivatives
+    of the same trajectories, each against the float64 twin."""
     from chip_smoke import _hold_f64, _path_case, _to64
     from mpc_verde_tpu_torch.ops.linearize import trajectory_derivatives
 
@@ -1062,7 +1062,7 @@ def test_kernels_on_the_sweep_weight_term(dev, N, B):
                             _sweep_case, _to64)
 
     ocp, ocp64, (x0, xs, us, kff, K), ps = _sweep_case(dev, B, N, seed=53 + N)
-    assert ocp.device_model.q_param == (0, 4) and ps.shape[-1] == 5
+    assert ocp.device_model is None and ps.shape[-1] == 5
     alphas = tuple(0.4 ** i for i in range(8))
     data = (x0, xs, us, ps, kff, K)
     cand32 = _k2_candidates(data, alphas, ocp)
@@ -1073,7 +1073,7 @@ def test_kernels_on_the_sweep_weight_term(dev, N, B):
         torch.cuda.synchronize()
         assert _launched(linesearch_forward, by_variant) == {variant: 1}
         _hold_k2_f64(f"sweep N={N} B={B} {variant}", out, cand32, cand64,
-                     ocp.device_model)
+                     ocp)
     args = (xs, us, ps, torch.full((B,), 1e-6, device=dev),
             torch.ones((B,), device=dev))
     for use_ddp in (True, False):

@@ -1,24 +1,22 @@
 """Port vs JAX: the Frenet and curvature families and their device models.
 
-``FrenetRateDeviceModel`` and the curvature cost of ``LinearRateDeviceModel``
-(what K2 and K3 evaluate: step, stage cost, stage box, first and second
-derivatives) against the rate-form OCP's own callables to 1e-12, and those
-against the JAX scenarios' OCPs; the exact identity behind K3's five-seed
-duals for the Frenet model (a derivative by u_prev or by w is the derivative
-by u = u_prev + w); the twins of the dual numbers' tan and reciprocal
-against ``torch.func.hessian``; the line-search and fused twins on both OCPs
-against the JAX "xla" reference paths in float64 (1e-10 and 1e-9, as for
-the linear families); and each family's closed loop at 16 steps against
-JAX's at atol 1e-6, with the JAX tests' float64 gates.  The synthetic lane
-change is cut to start just before its maneuver (sample 118 of 500), so
-that 16 steps track a turn.
+The models traced from the rate-form OCPs' own callables (what K2 and K3
+evaluate: step, stage cost, stage box, first and second derivatives)
+against those callables and the JAX scenarios' OCPs to 1e-12; the twins of
+the dual numbers' tan and reciprocal against ``torch.func.hessian``; the
+line-search and fused twins on both OCPs against the JAX "xla" reference
+paths in float64 (1e-10 and 1e-9, as for the linear families); and each
+family's closed loop at 16 steps against JAX's at atol 1e-6, with the JAX
+tests' float64 gates.  The synthetic lane change is cut to start just
+before its maneuver (sample 118 of 500), so that 16 steps track a turn.
 """
 import jax
 import numpy as np
 import pytest
 import torch
-from torch.func import hessian, jacfwd, vmap
+from torch.func import hessian, jacfwd
 
+from chip_smoke import _pinned
 import mpc_verde_tpu as mv
 import mpc_verde_tpu_torch as mt
 from mpc_verde_tpu import scenarios as js
@@ -28,10 +26,9 @@ from mpc_verde_tpu.solver.batched import _make_parts as j_make_parts
 from mpc_verde_tpu_torch import scenarios as ts
 from mpc_verde_tpu_torch.ops.cuda.fused import (CHAIN_COEFFS, dual_chain,
                                                 fused_backward_torch)
-from mpc_verde_tpu_torch.ops.cuda.rollout import (CURVATURE_KIND,
-                                                  FrenetRateDeviceModel,
-                                                  LinearRateDeviceModel,
-                                                  linesearch_forward_torch)
+from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward_torch,
+                                                  traced_device_model)
+from test_torch_linear_families import _hold_traced_model
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 STEPS = 16
@@ -59,7 +56,7 @@ def _stage_data(family, B, rng, built_t):
     kappa); the curvature model's steering (u_prev up to 0.65, then three
     free rates) stays below 1.2 rad, away from the poles of its tan."""
     _, npar, N, (nx, nu), scale, du = FAMILIES[family]
-    model = built_t["ocp"].device_model
+    spec = built_t["spec"]
     table = np.asarray(built_t["params_seq"])
     ps = table[rng.integers(0, len(table), B)]
     z = np.zeros((B, N + 1, nx))
@@ -67,7 +64,7 @@ def _stage_data(family, B, rng, built_t):
     z[..., 1] = ps[..., 1] + rng.uniform(-scale[1], scale[1], (B, N + 1))
     third = ps[..., 3] if family == "frenet" else 0.0   # v about v_des; r
     z[..., 2] = third + rng.uniform(-scale[2], scale[2], (B, N + 1))
-    u_max = np.minimum(np.asarray(model.u_ub, float), 0.5)
+    u_max = np.minimum([spec["delta_max"], spec.get("a_max", 0.0)][:nu], 0.5)
     z[..., 3:] = rng.uniform(-1.3 * u_max, 1.3 * u_max, (B, N + 1, nu))
     w = rng.uniform(-du, du, (B, N, nu))
     return z, w, ps
@@ -83,76 +80,31 @@ def _close(a, b, tol=1e-12):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_device_model_matches_rate_form_callables(family):
-    """What K2 and K3 evaluate (the device model's formulas and their first
-    and second derivatives) equals the rate-form OCP's callables, which
-    equal the JAX scenario's OCP."""
+    """What K2 and K3 evaluate (the model traced from the rate-form OCP's
+    callables and its first and second derivatives) equals those callables,
+    which equal the JAX scenario's OCP."""
     built_t = _built(family, ts, n_steps=4)
     ocp, j_ocp = built_t["ocp"], _built(family, js, n_steps=4)["ocp"]
-    model = ocp.device_model
+    assert ocp.device_model is None   # the callables are the whole model
+    model = traced_device_model(ocp)
     _, npar, N, (nx, nu), *_ = FAMILIES[family]
-    assert (ocp.nx, ocp.nu, ocp.npar, model.min_npar) == (nx, nu, npar, npar)
+    assert (ocp.nx, ocp.nu, ocp.npar) == (nx, nu, npar)
+    assert (model.nx, model.nu, model.min_npar) == (nx, nu, npar)
     assert (j_ocp.nx, j_ocp.nu, j_ocp.npar, j_ocp.N) == (nx, nu, npar, N)
-    assert model.kind == (3 if family == "frenet" else CURVATURE_KIND)
     rng = np.random.default_rng(81)
     z, w, ps = _stage_data(family, 32, rng, built_t)
-    z, w, p = _t(z[:, 0]), _t(w[:, 0]), _t(ps[:, 0])
+    z, w, p = z[:, 0], w[:, 0], ps[:, 0]
     ks = rng.integers(0, N, 32)
-    _close(model.step(z, w, p), vmap(ocp.dynamics)(z, w, p))
-    _close(model.stage_cost(z, w, p), vmap(ocp.stage_cost)(z, w, p))
-    _close(vmap(ocp.dynamics)(z, w, p),
-           jax.vmap(j_ocp.dynamics)(z.numpy(), w.numpy(), p.numpy()))
-    _close(vmap(ocp.stage_cost)(z, w, p),
-           jax.vmap(j_ocp.stage_cost)(z.numpy(), w.numpy(), p.numpy()))
-    lo, hi = model.bounds(z, _t(ks))
-    lo_o, hi_o = vmap(ocp.control_bounds)(z, p, _t(ks))
-    lo_j, hi_j = jax.vmap(j_ocp.control_bounds)(z.numpy(), p.numpy(), ks)
-    for a, b, c in ((lo, lo_o, lo_j), (hi, hi_o, hi_j)):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
-        np.testing.assert_array_equal(b.numpy(), np.asarray(c))
+    lo, hi = _hold_traced_model(model, ocp, j_ocp, z, w, p, ks)
     if family == "curvature":   # move blocking: the rate pinned after Ntu
         blocked = _t(ks >= 3)
         assert (lo[blocked] == 0.0).all() and (hi[blocked] == 0.0).all()
-        assert torch.equal(lo[~blocked], -20.0 - z[~blocked][:, 3:])
+        assert torch.equal(lo[~blocked], -20.0 - _t(z)[~blocked][:, 3:])
+        assert _pinned(ocp).tolist() == [False] * 3 + [True] * 17
     else:                       # the steering rate's box is never empty
-        assert (lo < hi).all()
+        assert (lo < hi).all() and not _pinned(ocp).any()
     assert ocp.terminal_cost is None and j_ocp.terminal_cost is None
-    assert not model.terminal_cost(z, p).any()
-    for argnums in (0, 1):
-        _close(vmap(jacfwd(model.step, argnums))(z, w, p),
-               vmap(jacfwd(ocp.dynamics, argnums))(z, w, p))
-        _close(vmap(hessian(model.stage_cost, argnums))(z, w, p),
-               vmap(hessian(ocp.stage_cost, argnums))(z, w, p))
-        if family == "frenet":   # the dynamics' second derivatives (DDP)
-            _close(vmap(hessian(model.step, argnums))(z, w, p),
-                   vmap(hessian(ocp.dynamics, argnums))(z, w, p))
-    _close(vmap(jacfwd(jacfwd(model.stage_cost, 1), 0))(z, w, p),
-           vmap(jacfwd(jacfwd(ocp.stage_cost, 1), 0))(z, w, p))
-
-
-def test_frenet_five_seed_scatter_is_exact():
-    """K3 takes the Frenet model's derivatives over (x, u) and scatters them
-    to (z, w) (csrc/fused_frenet.cu): every derivative of the rate-form
-    dynamics and cost by u_prev or by w is the one by u, the second-order
-    blocks repeat f_uu and f_xu, and u_prev' = u has constant rows."""
-    built = _built("frenet", ts, n_steps=4)
-    model = built["ocp"].device_model
-    z, w, p = (_t(a[:, 0]) for a in _stage_data(
-        "frenet", 16, np.random.default_rng(82), built))
-    seed = [0, 1, 2, 3, 4, 3, 4]   # the seed (x, u) of each of (z, w)
-    for fn in (lambda zz, ww, pp: model.step(zz, ww, pp)[:3],
-               model.stage_cost):
-        of_zw = lambda v, pp: fn(v[:5], v[5:], pp)
-        # the same function of s = (x, u), at u_prev = u - w
-        of_xu = lambda s, ww, pp: fn(torch.cat([s[:3], s[3:] - ww]), ww, pp)
-        for i in range(16):
-            v, s = torch.cat([z[i], w[i]]), torch.cat([z[i, :3], z[i, 3:] + w[i]])
-            _close(jacfwd(of_zw)(v, p[i]), jacfwd(of_xu)(s, w[i], p[i])[..., seed])
-            _close(hessian(of_zw)(v, p[i]),
-                   hessian(of_xu)(s, w[i], p[i])[..., seed, :][..., seed])
-    J = vmap(jacfwd(lambda zz, ww, pp: model.step(zz, ww, pp)[3:], (0, 1)))(z, w, p)
-    np.testing.assert_array_equal(J[0].numpy(), np.broadcast_to(
-        np.eye(5)[3:], (16, 2, 5)))
-    np.testing.assert_array_equal(J[1].numpy(), np.broadcast_to(np.eye(2), (16, 2, 2)))
+    assert "terminal_cost" not in model.program.outputs
 
 
 @pytest.mark.parametrize("name", ["tan", "recip", "sin", "cos", "log", "exp",
@@ -174,42 +126,6 @@ def test_dual_chain_matches_hessian(name):
         _close(g, jacfwd(f)(v))
         _close(H, hessian(f)(v))
     assert set(CHAIN_COEFFS) == set(fns)
-
-
-def test_device_model_packing():
-    frenet = _built("frenet", ts, n_steps=4)["ocp"].device_model
-    assert isinstance(frenet, FrenetRateDeviceModel)
-    packed = frenet.packed()
-    assert packed.dtype == np.float32 and packed.shape == (14,)
-    np.testing.assert_array_equal(
-        packed, np.float32([0.05, 0.025, 0.05 / 6, 3.5, 21, 2.5, 1.75, 2.5,
-                            0.4, 10.0, -0.384, -2.0, 0.384, 2.0]))
-    np.testing.assert_array_equal(frenet.packed_ints(), [20])
-    tab = frenet.tables("cpu")
-    assert tab.shape == (2, 20, 2) and tab is frenet.tables("cpu")
-    np.testing.assert_array_equal(tab[:, 0].numpy(), np.float32(
-        [[-0.1225, -np.inf], [0.1225, np.inf]]))
-    assert frenet.with_barrier([-1.0, -1.0], [1.0, 1.0], 4, "streaming") is None
-    assert frenet.with_al([-1.0] * 5, [1.0] * 5, 4) is None
-    with pytest.raises(ValueError, match="weights"):
-        FrenetRateDeviceModel(N=2, T=0.05, L=3.5, weights=(1.0,) * 4,
-                              u_lb=np.zeros(2), u_ub=np.zeros(2),
-                              du_lb=np.zeros((2, 2)), du_ub=np.zeros((2, 2)))
-
-    curv = _built("curvature", ts, n_steps=4)["ocp"].device_model
-    assert isinstance(curv, LinearRateDeviceModel)
-    assert (curv.kind, curv.min_npar, curv.nx0, curv.nu) == (4, 16, 3, 1)
-    assert curv.packed().shape == (2 * 9 + 3 + 1 + 1 + 3 + 2 + 4,)
-    np.testing.assert_array_equal(curv.packed()[-4:],
-                                  np.float32([3.5, 2.5, 1.75, 2.5]))
-    np.testing.assert_array_equal(curv.packed_ints(), [4, -1, -1, 20, -1, -1])
-    np.testing.assert_array_equal(curv.tables("cpu")[1, :, 0].numpy(),
-                                  [np.inf] * 3 + [0.0] * 17)
-    with pytest.raises(ValueError, match="curvature"):
-        LinearRateDeviceModel(N=2, Q=np.eye(4), R=np.eye(1), R_du=np.eye(1),
-                              u_lb=[-1.0], u_ub=[1.0], du_lb=np.zeros((2, 1)),
-                              du_ub=np.zeros((2, 1)), ab_col=0,
-                              curvature=(3.5, 1.0, 1.0, 1.0))
 
 
 def _data(family, B, seed):

@@ -1,23 +1,22 @@
 """Port vs JAX: the linear rate-form families (LTI and LTV lane change,
 leitura, the dynamic bicycle, the cart pendulum) and their device model.
 
-``LinearRateDeviceModel``'s PyTorch formulas (what K2 and K3 evaluate:
-step, stage cost, stage box, first and second derivatives) against the
-OCP's own callables from ``to_rate_form`` to 1e-12, the port OCPs against
+The model traced from the OCP's own callables (what K2 and K3 evaluate:
+step, stage cost, stage box, first and second derivatives) against those
+callables from ``to_rate_form`` and JAX to 1e-12, the port OCPs against
 the JAX scenarios' OCPs; the line-search and fused twins on these OCPs
 against the JAX "xla" reference paths in float64; and each scenario's
 closed loop at 16 steps against JAX's at atol 1e-6, with the JAX tests'
 float64 gates.  The lane-change courses are cut to start just before the
 maneuver (sample 118 of 500), so that 16 steps track a turn.
 """
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
 import torch
 from torch.func import hessian, jacfwd, vmap
 
+from chip_smoke import _pinned
 import mpc_verde_tpu as mv
 import mpc_verde_tpu_torch as mt
 from mpc_verde_tpu import scenarios as js
@@ -26,10 +25,8 @@ from mpc_verde_tpu.refgen import synthetic_lane_change as j_lane_change
 from mpc_verde_tpu.solver.batched import _make_parts as j_make_parts
 from mpc_verde_tpu_torch import scenarios as ts
 from mpc_verde_tpu_torch.ops.cuda.fused import fused_backward_torch
-from mpc_verde_tpu_torch.ops.cuda.rollout import (LINEAR_KINDS,
-                                                  LinearRateDeviceModel,
-                                                  linesearch_forward_torch)
-from mpc_verde_tpu_torch.solver.batched import _augment_ocp_al
+from mpc_verde_tpu_torch.ops.cuda.rollout import (linesearch_forward_torch,
+                                                  traced_device_model)
 
 CPU64 = dict(device="cpu", dtype=torch.float64)
 STEPS = 16
@@ -63,7 +60,8 @@ def _stage_data(family, B, rng, built_t):
     """Random states z (u_prev on both sides of the control box), rates w
     and stage params taken from the scenario's own table, (B, N+1, ...)."""
     _, npar, N, (nx, nu), xs_, us_ = FAMILIES[family]
-    u_max = float(built_t["ocp"].device_model.u_ub[0])
+    spec = built_t["spec"]
+    u_max = float(spec["u_max"] if "u_max" in spec else spec["delta_max"])
     z = rng.uniform(-xs_, xs_, (B, N + 1, nx))
     z[..., -nu:] = rng.uniform(-1.3 * u_max, 1.3 * u_max, (B, N + 1, nu))
     w = rng.uniform(-us_, us_, (B, N, nu))
@@ -77,72 +75,62 @@ def _stage_data(family, B, rng, built_t):
 
 @pytest.mark.parametrize("family", list(FAMILIES))
 def test_device_model_matches_rate_form_callables(family):
-    """What K2 and K3 evaluate (the device model's formulas and their first
-    and second derivatives) equals the rate-form OCP's callables, which
-    equal the JAX scenario's OCP."""
+    """What K2 and K3 evaluate (the model traced from the rate-form OCP's
+    callables: step, stage cost, stage box, first and second derivatives)
+    equals those callables, which equal the JAX scenario's OCP."""
     built_t = _built(family, ts, n_steps=4)
     ocp, j_ocp = built_t["ocp"], _built(family, js, n_steps=4)["ocp"]
-    model = ocp.device_model
+    assert ocp.device_model is None   # the callables are the whole model
+    model = traced_device_model(ocp)
     _, npar, N, (nx, nu), *_ = FAMILIES[family]
-    assert isinstance(model, LinearRateDeviceModel)
-    assert (ocp.nx, ocp.nu, ocp.npar, model.min_npar) == (nx, nu, npar, npar)
-    assert (model.nx0, model.nu) in LINEAR_KINDS and model.kind in (1, 2)
+    assert (ocp.nx, ocp.nu, ocp.npar) == (nx, nu, npar)
+    assert (model.nx, model.nu, model.min_npar) == (nx, nu, npar)
     assert (j_ocp.nx, j_ocp.nu, j_ocp.npar, j_ocp.N) == (nx, nu, npar, N)
     rng = np.random.default_rng(21)
     z, w, ps = _stage_data(family, 32, rng, built_t)
     z, w, p = z[:, 0], w[:, 0], ps[:, 0]
     ks = rng.integers(0, N, 32)
+    lo, hi = _hold_traced_model(model, ocp, j_ocp, z, w, p, ks)
+    if _pinned(ocp).any():   # u_prev outside the box on a blocked
+        assert (lo > hi).any()   # stage: the clip takes hi
+    assert ocp.terminal_cost is None and j_ocp.terminal_cost is None
+    assert "terminal_cost" not in model.program.outputs
+
+
+def _hold_traced_model(model, ocp, j_ocp, z, w, p, ks):
+    """The traced model's step, stage cost and box, and their first and
+    second derivatives, against the OCP's callables and the JAX OCP's, at
+    1e-12 in float64 (the boxes bit for bit); returns the traced box."""
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a))
     close = lambda a, b: np.testing.assert_allclose(
         np.asarray(a), np.asarray(b), rtol=1e-12, atol=1e-12)
-    close(model.step(t(z), t(w), t(p)), vmap(ocp.dynamics)(t(z), t(w), t(p)))
-    close(model.stage_cost(t(z), t(w), t(p)),
-          vmap(ocp.stage_cost)(t(z), t(w), t(p)))
-    close(vmap(ocp.dynamics)(t(z), t(w), t(p)), jax.vmap(j_ocp.dynamics)(z, w, p))
-    close(vmap(ocp.stage_cost)(t(z), t(w), t(p)),
-          jax.vmap(j_ocp.stage_cost)(z, w, p))
-    lo, hi = model.bounds(t(z), t(ks))
-    lo_o, hi_o = vmap(ocp.control_bounds)(t(z), t(p), t(ks))
+    Z, W, P = t(z), t(w), t(p)
+    for fm, fo, fj in ((model.step, ocp.dynamics, j_ocp.dynamics),
+                       (model.stage_cost, ocp.stage_cost, j_ocp.stage_cost)):
+        close(fm(Z, W, P), vmap(fo)(Z, W, P))
+        close(vmap(fo)(Z, W, P), jax.vmap(fj)(z, w, p))
+    lo, hi = model.bounds(Z, P, t(ks))
+    lo_o, hi_o = vmap(ocp.control_bounds)(Z, P, t(ks))
     lo_j, hi_j = jax.vmap(j_ocp.control_bounds)(z, p, ks)
     for a, b, c in ((lo, lo_o, lo_j), (hi, hi_o, hi_j)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
         np.testing.assert_array_equal(b.numpy(), np.asarray(c))
-    if (model.du_ub == 0.0).any():   # u_prev outside the box on a blocked
-        assert (lo > hi).any()      # stage: the clip takes hi
-    assert ocp.terminal_cost is None and j_ocp.terminal_cost is None
-    assert not model.terminal_cost(t(z), t(p)).any()
     for argnums in (0, 1):
-        close(vmap(jacfwd(model.step, argnums))(t(z), t(w), t(p)),
-              vmap(jacfwd(ocp.dynamics, argnums))(t(z), t(w), t(p)))
-        close(vmap(hessian(model.stage_cost, argnums))(t(z), t(w), t(p)),
-              vmap(hessian(ocp.stage_cost, argnums))(t(z), t(w), t(p)))
-    close(vmap(jacfwd(jacfwd(model.stage_cost, 1), 0))(t(z), t(w), t(p)),
-          vmap(jacfwd(jacfwd(ocp.stage_cost, 1), 0))(t(z), t(w), t(p)))
-
-
-def test_device_model_packing_and_derived_ocps():
-    ocp = _built("ltv", ts, n_steps=4)["ocp"]
-    model = ocp.device_model
-    assert model.packed().dtype == np.float32
-    assert model.packed().shape == (2 * 9 + 3 + 1 + 1 + 3 + 2,)
-    np.testing.assert_array_equal(model.packed_ints(), [4, 0, 3, 5, -1, -1])
-    tab = model.tables("cpu")
-    assert tab.shape == (2, 5, 1) and tab.dtype == torch.float32
-    assert tab is model.tables("cpu")   # made once a device
-    np.testing.assert_array_equal(tab[0, :, 0].numpy(),
-                                  [-np.inf, 0.0, 0.0, 0.0, 0.0])
-    # no barrier and no AL term: a derived OCP has no device model
-    assert model.with_barrier([-1.0], [1.0], 16, "streaming") is None
-    boxed = dataclasses.replace(ocp, x_lb=torch.full((4,), -5.0, **{
-        "dtype": torch.float64}), x_ub=torch.full((4,), 5.0, dtype=torch.float64))
-    assert _augment_ocp_al(boxed).device_model is None
-    pend = _built("pendulum", ts, n_steps=2)["ocp"].device_model
-    assert pend.min_npar == 0 and pend.kind == 2
-    np.testing.assert_array_equal(pend.packed_ints(), [-1, -1, -1, 50, -1, -1])
-    with pytest.raises(ValueError, match="ab_col"):
-        LinearRateDeviceModel(N=2, Q=np.eye(3), R=np.eye(1), R_du=np.eye(1),
-                              u_lb=[-1.0], u_ub=[1.0], du_lb=np.zeros((2, 1)),
-                              du_ub=np.zeros((2, 1)))
+        for d, jd, fm, fo, fj in (
+                (jacfwd, jax.jacfwd, model.step, ocp.dynamics, j_ocp.dynamics),
+                (hessian, jax.hessian, model.step, ocp.dynamics,
+                 j_ocp.dynamics),
+                (hessian, jax.hessian, model.stage_cost, ocp.stage_cost,
+                 j_ocp.stage_cost)):
+            close(vmap(d(fm, argnums))(Z, W, P), vmap(d(fo, argnums))(Z, W, P))
+            close(vmap(d(fo, argnums))(Z, W, P),
+                  jax.vmap(jd(fj, argnums))(z, w, p))
+    mixed = lambda f, j: j(j(f, 1), 0)
+    close(vmap(mixed(model.stage_cost, jacfwd))(Z, W, P),
+          vmap(mixed(ocp.stage_cost, jacfwd))(Z, W, P))
+    close(vmap(mixed(ocp.stage_cost, jacfwd))(Z, W, P),
+          jax.vmap(mixed(j_ocp.stage_cost, jax.jacfwd))(z, w, p))
+    return lo, hi
 
 
 def _data(family, B, seed):
@@ -171,7 +159,7 @@ def test_linesearch_twin_matches_jax_materialize(family):
     for o, r in ((xs_t, xs_j), (us_t, us_j), (c_t, c_j)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-10,
                                    atol=1e-10)
-    pinned = built_t["ocp"].device_model.du_ub[:, 0] == 0.0
+    pinned = _pinned(built_t["ocp"])
     if pinned.any():   # the move-blocked stages' rates are exactly 0
         assert (us_t.numpy()[:, pinned] == 0.0).all()
     # the rate-form box clipped some candidates

@@ -1,5 +1,6 @@
 """Port vs JAX: the tuning sweep (``sweep.py``) and the weight it reads from
-the params (``LinearRateDeviceModel``'s ``q_param``), in float64 on the CPU.
+the params (``interop.linear_rate_ocp``'s ``q_param``), in float64 on the
+CPU.
 
 The lane change's reference leaves zero only at step 126 of the synthetic
 course, so the sweep runs 200 steps: at fewer, every row would track a zero
@@ -17,7 +18,7 @@ from mpc_verde_tpu.models import lateral_error_lti as j_lateral_error_lti
 from mpc_verde_tpu.ops import c2d as j_c2d
 from mpc_verde_tpu.scenarios.lane_change import SPEC as J_SPEC
 from mpc_verde_tpu.sweep import sweep_lane_change as j_sweep
-from mpc_verde_tpu_torch.ops.cuda.rollout import LinearRateDeviceModel
+from mpc_verde_tpu_torch.ops.cuda.rollout import traced_device_model
 from mpc_verde_tpu_torch.sweep import sweep_lane_change, sweep_ocp
 
 N = 5
@@ -47,15 +48,13 @@ def _j_ocp():
 
 def test_weight_term_and_its_derivatives_match_jax():
     """The stage cost with Q[0, 0] = p[4], in the OCP's callable and in the
-    device model's formula (what K2 and K3 evaluate), its gradient and its
+    model traced from it (what K2 and K3 evaluate), its gradient and its
     Hessian in (z, w), against JAX's cost to 1e-12."""
     j_ocp, Ad, Bd = _j_ocp()
     ocp = sweep_ocp(N, Ad, Bd, "cpu", torch.float64)
-    model = ocp.device_model
-    assert isinstance(model, LinearRateDeviceModel)
-    assert model.q_param == (0, 4) and model.min_npar == ocp.npar == 5
-    assert model.kind == 5   # WEIGHTED_KIND: kind 1 keeps its constant Q
-    np.testing.assert_array_equal(model.packed_ints(), [-1, 0, 3, N, 0, 4])
+    assert ocp.device_model is None
+    model = traced_device_model(ocp)
+    assert model.min_npar == ocp.npar == 5
     rng = np.random.default_rng(5)
     B = 64
     z = rng.uniform(-0.5, 0.5, (B, 4))
@@ -79,11 +78,6 @@ def test_weight_term_and_its_derivatives_match_jax():
     p2 = p.copy(); p2[:, 4] *= 2.0
     assert not np.allclose(model.stage_cost(t(z), t(w), t(p2)).numpy(),
                            model.stage_cost(t(z), t(w), t(p)).numpy())
-    with pytest.raises(ValueError, match="q_param"):
-        LinearRateDeviceModel(N=2, Q=np.eye(3), R=np.eye(1), R_du=np.eye(1),
-                              u_lb=[-1.0], u_ub=[1.0], du_lb=np.zeros((2, 1)),
-                              du_ub=np.zeros((2, 1)), Ad=np.eye(3),
-                              Bd=np.ones((3, 1)), q_param=(3, 4))
 
 
 def test_sweep_rows_match_jax():
