@@ -30,12 +30,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
               timed.
   4. K2:      line-search kernel vs its twin on the bench OCP, random gains,
               at B=1024, N=40, A=8 (the plan's "lanes" variant), and at A=5,
-              A=1 (the pre-roll, "lanes_reroll"), B=1000 and an all-ties
+              A=1 (the pre-roll, "lanes_ring"), B=1000 and an all-ties
               input; at the shapes the driven paths give it: the streaming
               pre-roll of phases 5 and 8 (B=16384, N=40, A=1), the fleet's
               line search on the fleet's own OCP (B=1024, N=10, A=12: groups
               of 16 lanes, 4 of them idle) and the fleet's pre-roll; the
-              "lanes" and "lanes_reroll" variants against the "thread" one.
+              "lanes_ring" variant forced against "lanes" (the same bits);
+              both variants at the stream cell's width (B=131072), timed
+              beside their registers and blocks an SM.
   5. main:    the streaming solver, backend="cuda", batch width 1024, over a
               16384-problem N=40 queue (60 iterations + 2 restarts).  Every
               kernel launch count is reset just before and read just after.
@@ -260,6 +262,7 @@ import sys
 import threading
 import time
 import traceback
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -301,11 +304,22 @@ K2_STEP_FLOPS, K1_STAGE_FLOPS, K3_STAGE_FLOPS = 250, 1000, 4000
 TERM_FLOPS = {"barrier": (80, 400), "al": (60, 900), "u_ref": (2, 2),
               "quadrature_substep": (300, 7500)}   # (K2 step, K3 stage)
 # the variants the launch plans choose at the bench and the fleet shapes:
-# K1 at 1024, K2's line search and (without candidate slots) its pre-roll,
-# K3 at 1024
+# K1 at 1024, K2's line search at 1024 and its pre-roll (the ring), K3 at
+# 1024
 PLANNED = {"riccati_backward": ("warps",),
-           "linesearch_forward": ("lanes", "lanes_reroll"),
+           "linesearch_forward": ("lanes", "lanes_ring"),
            "fused_backward": ("staged",)}
+
+
+def _k2_plan(data, alphas, variant=None):
+    """The plan ``linesearch_forward`` takes for ``data`` (x0, xs, us, ps,
+    ...) and ``alphas``: the batch's included."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_launch_plan
+
+    x0, us, ps = data[0], data[2], data[3]
+    B, N, nu = us.shape
+    return linesearch_launch_plan(N, len(alphas), ps.shape[-1], variant,
+                                  nx=x0.shape[-1], nu=nu, B=B)
 
 
 def _bound(n_bytes, flops):
@@ -632,11 +646,66 @@ def _variants_used(fn, run):
     return {v for v, n in fn.launches_by_variant.items() if n > before[v]}, out
 
 
+# the benchmark's queue cells' slots (pointstab_n40.stream-w131072,
+# quadrotor2d_n40.hover-w131072): K2's line search runs at this width; the
+# variants the plan takes there, by alpha count (8: the line search, 1: the
+# pre-roll), on the unicycle and on the quadrotor cell's traced model
+CELL_WIDTH = 131072
+UNICYCLE_AT_WIDTH = {8: "lanes_ring", 1: "lanes_ring"}
+QUADROTOR_AT_WIDTH = {8: "lanes_ring", 1: "lanes_ring"}
+
+
+def _k2_at_width(label, ocp, data, alphas, step_flops, expect):
+    """K2's variants at a benchmark cell's width: each one's time beside
+    its registers and local memory, the blocks an SM holds (the CUDA
+    runtime's ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the
+    bound; the plan must take ``expect``, and "lanes_ring" must give the
+    bits of "lanes".  Returns the row."""
+    from mpc_verde_tpu_torch.ops.cuda.rollout import (
+        LINESEARCH_VARIANTS, kernel_model, linesearch_forward,
+        linesearch_occupancy)
+
+    x0, us = data[0], data[2]
+    B, N, _ = us.shape
+    if not x0.is_cuda:   # a rehearsal on the CPU: no kernel to ask or time
+        return {"case": label, "B": B, "N": N, "A": len(alphas)}
+    A, model = len(alphas), kernel_model(ocp)
+    rows, outs = {}, {}
+    for variant in LINESEARCH_VARIANTS:
+        plan = _k2_plan(data, alphas, variant)
+        run = lambda: linesearch_forward(*data, alphas, ocp=ocp, variant=variant)
+        outs[variant] = run()
+        occ = linesearch_occupancy(model, variant, plan.threads,
+                                   plan.smem_bytes, x0.device)
+        rows[variant] = {"ms": _time_ms(run, reps=5), "plan": plan[:4], **occ}
+        print(f"[k2] {label} B={B} N={N} A={A} {variant}: "
+              f"{rows[variant]['ms']:.4f} ms, {plan.threads} threads and "
+              f"{plan.smem_bytes} B a block, {occ['registers']} registers, "
+              f"local {occ['local_bytes']} B, {occ['blocks_per_sm']} blocks an "
+              f"SM", flush=True)
+    n_io = sum(a.numel() for a in data) + sum(
+        o.numel() for o in outs["lanes_ring"])
+    bound = _bound(4 * n_io, B * A * N * step_flops)
+    planned = _k2_plan(data, alphas).variant
+    used, _ = _variants_used(linesearch_forward,
+                             lambda: linesearch_forward(*data, alphas, ocp=ocp))
+    print(f"[k2] {label} B={B} N={N} A={A}: planned {planned}, bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
+    if planned != expect or used != {expect}:
+        raise AssertionError(f"K2 {label} at B={B}: planned {planned}, ran "
+                             f"{used}, expected {expect}")
+    if not all(_same_bits(a, b) for a, b in zip(outs["lanes_ring"],
+                                                 outs["lanes"])):
+        raise AssertionError(f"K2 {label}: lanes_ring and lanes differ")
+    return {"case": label, "B": B, "N": N, "A": A, "planned": planned,
+            "variants": rows, **bound}
+
+
 def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
     from mpc_verde_tpu_torch import ILQROptions
     from mpc_verde_tpu_torch.interop import bench_ocp
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        linesearch_forward, linesearch_forward_torch, linesearch_launch_plan)
+        linesearch_forward, linesearch_forward_torch)
     from mpc_verde_tpu_torch.scenarios import build_fleet
 
     bench = bench_ocp(N, dev, torch.float32)
@@ -645,7 +714,7 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
     def compare(data, alphas, label, variant=None, ocp=bench):
         """Kernel vs twin at phase 4's tolerances; returns (max abs err,
         the kernel's outputs).  Unless one is forced, the variant must be
-        the plan's: "lanes", and for one alpha "lanes_reroll"."""
+        the plan's for the shape and the batch."""
         args = (*data, alphas)
         used, out = _variants_used(
             linesearch_forward,
@@ -664,7 +733,7 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
         if cost_rel > 1e-5 or same_frac < 0.999 or traj > 1e-4:
             raise AssertionError(f"K2 {label} out of tolerance: cost rel "
                                  f"{cost_rel}, same alpha {same_frac}, traj {traj}")
-        if used != {variant or PLANNED["linesearch_forward"][len(alphas) == 1]}:
+        if used != {variant or _k2_plan(data, alphas).variant}:
             raise AssertionError(f"K2 {label} ran variants {used}")
         return max(_abs_err(c_k, c_t), _abs_err(xs_k[same], xs_t[same]),
                    _abs_err(us_k[same], us_t[same])), out
@@ -693,39 +762,45 @@ def phase_k2(dev, B=WIDTH, N=BENCH_N, A=8, B_ragged=1000, M=QUEUE):
     fleet_alphas = tuple(float(o.alpha_decay) ** i for i in range(o.n_alphas))
     B_f, N_f, A_f = fleet["spec"]["B"], fleet["spec"]["N"], len(fleet_alphas)
     fleet_data = _k2_inputs(dev, B_f, N_f, seed=6)
-    print(f"[k2] fleet shape: {linesearch_launch_plan(N_f, A_f, 3)}", flush=True)
+    print(f"[k2] fleet shape: {_k2_plan(fleet_data, fleet_alphas)}",
+          flush=True)
     err = max(err,
               compare(fleet_data, fleet_alphas,
                       f"fleet B={B_f} N={N_f} A={A_f}", ocp=fleet["ocp"])[0],
               compare(zero(fleet_data), (1.0,),
                       f"fleet pre-roll B={B_f} N={N_f} A=1", ocp=fleet["ocp"])[0])
 
-    # the other variants, forced, against their twin and against "lanes"
-    diffs = {}
-    for variant in ("thread", "lanes_reroll"):
-        e, out_v = compare(data, alphas_of(A), f"bench B={B} N={N} A={A}",
-                           variant=variant)
-        err = max(err, e)
-        diffs[variant] = max(_abs_err(a, b) for a, b in zip(out_lanes, out_v))
-    print(f"[k2] bench B={B} N={N} A={A}: max |lanes - thread| "
-          f"{diffs['thread']:.2e}, max |lanes - lanes_reroll| "
-          f"{diffs['lanes_reroll']:.2e} over xs, us, cost, best", flush=True)
-    if max(diffs.values()) > 1e-4:
-        raise AssertionError(f"K2 variants disagree: {diffs}")
+    # the ring, forced, against its twin and against "lanes": the same bits
+    e, out_ring = compare(data, alphas_of(A), f"bench B={B} N={N} A={A}",
+                          variant="lanes_ring")
+    err = max(err, e)
+    same = all(_same_bits(a, b) for a, b in zip(out_lanes, out_ring))
+    print(f"[k2] bench B={B} N={N} A={A}: lanes_ring and lanes give the same "
+          f"bits over xs, us, cost, best: {same}", flush=True)
+    if not same:
+        raise AssertionError("K2: lanes_ring and lanes differ")
 
     args = (*data, alphas_of(A))
     ms = _time_ms(lambda: linesearch_forward(*args, ocp=bench), reps=50)
-    thread_ms = _time_ms(
-        lambda: linesearch_forward(*args, ocp=bench, variant="thread"), reps=50)
+    ring_ms = _time_ms(
+        lambda: linesearch_forward(*args, ocp=bench, variant="lanes_ring"),
+        reps=50)
     plain_ms = _time_ms(lambda: linesearch_forward_torch(*args, ocp=bench),
                         reps=5, warmup=1, queued=False)
-    print(f"[k2] bench B={B} N={N} A={A}: kernel {ms:.4f} ms, \"thread\" "
-          f"variant {thread_ms:.4f} ms, twin {plain_ms:.4f} ms", flush=True)
+    print(f"[k2] bench B={B} N={N} A={A}: kernel {ms:.4f} ms, \"lanes_ring\" "
+          f"variant {ring_ms:.4f} ms, twin {plain_ms:.4f} ms", flush=True)
     n_io = sum(a.numel() for a in data) + sum(o.numel() for o in out_lanes)
+
+    # the stream cell's width: the line search and the pre-roll
+    wide = _k2_inputs(dev, CELL_WIDTH, N, seed=7)
+    width = [_k2_at_width("bench", bench, wide, alphas_of(A), K2_STEP_FLOPS,
+                          UNICYCLE_AT_WIDTH[A]),
+             _k2_at_width("bench pre-roll", bench, zero(wide), (1.0,),
+                          K2_STEP_FLOPS, UNICYCLE_AT_WIDTH[1])]
+    del wide
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **_bound(4 * n_io, B * A * N * K2_STEP_FLOPS),
-            "variant": "lanes", "thread_variant_ms": thread_ms,
-            "max_abs_diff_vs_thread": diffs["thread"]}
+            "variant": "lanes", "ring_variant_ms": ring_ms, "at_width": width}
 
 
 def _same_bits(a, b):
@@ -1586,19 +1661,16 @@ def _hold_case(label, ocp, data, ps, alphas, err, flops):
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        LINESEARCH_VARIANTS, linesearch_forward, linesearch_forward_torch,
-        linesearch_launch_plan)
+        LINESEARCH_VARIANTS, linesearch_forward, linesearch_forward_torch)
 
     x0, xs, us, kff, K = data
-    B, N, nu = us.shape
-    nx, npar, A = xs.shape[-1], ps.shape[-1], len(alphas)
+    B, npar = us.shape[0], ps.shape[-1]
     f = dict(dtype=torch.float32, device=xs.device)
     reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
-    sizes = dict(nx=nx, nu=nu)
     data = (x0, xs, us, ps, kff, K)
     best, xs_r, us_r, c_r, nonfinite = _k2_kernel_rule(data, alphas, ocp)
     twin_best = linesearch_forward_torch(*data, alphas, ocp=ocp)[3]
-    planned = linesearch_launch_plan(N, A, npar, **sizes).variant
+    planned = _k2_plan(data, alphas).variant
     for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
         used, (xs_k, us_k, c_k, b_k) = _variants_used(
             linesearch_forward,
@@ -1659,7 +1731,7 @@ def _time_case(label, ocp, data, alphas, flops, twin=None):
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch, fused_launch_plan)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        linesearch_forward, linesearch_forward_torch, linesearch_launch_plan)
+        linesearch_forward, linesearch_forward_torch)
 
     xs, us, ps = data[1], data[2], data[3]
     B, N, nu = us.shape
@@ -1667,7 +1739,7 @@ def _time_case(label, ocp, data, alphas, flops, twin=None):
     f = dict(dtype=torch.float32, device=xs.device)
     reg, ones = torch.full((B,), 1e-6, **f), torch.ones((B,), **f)
     sizes = dict(nx=nx, nu=nu)
-    planned = linesearch_launch_plan(N, A, npar, **sizes).variant
+    planned = _k2_plan(data, alphas).variant
     twin = twin or ocp
     k2 = lambda: linesearch_forward(*data, alphas, ocp=ocp)
     k3 = lambda: fused_backward(xs, us, ps, reg, ones, ocp=ocp)
@@ -1691,7 +1763,7 @@ def _time_case(label, ocp, data, alphas, flops, twin=None):
           f"by {row2['bound_by']}), K3 {row3['ms']:.4f} ms (twin "
           f"{row3['plain_ms']:.2f}, bound {row3['bound_ms']:.4f} by "
           f"{row3['bound_by']}); plan K2 "
-          f"{linesearch_launch_plan(N, A, npar, **sizes)[:4]}, K3 "
+          f"{_k2_plan(data, alphas)[:4]}, K3 "
           f"{fused_launch_plan(N, True, None, B, **sizes)[:4]}", flush=True)
     return row2, row3
 
@@ -1704,17 +1776,16 @@ def _hold_linear_case(label, ocp, ocp64, data, ps, alphas, err):
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan)
+        LINESEARCH_VARIANTS, linesearch_forward)
 
     x0, xs, us, kff, K = data
-    B, N, nu = us.shape
+    B = us.shape[0]
     _resolves_fused(label, ocp)
     full = (x0, xs, us, ps, kff, K)
     full64 = _to64(*full)
     cand32 = _k2_candidates(full, alphas, ocp)
     cand64 = _k2_candidates(full64, alphas, ocp64)
-    planned = linesearch_launch_plan(N, len(alphas), ps.shape[-1],
-                                     nx=xs.shape[-1], nu=nu).variant
+    planned = _k2_plan(full, alphas).variant
     for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
         used, out = _variants_used(
             linesearch_forward,
@@ -2506,7 +2577,7 @@ def _solver_variants(N, npar, A, B, k1=True):
     from mpc_verde_tpu_torch.ops.cuda.riccati import riccati_launch_plan
     from mpc_verde_tpu_torch.ops.cuda.rollout import linesearch_launch_plan
 
-    out = {"linesearch_forward": {linesearch_launch_plan(N, a, npar).variant
+    out = {"linesearch_forward": {linesearch_launch_plan(N, a, npar, B=B).variant
                                   for a in (A, 1)}}
     if k1:
         out["riccati_backward"] = {
@@ -2780,7 +2851,7 @@ def phase_solvers(dev, gpu, queue, ref_fused, refs):
     for backend, dtype, opts, tol, expect in (
             ("cuda_fused", torch.float32, _opts(), COND_U0_TOL,
              {"fused_backward": {"staged", "thread"},
-              "linesearch_forward": {"lanes", "lanes_reroll", "thread"}}),
+              "linesearch_forward": {"lanes", "lanes_ring"}}),
             ("torch", torch.float64, ILQROptions(max_iters=60), COND_U0_TOL64,
              {})):
         pocp, _ = pendulum_ocp(SPEC["N"], SPEC["Ntu"], dev, dtype)
@@ -2805,7 +2876,8 @@ def phase_solvers(dev, gpu, queue, ref_fused, refs):
         lambda: _warm_start_us(QUEUE, dev, torch.float32))
     expect = {"riccati_backward": {riccati_launch_plan(BENCH_N, 3, 2, False,
                                                        QUEUE).variant},
-              "linesearch_forward": {linesearch_launch_plan(BENCH_N, 1, 3).variant}}
+              "linesearch_forward": {linesearch_launch_plan(
+                  BENCH_N, 1, 3, B=QUEUE).variant}}
     _check_variants("warm", launches, twin_calls, expect,
                     counts={"riccati_backward": 1, "linesearch_forward": 1})
     box = torch.tensor([1.0, np.pi / 4], device=dev)
@@ -3114,7 +3186,7 @@ def _sweep_variants(B, N, opt):
     return {"fused_backward": {fused_launch_plan(
                 N, opt.use_ddp, None, B, nx=4, nu=1).variant},
             "linesearch_forward": {linesearch_launch_plan(
-                N, a, 5, nx=4, nu=1).variant for a in (opt.n_alphas, 1)}}
+                N, a, 5, nx=4, nu=1, B=B).variant for a in (opt.n_alphas, 1)}}
 
 
 def _hold_sweep_rows(rows, ref):
@@ -3980,13 +4052,30 @@ def rate_form_ocps(device):
     return ocps
 
 
+def quadrotor_cell_ocp(N, device):
+    """The benchmark's planar quadrotor at horizon ``N``: its program
+    (``portbench/programs/quadrotor2d.py``) on its cell's configuration,
+    so that at N = 40 its trace is the cell's own program."""
+    import importlib.util
+
+    bench = Path(__file__).resolve().parent / "portbench"
+    spec = importlib.util.spec_from_file_location(
+        "quadrotor2d_program", bench / "programs" / "quadrotor2d.py")
+    program = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(program)
+    with open(bench / "configs" / "quadrotor2d_n40.json") as fh:
+        cfg = json.load(fh)
+    return program.build_ocp(dict(cfg, N=N), torch.device(device))
+
+
 def traced_programs():
-    """Phase 23's programs and the rate-form families', traced on the CPU,
-    for phase 2's build."""
+    """Phase 23's programs, the rate-form families' and the quadrotor
+    cell's, traced on the CPU, for phase 2's build."""
     from mpc_verde_tpu_torch.ops.cuda.trace import trace_ocp
 
     return [trace_ocp(o) for o in (*traced_ocps("cpu").values(),
-                                   *rate_form_ocps("cpu").values())]
+                                   *rate_form_ocps("cpu").values(),
+                                   quadrotor_cell_ocp(BENCH_N, "cpu"))]
 
 
 def _traced_flops(program, use_duals):
@@ -4123,7 +4212,7 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err,
     from mpc_verde_tpu_torch.ops.cuda.fused import (
         fused_backward, fused_backward_torch, fused_launch_plan)
     from mpc_verde_tpu_torch.ops.cuda.rollout import (
-        LINESEARCH_VARIANTS, linesearch_forward, linesearch_launch_plan)
+        LINESEARCH_VARIANTS, linesearch_forward)
 
     xs, us = res.xs.contiguous(), res.us.contiguous()
     B, N, nu = us.shape
@@ -4136,8 +4225,7 @@ def _traced_user_kernels(label, ocp, ocp64, res, x0, ps, alphas, err,
     twin, twin64 = twins or (ocp, ocp64)
     cand32 = _k2_candidates(full, alphas, twin)
     cand64 = _k2_candidates(_to64(*full), alphas, twin64)
-    planned = linesearch_launch_plan(N, len(alphas), ps.shape[-1], nx=nx,
-                                     nu=nu).variant
+    planned = _k2_plan(full, alphas).variant
     for variant in (None, *(v for v in LINESEARCH_VARIANTS if v != planned)):
         used, out = _variants_used(
             linesearch_forward,
@@ -4369,6 +4457,17 @@ def phase_traced(dev, gpu, ref_main, refs, M=TRACED_QUEUE, W=WIDTH,
     # (a) K2 and K3 against the hand-written unicycle model
     rows, err = _traced_vs_hand(dev, W, N)
     k2_rows, k3_rows = [rows[0]], [rows[1]]
+
+    # (g) K2's variants at the quadrotor cell's width on its traced model:
+    # the line search and the pre-roll
+    from mpc_verde_tpu_torch.utils.tune_launch_plans import _width_args
+    quad = quadrotor_cell_ocp(N, dev)
+    for A in (8, 1):
+        *wide, alphas_w = _width_args(dev, "quadrotor", CELL_WIDTH, N, A)
+        k2_rows.append(_k2_at_width(
+            "quadrotor cell" + (" pre-roll" if A == 1 else ""), quad, wide,
+            alphas_w, _program_flops(quad)[0], QUADROTOR_AT_WIDTH[A]))
+        del wide
 
     # (b) the bench OCP from its callables over phase 22's queue
     by_path = {}

@@ -17,10 +17,10 @@
 // us_out, cost_out (B,) and best_out (B,) int32.  The device model is the
 // unicycle (nx 3, nu 2): `model` and `model_ints` are the host arrays of
 // unicycle.cuh's unpack_model, `tables` is unused.  `alphas` is a host array
-// of n_alphas floats.  `variant` is 0 "thread", 1 "lanes" or 2
-// "lanes_reroll"; for the lanes variants `problems` is the number of
-// problems a block takes and `layout` a host array of the 9 ints of
-// LanesLayout from `xs` on, as linesearch_launch_plan computes them.
+// of n_alphas floats.  `variant` is 0 "lanes" or 1 "lanes_ring";
+// `problems` is the number of problems a block takes and `layout` a host
+// array of LanesLayout's ints as linesearch_prepare (rollout.cuh) reads them
+// and linesearch_launch_plan computes them.
 // Returns the CUDA error of setting the shared-memory size or of the launch,
 // or cudaErrorInvalidValue for a bad alpha count or plan, or a model that
 // reads columns past npar.
@@ -40,6 +40,14 @@ extern "C" int mv_linesearch_forward(int B, int N, int npar, const float* x0,
   if (B == 0) return 0;
   const RolloutArgs g{x0, xs, us, ps, kff, K, xs_out, us_out, cost_out, best_out, B, N, npar};
   return linesearch_run(m, g, al, variant, L, static_cast<cudaStream_t>(stream));
+}
+
+// Plain C entry point: what the CUDA runtime says of K2's `variant` kernel
+// on the unicycle model at `threads` a block and `smem_bytes` of dynamic
+// shared memory: out[0] registers a thread, out[1] local memory a thread
+// (bytes), out[2] resident blocks an SM.  Returns the CUDA error.
+extern "C" int mv_linesearch_occupancy(int variant, int threads, int smem_bytes, int* out) {
+  return linesearch_occupancy<UnicycleModel>(variant, threads, smem_bytes, out);
 }
 
 // Plain C entry point of the rounds' cost re-base (trajectory_cost_kernel):

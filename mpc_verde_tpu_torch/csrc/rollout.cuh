@@ -30,20 +30,37 @@
 // (the "streaming" rule, on or outside its box) or NaN (the "batched" rule,
 // outside it) loses to every finite one, as in the Pallas kernel.
 //
-// Variants, chosen by the caller from the shape (linesearch_launch_plan in
-// ops/cuda/rollout.py, which also computes the shared-memory layout):
-// "lanes" as above; "lanes_reroll" when the slots of a warp of lanes do not
-// fit in shared memory: the nominal slabs only, and the winning lane rolls
-// again and writes device memory itself; "thread" when even one problem's
-// slabs do not fit: one thread per problem, A cost passes in sequence over
-// device memory and one writing pass.  All three run the same roll() per
-// candidate, so a lane's cost is the float the thread computes.
+// Variants, chosen by the caller from the shape and the batch
+// (linesearch_launch_plan in ops/cuda/rollout.py, which also computes the
+// shared-memory layout): "lanes" as above, and "lanes_ring" (below) where
+// the grid of "lanes" runs many waves with few of its warps on each SM.
+// Both run the same roll_stage() per stage of a candidate and the same
+// group_first_min, so the ring's cost, alpha index, xs and us are those of
+// "lanes" bit for bit.
 //
-// What is left: us, kff and K slices are 16 floats modulo 32 apart at N = 40,
-// so two of a warp's four problems share banks on those reads (2-way).  The
-// kernel's time is one chain's latency: blocks of 32 to 256 threads take the
-// same time at 1024 problems (measured, utils/tune_launch_plans.py), so what
-// would shorten it is a shorter step, not another launch shape.
+// "lanes_ring": the lanes of "lanes", with shared memory that does not grow
+// with N.  A block streams its problems' nominal rows through a ring of two
+// chunks of kRingChunk stages with cp.async: it loads the next chunk while
+// the lanes roll the current one, one __syncthreads a chunk (a third chunk
+// gained nothing).  A stage row holds the stage's xs, us, kff, K and ps of
+// one problem; a problem's rows of a chunk are `pstride` floats apart (odd:
+// the problems of a warp read different banks).  There are no candidate
+// slots: after the shuffle that finds the first minimum, the block streams
+// the ring once more and thread t < problems re-rolls problem t at its
+// winning alpha and writes xs_out / us_out itself, so the second pass keeps
+// only the first problems' warps busy.  With one alpha (the pre-roll) the
+// first pass writes.  The chain is twice as long, but at (nx, nu) = (6, 2),
+// N = 40 a block of 16 problems needs 28 KB where "lanes" needs 120 KB for
+// 8: registers, not shared memory, then set how many blocks an SM holds.
+//
+// What bounds it: one candidate is a chain of N dependent steps, so a wave
+// of blocks takes one chain whatever its width, and what sets the time of a
+// batch of many waves is how many lanes an SM holds at once.  At B = 1024
+// the grid of "lanes" is about one wave and blocks of 32 to 256 threads take
+// the same time (utils/tune_launch_plans.py), so the plan constants
+// measured there could not see it; at 131,072 problems "lanes" at (6, 2)
+// runs 125 waves of one 2-warp block an SM (6.26 ms on the H100), the ring
+// 13 of five 4-warp blocks (1.80 ms; PERF.md, section 6).
 //
 // The kernels are templates on the device model: the unicycle of
 // unicycle.cuh (instantiated in rollout.cu, with its optional barrier and AL
@@ -94,17 +111,25 @@ struct CostArgs {
   int B, N, npar;
 };
 
-// Shared-memory layout in floats: the five nominal slabs of `pb` problems,
-// each at a multiple of 4 floats (16 bytes, for the vector copies), then
-// (with slots) one candidate slot per lane, `slot` floats apart, and the
-// winners' indices.  linesearch_launch_plan in ops/cuda/rollout.py is the one
-// place that computes it; the entry point takes it from there.
+// Shared-memory layout in floats.  "lanes": the five nominal slabs of `pb`
+// problems, each at a multiple of 4 floats (16 bytes, for the vector
+// copies), then one candidate slot per lane, `slot` floats apart, and the
+// winners' indices.  "lanes_ring": two ring
+// slots of one chunk each, `sstride` floats apart, each holding the chunk's
+// kRingChunk stages of `row` floats (xs, us, kff, K, ps) for each problem,
+// `pstride` floats apart; then the winners' indices at `best`.
+// linesearch_launch_plan in ops/cuda/rollout.py is the one place that
+// computes it; the entry point takes it from there.
 struct LanesLayout {
   int pb, a_pad;
   int xs, us, kff, K, ps, cand, best;  // offsets
   int slot;                            // floats per candidate slot (odd)
   int total;
+  int row, pstride, sstride;  // "lanes_ring" only
 };
+
+// The variants: the C entry's ids and linesearch_lanes_kernel's VARIANT.
+enum { kLanesVariant = 0, kRingVariant = 1 };
 
 namespace {
 
@@ -112,6 +137,38 @@ namespace {
 struct Problem {
   const float *x0, *xs, *us, *ps, *kff, *K;
 };
+
+// One stage k of a candidate at step length alpha from state x: the
+// clipped feedback control, the stage cost added to `cost`, x stepped.  The
+// stage's nominal rows are xn (nx), un, kf (nu), Kk (nu x nx) and p (npar);
+// x and the control are written to xs_w / us_w unless xs_w is null.
+template <class Model>
+__device__ __forceinline__ void roll_stage(const Model& m, float (&x)[Model::kNX], float& cost,
+                                           int k, float alpha, const float* xn, const float* un,
+                                           const float* kf, const float* Kk, const float* p,
+                                           float* xs_w, float* us_w) {
+  constexpr int kNX = Model::kNX, kNU = Model::kNU;
+  float dx[kNX], u[kNU], lo[kNU], hi[kNU];
+  model_box(m, x, p, k, lo, hi);  // the box of the state being rolled
+#pragma unroll
+  for (int i = 0; i < kNX; ++i) dx[i] = x[i] - xn[i];
+#pragma unroll
+  for (int a = 0; a < kNU; ++a) {
+    float Kdx = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) Kdx = Kdx + Kk[a * kNX + i] * dx[i];
+    const float v = (un[a] + alpha * kf[a]) + Kdx;
+    u[a] = Model::clip(v, lo[a], hi[a]);
+  }
+  if (xs_w) {
+#pragma unroll
+    for (int i = 0; i < kNX; ++i) xs_w[i] = x[i];
+#pragma unroll
+    for (int a = 0; a < kNU; ++a) us_w[a] = u[a];
+  }
+  cost = cost + stage_cost(m, x, u, p);
+  step(m, x, u, p);
+}
 
 // Roll one problem at step length alpha and return the cost; write the
 // trajectory to xs_w (N+1, nx) and us_w (N, nu) unless xs_w is null.
@@ -124,33 +181,10 @@ __device__ float roll(const Problem& q, const Model& m, int N, int npar, float a
   for (int i = 0; i < kNX; ++i) x[i] = q.x0[i];
   float cost = 0.0f;
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    const float* xn = q.xs + k * kNX;
-    const float* un = q.us + k * kNU;
-    const float* kf = q.kff + k * kNU;
-    const float* Kk = q.K + k * kNU * kNX;
-    const float* p = q.ps + k * npar;
-    float dx[kNX], u[kNU], lo[kNU], hi[kNU];
-    model_box(m, x, p, k, lo, hi);  // the box of the state being rolled
-#pragma unroll
-    for (int i = 0; i < kNX; ++i) dx[i] = x[i] - xn[i];
-#pragma unroll
-    for (int a = 0; a < kNU; ++a) {
-      float Kdx = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kNX; ++i) Kdx = Kdx + Kk[a * kNX + i] * dx[i];
-      const float v = (un[a] + alpha * kf[a]) + Kdx;
-      u[a] = Model::clip(v, lo[a], hi[a]);
-    }
-    if (xs_w) {
-#pragma unroll
-      for (int i = 0; i < kNX; ++i) xs_w[k * kNX + i] = x[i];
-#pragma unroll
-      for (int a = 0; a < kNU; ++a) us_w[k * kNU + a] = u[a];
-    }
-    cost = cost + stage_cost(m, x, u, p);
-    step(m, x, u, p);
-  }
+  for (int k = 0; k < N; ++k)
+    roll_stage(m, x, cost, k, alpha, q.xs + k * kNX, q.us + k * kNU, q.kff + k * kNU,
+               q.K + k * kNU * kNX, q.ps + k * npar, xs_w ? xs_w + k * kNX : nullptr,
+               xs_w ? us_w + k * kNU : nullptr);
   if (xs_w) {
 #pragma unroll
     for (int i = 0; i < kNX; ++i) xs_w[N * kNX + i] = x[i];
@@ -159,34 +193,7 @@ __device__ float roll(const Problem& q, const Model& m, int N, int npar, float a
   return cost;
 }
 
-// ---- "thread": one thread per problem over device memory -------------------
-
-template <class Model>
-__global__ void linesearch_thread_kernel(RolloutArgs g, Model m, Alphas al) {
-  constexpr int kNX = Model::kNX, kNU = Model::kNU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= g.B) return;
-  const int N = g.N;
-  const size_t sx = (size_t)b * (N + 1), su = (size_t)b * N;
-  const Problem q{g.x0 + (size_t)b * kNX, g.xs + sx * kNX,    g.us + su * kNU,
-                  g.ps + sx * g.npar,     g.kff + su * kNU,   g.K + su * kNU * kNX};
-  int best = 0;
-  if (al.n > 1) {
-    float best_c = FLT_MAX;
-#pragma unroll 1
-    for (int a = 0; a < al.n; ++a) {
-      const float c = roll(q, m, N, g.npar, al.a[a], nullptr, nullptr);
-      if (c < best_c) {  // strict <, ascending alpha: first minimum
-        best_c = c;
-        best = a;
-      }
-    }
-  }
-  g.cost_out[b] = roll(q, m, N, g.npar, al.a[best], g.xs_out + sx * kNX, g.us_out + su * kNU);
-  g.best_out[b] = best;
-}
-
-// ---- "lanes" / "lanes_reroll": one lane per (problem, alpha) ---------------
+// ---- "lanes" / "lanes_ring": one lane per (problem, alpha) -------------------
 
 // Start the block's copy of n floats from device to shared memory (dst is 16
 // byte aligned); the caller commits and waits.
@@ -198,7 +205,74 @@ __device__ __forceinline__ void load_slab(float* dst, const float* src, int n) {
     __pipeline_memcpy_async(dst + i, src + i, 4);
 }
 
-template <class Model, bool SLOTS>
+// Stages a ring chunk, and chunks in the ring ("lanes_ring"; the plan's
+// _RING_CHUNK and _RING_DEPTH).
+constexpr int kRingChunk = 8, kRingDepth = 2;
+
+template <int n>
+__device__ __forceinline__ void copy_row(float* dst, const float* src) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) __pipeline_memcpy_async(dst + i, src + i, 4);
+}
+
+// Start the copy of ring chunk i (a pass over the horizon is `nchunks`
+// chunks; chunk i holds stages (i % nchunks) * kRingChunk on) of the
+// block's nb problems into ring slot i % kRingDepth, one stage row (xs, us, kff,
+// K, ps) a thread, and commit it: an empty group past the last chunk, so
+// that every thread waits alike.  (A copy of consecutive floats by
+// consecutive threads coalesces, but its index arithmetic cost more than
+// it saved: 2.10 against 1.80 ms at the quadrotor cell's width on the
+// H100.)
+template <int kNX, int kNU>
+__device__ __forceinline__ void load_chunk(float* smem, const RolloutArgs& g,
+                                           const LanesLayout& L, int b0, int nb, int nchunks,
+                                           int last, int i) {
+  constexpr int C = kRingChunk;
+  if (i < last) {
+    const int N = g.N, npar = g.npar;
+    const int k0 = (i % nchunks) * C, n = min(C, N - k0);
+    float* slot = smem + (i % kRingDepth) * L.sstride;
+    for (int r = threadIdx.x; r < nb * C; r += blockDim.x) {
+      const int p = r / C, s = r - p * C;
+      if (s >= n) continue;
+      const size_t kx = (size_t)(b0 + p) * (N + 1) + k0 + s, ku = (size_t)(b0 + p) * N + k0 + s;
+      float* d = slot + p * L.pstride + s * L.row;
+      copy_row<kNX>(d, g.xs + kx * kNX);
+      copy_row<kNU>(d + kNX, g.us + ku * kNU);
+      copy_row<kNU>(d + kNX + kNU, g.kff + ku * kNU);
+      copy_row<kNU * kNX>(d + kNX + 2 * kNU, g.K + ku * kNU * kNX);
+      for (int j = 0; j < npar; ++j)
+        __pipeline_memcpy_async(d + kNX + 2 * kNU + kNU * kNX + j, g.ps + kx * npar + j, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+// The first minimum over a group of a_pad lanes (alpha index a, cost c):
+// the lowest index among the costs < FLT_MAX, 0 if there is none; its cost
+// in c_best.
+__device__ __forceinline__ int group_first_min(float c, bool active, int a, int a_pad,
+                                               float& c_best) {
+  const bool valid = active && c < FLT_MAX;
+  float kc = valid ? c : FLT_MAX;
+  int ki = valid ? a : INT_MAX;
+  const unsigned mask =
+      a_pad == 32 ? 0xffffffffu : ((1u << a_pad) - 1u) << ((threadIdx.x & 31) / a_pad * a_pad);
+  for (int off = a_pad >> 1; off > 0; off >>= 1) {
+    const float oc = __shfl_xor_sync(mask, kc, off, a_pad);
+    const int oi = __shfl_xor_sync(mask, ki, off, a_pad);
+    if (oc < kc || (oc == kc && oi < ki)) {
+      kc = oc;
+      ki = oi;
+    }
+  }
+  const int best = ki == INT_MAX ? 0 : ki;
+  c_best = __shfl_sync(mask, c, best, a_pad);
+  return best;
+}
+
+// VARIANT kLanesVariant ("lanes") or kRingVariant ("lanes_ring").
+template <class Model, int VARIANT>
 __global__ void linesearch_lanes_kernel(RolloutArgs g, Model m, Alphas al, LanesLayout L) {
   constexpr int kNX = Model::kNX, kNU = Model::kNU;
   extern __shared__ __align__(16) float smem[];
@@ -206,63 +280,102 @@ __global__ void linesearch_lanes_kernel(RolloutArgs g, Model m, Alphas al, Lanes
   const int LX = (N + 1) * kNX, LU = N * kNU, LK = N * kNU * kNX, LP = (N + 1) * g.npar;
   const int b0 = blockIdx.x * L.pb;
   const int nb = min(L.pb, g.B - b0);
-
-  load_slab(smem + L.xs, g.xs + (size_t)b0 * LX, nb * LX);
-  load_slab(smem + L.us, g.us + (size_t)b0 * LU, nb * LU);
-  load_slab(smem + L.kff, g.kff + (size_t)b0 * LU, nb * LU);
-  load_slab(smem + L.K, g.K + (size_t)b0 * LK, nb * LK);
-  load_slab(smem + L.ps, g.ps + (size_t)b0 * LP, nb * LP);
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
   const int pl = threadIdx.x / L.a_pad;  // problem within the block
   const int a = threadIdx.x % L.a_pad;   // alpha index
   const int b = b0 + pl;
   const bool active = pl < nb && a < al.n;
-  const Problem q{g.x0 + (size_t)(active ? b : 0) * kNX, smem + L.xs + pl * LX,
-                  smem + L.us + pl * LU,                 smem + L.ps + pl * LP,
-                  smem + L.kff + pl * LU,                smem + L.K + pl * LK};
-  float* xs_g = g.xs_out + (size_t)b * LX;
-  float* us_g = g.us_out + (size_t)b * LU;
+  int* bests = reinterpret_cast<int*>(smem + L.best);
+  float c_best;
 
-  if (!SLOTS && al.n == 1) {  // pre-roll: the writing pass alone
-    if (active) {
-      g.cost_out[b] = roll(q, m, N, g.npar, al.a[0], xs_g, us_g);
-      g.best_out[b] = 0;
+  if constexpr (VARIANT == kRingVariant) {
+    const int nchunks = (N + kRingChunk - 1) / kRingChunk;
+    const int last = (al.n > 1 ? 2 : 1) * nchunks;
+    load_chunk<kNX, kNU>(smem, g, L, b0, nb, nchunks, last, 0);
+    int next = 0;  // the next chunk to roll
+    // One pass over the horizon through the ring, the whole block in step:
+    // each chunk waits for its copy, starts the copy of the next chunk into
+    // the slot the previous one held, and rolls.  Where `on`
+    // it rolls problem p at alpha from its x0 and returns the cost, writing
+    // the trajectory to xs_w / us_w unless xs_w is null.
+    auto pass = [&](bool on, int p, float alpha, float* xs_w, float* us_w) {
+      float x[kNX] = {};
+      float cost = 0.0f;
+      if (on) {
+#pragma unroll
+        for (int i = 0; i < kNX; ++i) x[i] = g.x0[(size_t)(b0 + p) * kNX + i];
+      }
+#pragma unroll 1
+      for (int c = 0; c < nchunks; ++c) {
+        __pipeline_wait_prior(kRingDepth - 2);
+        __syncthreads();
+        load_chunk<kNX, kNU>(smem, g, L, b0, nb, nchunks, last, next + kRingDepth - 1);
+        const float* rows = smem + (next++ % kRingDepth) * L.sstride + p * L.pstride;
+        if (!on) continue;
+        const int k0 = c * kRingChunk, n = min(kRingChunk, N - k0);
+#pragma unroll 1
+        for (int s = 0; s < n; ++s) {
+          const float* r = rows + s * L.row;
+          const int k = k0 + s;
+          roll_stage(m, x, cost, k, alpha, r, r + kNX, r + kNX + kNU, r + kNX + 2 * kNU,
+                     r + kNX + 2 * kNU + kNU * kNX, xs_w ? xs_w + k * kNX : nullptr,
+                     xs_w ? us_w + k * kNU : nullptr);
+        }
+      }
+      if (on) {
+        if (xs_w) {
+#pragma unroll
+          for (int i = 0; i < kNX; ++i) xs_w[N * kNX + i] = x[i];
+        }
+        if (has_terminal_cost(m))
+          cost = cost + terminal_cost(m, x, g.ps + ((size_t)(b0 + p) * (N + 1) + N) * g.npar);
+      }
+      return cost;
+    };
+
+    if (al.n == 1) {  // pre-roll: the writing pass alone
+      const float c = pass(active, pl, al.a[0], g.xs_out + (size_t)b * LX,
+                           g.us_out + (size_t)b * LU);
+      if (active) {
+        g.cost_out[b] = c;
+        g.best_out[b] = 0;
+      }
+      return;
     }
-    return;
-  }
-
-  float* slot = SLOTS ? smem + L.cand + threadIdx.x * L.slot : nullptr;
-  float c = 0.0f;
-  if (active) c = roll(q, m, N, g.npar, al.a[a], slot, SLOTS ? slot + LX : nullptr);
-
-  // first minimum over the group: the lowest index among the costs < FLT_MAX
-  const bool valid = active && c < FLT_MAX;
-  float kc = valid ? c : FLT_MAX;
-  int ki = valid ? a : INT_MAX;
-  const unsigned mask =
-      L.a_pad == 32 ? 0xffffffffu
-                    : ((1u << L.a_pad) - 1u) << ((threadIdx.x & 31) / L.a_pad * L.a_pad);
-  for (int off = L.a_pad >> 1; off > 0; off >>= 1) {
-    const float oc = __shfl_xor_sync(mask, kc, off, L.a_pad);
-    const int oi = __shfl_xor_sync(mask, ki, off, L.a_pad);
-    if (oc < kc || (oc == kc && oi < ki)) {
-      kc = oc;
-      ki = oi;
+    const float c = pass(active, pl, al.a[active ? a : 0], nullptr, nullptr);
+    const int best = group_first_min(c, active, a, L.a_pad, c_best);
+    if (a == 0 && pl < nb) {
+      g.cost_out[b] = c_best;
+      g.best_out[b] = best;
+      bests[pl] = best;
     }
-  }
-  const int best = ki == INT_MAX ? 0 : ki;
-  const float c_best = __shfl_sync(mask, c, best, L.a_pad);
-  if (a == 0 && pl < nb) {
-    g.cost_out[b] = c_best;
-    g.best_out[b] = best;
-  }
+    __syncthreads();
+    // the winners' pass: thread t re-rolls problem t
+    const int t = threadIdx.x;
+    const bool on = t < nb;
+    pass(on, t, al.a[on ? bests[t] : 0], g.xs_out + (size_t)(b0 + t) * LX,
+         g.us_out + (size_t)(b0 + t) * LU);
+  } else {
+    load_slab(smem + L.xs, g.xs + (size_t)b0 * LX, nb * LX);
+    load_slab(smem + L.us, g.us + (size_t)b0 * LU, nb * LU);
+    load_slab(smem + L.kff, g.kff + (size_t)b0 * LU, nb * LU);
+    load_slab(smem + L.K, g.K + (size_t)b0 * LK, nb * LK);
+    load_slab(smem + L.ps, g.ps + (size_t)b0 * LP, nb * LP);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
 
-  if (SLOTS) {
-    int* bests = reinterpret_cast<int*>(smem + L.best);
-    if (a == 0) bests[pl] = best;
+    const Problem q{g.x0 + (size_t)(active ? b : 0) * kNX, smem + L.xs + pl * LX,
+                    smem + L.us + pl * LU,                 smem + L.ps + pl * LP,
+                    smem + L.kff + pl * LU,                smem + L.K + pl * LK};
+    float* slot = smem + L.cand + threadIdx.x * L.slot;
+    float c = 0.0f;
+    if (active) c = roll(q, m, N, g.npar, al.a[a], slot, slot + LX);
+    const int best = group_first_min(c, active, a, L.a_pad, c_best);
+    if (a == 0 && pl < nb) {
+      g.cost_out[b] = c_best;
+      g.best_out[b] = best;
+      bests[pl] = best;
+    }
     __syncthreads();
     const float* cand = smem + L.cand;
     float* xs_o = g.xs_out + (size_t)b0 * LX;
@@ -275,59 +388,114 @@ __global__ void linesearch_lanes_kernel(RolloutArgs g, Model m, Alphas al, Lanes
       const int p = i / LU;
       us_o[i] = cand[(p * L.a_pad + bests[p]) * L.slot + LX + (i - p * LU)];
     }
-  } else if (active && a == best) {
-    roll(q, m, N, g.npar, al.a[best], xs_g, us_g);
   }
 }
 
-template <class Model, bool SLOTS>
+// Permit the lanes kernel of VARIANT on model m all of a block's dynamic
+// shared memory (once a device).
+template <class Model, int VARIANT>
+cudaError_t permit_lanes() {
+  static bool permitted[kMaxDevices];
+  return permit_shared_memory(linesearch_lanes_kernel<Model, VARIANT>, permitted);
+}
+
+template <class Model, int VARIANT>
 cudaError_t launch_lanes(const RolloutArgs& g, const Model& m, const Alphas& al,
                          const LanesLayout& L, cudaStream_t stream) {
-  static bool permitted[kMaxDevices];
-  const cudaError_t err =
-      permit_shared_memory(linesearch_lanes_kernel<Model, SLOTS>, permitted);
+  const cudaError_t err = permit_lanes<Model, VARIANT>();
   if (err != cudaSuccess) return err;
   const int blocks = (g.B + L.pb - 1) / L.pb;
-  linesearch_lanes_kernel<Model, SLOTS>
+  linesearch_lanes_kernel<Model, VARIANT>
       <<<blocks, L.pb * L.a_pad, L.total * sizeof(float), stream>>>(g, m, al, L);
   return cudaGetLastError();
 }
 
 // The alphas and the lanes plan as the kernels take them, from the C entry
-// points' host arrays (`layout`: the 9 ints of LanesLayout from `xs` on);
-// cudaErrorInvalidValue for a bad alpha count, variant or plan.
+// points' host arrays (`layout`: for "lanes" the 9 ints
+// of LanesLayout from `xs` to `total`, for "lanes_ring" the 5 ints row,
+// pstride, sstride, best, total); cudaErrorInvalidValue for a bad alpha
+// count, variant or plan.
 inline cudaError_t linesearch_prepare(const float* alphas, int n_alphas, int variant,
                                       int problems, const int* layout, Alphas& al,
                                       LanesLayout& L) {
-  if (n_alphas < 1 || n_alphas > kMaxAlphas || variant < 0 || variant > 2)
+  if (n_alphas < 1 || n_alphas > kMaxAlphas || variant < kLanesVariant ||
+      variant > kRingVariant)
     return cudaErrorInvalidValue;
   al.n = n_alphas;
   for (int i = 0; i < kMaxAlphas; ++i) al.a[i] = i < n_alphas ? alphas[i] : 0.0f;
   L = LanesLayout{};
-  if (variant != 0) {
-    int a_pad = 1;
-    while (a_pad < n_alphas) a_pad *= 2;
-    if (problems < 1 || problems * a_pad > 1024) return cudaErrorInvalidValue;
-    L = LanesLayout{problems,  a_pad,     layout[0], layout[1], layout[2], layout[3],
-                    layout[4], layout[5], layout[6], layout[7], layout[8]};
-    if (((L.xs | L.us | L.kff | L.K | L.ps) & 3) != 0) return cudaErrorInvalidValue;
+  int a_pad = 1;
+  while (a_pad < n_alphas) a_pad *= 2;
+  if (problems < 1 || problems * a_pad > 1024) return cudaErrorInvalidValue;
+  L.pb = problems;
+  L.a_pad = a_pad;
+  if (variant == kRingVariant) {
+    L.row = layout[0];
+    L.pstride = layout[1];
+    L.sstride = layout[2];
+    L.best = layout[3];
+    L.total = layout[4];
+    if (L.pstride < kRingChunk * L.row || L.sstride < problems * L.pstride ||
+        L.best < kRingDepth * L.sstride || L.total < L.best + problems)
+      return cudaErrorInvalidValue;
+    return cudaSuccess;
   }
+  L.xs = layout[0];
+  L.us = layout[1];
+  L.kff = layout[2];
+  L.K = layout[3];
+  L.ps = layout[4];
+  L.cand = layout[5];
+  L.best = layout[6];
+  L.slot = layout[7];
+  L.total = layout[8];
+  if (((L.xs | L.us | L.kff | L.K | L.ps) & 3) != 0) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// Launch `variant` (0 "thread", 1 "lanes", 2 "lanes_reroll") on model m; the
-// caller has checked the model, the alphas and the plan.
+// Launch `variant` (kLanesVariant or kRingVariant) on model m; the caller
+// has checked the model, the alphas and the plan but for the ring's row,
+// checked here against the model's sizes.
 template <class Model>
 cudaError_t linesearch_run(const Model& m, const RolloutArgs& g, const Alphas& al, int variant,
                            const LanesLayout& L, cudaStream_t s) {
-  if (variant == 0) {
-    constexpr int kThreads = 64;
-    const int blocks = (g.B + kThreads - 1) / kThreads;
-    linesearch_thread_kernel<Model><<<blocks, kThreads, 0, s>>>(g, m, al);
-    return cudaGetLastError();
+  constexpr int kNX = Model::kNX, kNU = Model::kNU;
+  if (variant == kLanesVariant) return launch_lanes<Model, kLanesVariant>(g, m, al, L, s);
+  if (L.row != kNX + 2 * kNU + kNU * kNX + g.npar) return cudaErrorInvalidValue;
+  return launch_lanes<Model, kRingVariant>(g, m, al, L, s);
+}
+
+template <class Kernel>
+cudaError_t kernel_occupancy(Kernel kernel, int threads, int smem_bytes, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, kernel, threads, smem_bytes);
+}
+
+// What the CUDA runtime says of `variant`'s kernel on the model: out[0] its
+// registers a thread, out[1] its local memory a thread (bytes; spills), and
+// out[2] the blocks of `threads` threads and `smem_bytes` of dynamic shared
+// memory an SM holds at once.
+template <class Model>
+cudaError_t linesearch_occupancy(int variant, int threads, int smem_bytes, int* out) {
+  cudaError_t err = cudaSuccess;
+  switch (variant) {
+    case kLanesVariant:
+      err = permit_lanes<Model, kLanesVariant>();
+      return err != cudaSuccess ? err
+                                : kernel_occupancy(linesearch_lanes_kernel<Model, kLanesVariant>,
+                                                   threads, smem_bytes, out);
+    case kRingVariant:
+      err = permit_lanes<Model, kRingVariant>();
+      return err != cudaSuccess ? err
+                                : kernel_occupancy(linesearch_lanes_kernel<Model, kRingVariant>,
+                                                   threads, smem_bytes, out);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return variant == 1 ? launch_lanes<Model, true>(g, m, al, L, s)
-                      : launch_lanes<Model, false>(g, m, al, L, s);
 }
 
 // ---- the rounds' cost re-base: the cost of given trajectories ---------------

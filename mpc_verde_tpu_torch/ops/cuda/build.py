@@ -72,6 +72,7 @@ _SIGNATURES = {
                          + [_P] * 5 + [_I, _I, _I, _IP, _P] + [_P],
     "mv_trajectory_cost": [_I, _I, _I] + [_P] * 5 + [_FP, _IP, _P]
                           + [_P, _P],
+    "mv_linesearch_occupancy": [_I, _I, _I, _IP],
 }
 _RICCATI_SIGNATURE = ([_I, _I, _I, _I, _I, _F] + [_P] * 21 + [_I, _I, _IP, _P]
                       + [_P])
@@ -364,8 +365,8 @@ def refill_entry():
 
 def traced_entry(program, name: str):
     """The entry point ``name`` ("mv_linesearch_forward",
-    "mv_trajectory_cost" or "mv_fused_backward", the kernels library's
-    signatures) of a traced
+    "mv_linesearch_occupancy", "mv_trajectory_cost" or "mv_fused_backward",
+    the kernels library's signatures) of a traced
     program's library, built at first use and loaded once per process
     (inside the span ``mpc.build``)."""
     from ...utils.profiling import count, span   # utils imports this module

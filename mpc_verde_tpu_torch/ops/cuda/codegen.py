@@ -29,9 +29,10 @@ weights.  Literals are written exactly, as hex floats.
 ``units(program)`` gives the two translation units of the program's library
 (``build.py`` builds it at first use): K2's and K3's, each the header's text
 followed by the kernels' header and C entry points named with the text's
-hash, of the signatures of the kernels library's (``mv_linesearch_forward``
-and the rounds' cost re-base ``mv_trajectory_cost`` in K2's unit,
-``mv_fused_backward``), whose model arguments are the table alone.
+hash, of the signatures of the kernels library's (``mv_linesearch_forward``,
+``mv_linesearch_occupancy`` and the rounds' cost re-base
+``mv_trajectory_cost`` in K2's unit, ``mv_fused_backward``), whose model
+arguments are the table alone.
 """
 from __future__ import annotations
 
@@ -256,6 +257,12 @@ extern "C" int mv_linesearch_forward_{h}(
   const RolloutArgs g{{x0, xs, us, ps, kff, K, xs_out, us_out, cost_out, best_out, B, N, npar}};
   return linesearch_run(TracedModel{{tables}}, g, al, variant, L,
                         static_cast<cudaStream_t>(stream));
+}}
+
+// K2's registers, local memory and resident blocks an SM on the generated
+// model: the arguments of mv_linesearch_occupancy (rollout.cu).
+extern "C" int mv_linesearch_occupancy_{h}(int variant, int threads, int smem_bytes, int* out) {{
+  return linesearch_occupancy<TracedModel>(variant, threads, smem_bytes, out);
 }}
 
 // The rounds' cost re-base on the generated model: the arguments of

@@ -15,14 +15,13 @@ the nominal trajectory and gains to shared memory with coalesced loads,
 every lane keeps its candidate's trajectory in a shared-memory slot, the
 first minimum over (cost, alpha index) is found by warp shuffles, and the
 winners' slots leave as one coalesced slab, with no second roll.
-``linesearch_launch_plan`` picks the variant from the shape alone:
-``"lanes"`` as described, ``"lanes_reroll"`` (no slots: the winner rolls
-again and writes device memory itself) where the slots of a warp of lanes
-do not fit shared memory and for the pre-roll, whose one lane a problem
-rolls once, and ``"thread"`` (one thread per problem over device memory,
-A cost passes and one writing pass) where not even one problem's slabs fit.
-The plan also computes the kernel's shared-memory layout, which the C entry
-point takes as it is.
+``linesearch_launch_plan`` picks the variant from the shape and the batch:
+``"lanes"`` as described where the batch's grid runs in a few waves or an
+SM holds many of its blocks, else ``"lanes_ring"``: the nominal rows
+streamed through a ring of stage chunks, so that shared memory does not
+grow with N and more blocks share an SM, and the winners rolled again
+(the pre-roll, one alpha, rolls once and writes).  The plan also computes
+the kernel's shared-memory layout, which the C entry point takes as it is.
 
 The Pallas kernel inlines the OCP's jaxprs.  A CUDA kernel cannot inline a
 Python callable, so the kernel evaluates a device model: the one the OCP
@@ -66,38 +65,74 @@ from .trace import Program, trace_ocp
 from ...utils.profiling import count, span
 
 MAX_ALPHAS = 32  # kMaxAlphas in csrc/rollout.cuh: one problem's lanes fit a warp
-LINESEARCH_VARIANTS = ("thread", "lanes", "lanes_reroll")  # the C entry's ids
+LINESEARCH_VARIANTS = ("lanes", "lanes_ring")  # the C entry's ids
 # The plan's constants follow measurements on the H100
-# (utils/tune_launch_plans.py, B = 1024 unless said).
-# Lanes a block: the kernel's time is one candidate's chain, so 32 to 256
-# threads a block run within 1% of each other at the bench shape and within
-# 8% at the fleet's.  Below one warp a block "lanes" is slower than
-# "lanes_reroll": 3.2 ms against 1.3 ms at N = 600, A = 8 ("thread" 8.0 ms).
-# With one alpha, the pre-roll, there is nothing to choose and no second
-# roll to save, so candidate slots only make the blocks larger: 0.114 ms
-# against 0.082 ms at B = 16384, N = 40, and 0.0155 against 0.0111 ms at
-# N = 10.
+# (utils/tune_launch_plans.py; PERF.md section 6).
+# "lanes": at B = 1024 the kernel's time is one candidate's chain, so 32 to
+# 256 threads a block run within 1% of each other at the bench shape and
+# within 8% at the fleet's.
 _BLOCK_THREADS = 64
 _WARP = 32
+# "lanes_ring": threads a block, stages a chunk and chunks in the ring
+# (kRingChunk and kRingDepth of csrc/rollout.cuh).  At 131,072 problems,
+# N = 40, A = 8, 128 threads with 8 stages and two chunks ran fastest on
+# both models: the quadrotor's (6, 2) 1.80 ms (64 threads 2.09, 256 threads
+# 2.20), the unicycle's 0.80 ms; a third chunk gained nothing, and shorter
+# chunks lost more to the chunk's copy and barrier than their smaller ring
+# won in blocks an SM (chunk 1 at 64 threads: 3.20 and 1.71 ms).  There
+# registers, not shared memory, bound the blocks an SM (93 a thread at
+# (6, 2): five blocks of 128 threads).  With one alpha a block of 128
+# problems fills an SM's shared memory at (6, 2): its blocks are halved
+# until two fit an SM, so that one rolls while the other waits at a barrier
+# (the pre-roll of 1,048,576 rows: 8.6 ms in 2 blocks of 64, 9.3 ms in 1 of
+# 128).
+_RING_THREADS = 128
+_RING_CHUNK = 8
+_RING_DEPTH = 2
+# One SM of the H100 SXM (132 of them): shared memory in bytes (the runtime
+# reserves 1 KB a block) and warps.
+_SMS = 132
+_SM_SMEM, _BLOCK_SMEM_RESERVED = 233_472, 1_024
+_SM_WARPS = 64
+# The ring rolls the winners again: at one wave it took 1.84-1.87x the time
+# of "lanes" (unicycle 0.0568 / 0.0309 ms, quadrotor 0.1119 / 0.0600 at
+# B = 1024, N = 40, A = 8), so "lanes" keeps grids of up to two waves.  Past
+# them a wave of "lanes" takes one chain however few warps an SM holds: at
+# 131,072 problems the quadrotor's one 2-warp block an SM took 6.26 ms
+# against the ring's 1.80, the unicycle's three 1.30 against 0.80, while
+# the fleet's 13 blocks (26 warps) an SM kept "lanes" ahead, 1.17 against
+# 1.72 ms at 524,288.
+_LANES_MAX_WAVES = 2
+_LANES_MIN_WARPS = 16
+
+
+def _blocks_an_sm(threads: int, smem_bytes: int) -> int:
+    """Blocks of ``threads`` threads and ``smem_bytes`` of dynamic shared
+    memory that one SM holds by its shared memory and warps (registers
+    aside; the runtime's count is ``linesearch_occupancy``)."""
+    return min(_SM_WARPS // -(-threads // _WARP),
+               _SM_SMEM // (smem_bytes + _BLOCK_SMEM_RESERVED))
 
 
 def linesearch_launch_plan(N: int, A: int, npar: int,
                            variant: Optional[str] = None, *, nx: int = 3,
-                           nu: int = 2) -> LaunchPlan:
+                           nu: int = 2, B: Optional[int] = None) -> LaunchPlan:
     """How ``linesearch_forward`` launches its kernel for horizon ``N``,
-    ``A`` alphas, ``npar`` parameters and the model's sizes ``(nx, nu)``
-    (the unicycle's by default): a rule on the shape.
+    ``A`` alphas, ``npar`` parameters, the model's sizes ``(nx, nu)`` (the
+    unicycle's by default) and ``B`` problems (None: one wave): a rule on
+    the shape.
 
-    A block takes 64 / A_pad problems (A_pad: A rounded up to a power of
-    two), halved until its shared memory fits.  ``"lanes"`` if A > 1 and the
-    nominal slabs and the candidate slots of at least one warp of lanes fit;
-    else ``"lanes_reroll"`` if the nominal slabs of one problem fit; else
-    ``"thread"`` (the limits are measurements, stated at the constants
-    above).  ``variant`` forces one (for a comparison on the card); a
-    forced variant that does not fit raises
-    ``ValueError``.  The plan's ``layout`` is the kernel's shared-memory
-    layout, computed here and nowhere else: the C entry point takes it as
-    it is.
+    "lanes" takes 64 / A_pad problems a block (A_pad: A rounded up to a
+    power of two), halved until the whole-horizon slabs and the candidate
+    slots fit; "lanes_ring" takes 128 / A_pad, halved until two blocks fit
+    an SM, in bytes that do not grow with N.  The plan is "lanes" where
+    A > 1, at least a warp of lanes fits, and its grid runs in at most
+    ``_LANES_MAX_WAVES`` waves or an SM holds ``_LANES_MIN_WARPS`` of its
+    warps; else the ring (the limits are measurements, stated at the
+    constants above).  ``variant`` forces one (for a comparison on the
+    card); a variant that does not fit one problem raises ``ValueError``.
+    The plan's ``layout`` is the kernel's shared-memory layout, computed
+    here and nowhere else: the C entry point takes it as it is.
     """
     if not 1 <= A <= MAX_ALPHAS:
         raise ValueError(f"linesearch_forward takes 1..{MAX_ALPHAS} alphas")
@@ -107,37 +142,59 @@ def linesearch_launch_plan(N: int, A: int, npar: int,
     lx, lu, lk, lp = (N + 1) * nx, N * nu, N * nu * nx, (N + 1) * npar
     slot = (lx + lu) | 1    # odd: the lanes of a group write different banks
 
-    def layout(pb, slots):
-        """LanesLayout of ``csrc/rollout.cu`` from ``xs`` on, in floats: the
-        offsets of the five nominal slabs of ``pb`` problems, each a
+    def lanes_layout(pb):
+        """LanesLayout of ``csrc/rollout.cuh`` from ``xs`` on, in floats:
+        the offsets of the five nominal slabs of ``pb`` problems, each a
         multiple of 4 floats (16 bytes, for the vector copies), of the
         candidate slots and of the winners' indices; the slot stride; the
         total."""
         offsets = [0]
         for n in (lx, lu, lu, lk, lp):      # xs, us, kff, K, ps
             offsets.append(offsets[-1] + (pb * n + 3) // 4 * 4)
-        best = offsets[-1] + (pb * a_pad * slot if slots else 0)
-        return (*offsets, best, slot, best + (pb if slots else 0))
+        best = offsets[-1] + pb * a_pad * slot
+        return (*offsets, best, slot, best + pb)
 
-    smem = lambda pb, slots: 4 * layout(pb, slots)[-1]
-    for name in ("lanes", "lanes_reroll"):
-        if variant not in (None, name):
-            continue
-        slots = name == "lanes"
-        pb = max(1, _BLOCK_THREADS // a_pad)
-        while pb > 1 and smem(pb, slots) > SMEM_MAX_BYTES:
+    def ring_layout(pb):
+        """The ring's layout: the floats of a stage (xs, us, kff, K and ps
+        of one problem), the problem stride (a chunk's stages, odd: the
+        problems of a warp read different banks), the ring slot's stride,
+        the winners' indices' offset, the total."""
+        row = nx + 2 * nu + nu * nx + npar
+        pstride = (_RING_CHUNK * row) | 1
+        sstride = pb * pstride
+        best = _RING_DEPTH * sstride
+        return (row, pstride, sstride, best, best + pb)
+
+    def fitted(name, threads, layout, per_sm):
+        """``name``'s plan: ``threads`` / A_pad problems a block, halved
+        until the block fits and ``per_sm`` blocks fit an SM; None where
+        one problem does not fit a block, unless ``name`` is forced or the
+        last resort, which raise."""
+        pb = max(1, threads // a_pad)
+        smem = lambda pb: 4 * layout(pb)[-1]
+        while pb > 1 and (smem(pb) > SMEM_MAX_BYTES
+                          or _blocks_an_sm(pb * a_pad, smem(pb)) < per_sm):
             pb //= 2
-        if slots and variant is None and (A == 1 or pb * a_pad < _WARP):
-            continue
-        if smem(pb, slots) <= SMEM_MAX_BYTES:
-            return LaunchPlan(name, pb, pb * a_pad, smem(pb, slots),
-                              layout(pb, slots))
-        if variant is not None:
-            raise ValueError(f"variant {name!r} needs {smem(1, slots)} bytes of "
-                             f"shared memory for one problem at N={N}, A={A}, "
-                             f"npar={npar}, (nx, nu)=({nx}, {nu}); a block has "
-                             f"{SMEM_MAX_BYTES}")
-    return LaunchPlan("thread", 64, 64, 0)   # kThreads of the C entry
+        if smem(pb) <= SMEM_MAX_BYTES:
+            return LaunchPlan(name, pb, pb * a_pad, smem(pb), layout(pb))
+        if variant is None and name == "lanes":
+            return None
+        raise ValueError(f"variant {name!r} needs {smem(1)} bytes of shared "
+                         f"memory for one problem at N={N}, A={A}, "
+                         f"npar={npar}, (nx, nu)=({nx}, {nu}); a block has "
+                         f"{SMEM_MAX_BYTES}")
+
+    if variant in (None, "lanes"):
+        lanes = fitted("lanes", _BLOCK_THREADS, lanes_layout, 1)
+        if variant == "lanes":
+            return lanes
+        if lanes is not None and A > 1 and lanes.threads >= _WARP:
+            per_sm = _blocks_an_sm(lanes.threads, lanes.smem_bytes)
+            blocks = 0 if B is None else -(-B // lanes.problems)
+            if (blocks <= _LANES_MAX_WAVES * _SMS * per_sm
+                    or per_sm * lanes.threads >= _LANES_MIN_WARPS * _WARP):
+                return lanes
+    return fitted("lanes_ring", _RING_THREADS, ring_layout, 2)
 
 
 BARRIER_RULES = ("streaming", "batched")   # ids 1, 2 of the C entries (0: none)
@@ -554,6 +611,22 @@ def model_entry(model, name: str):
     return getattr(load_library(), name)
 
 
+def linesearch_occupancy(model, variant: str, threads: int, smem_bytes: int,
+                         device=None) -> dict:
+    """What the CUDA runtime says of K2's ``variant`` kernel on ``model`` at
+    ``threads`` a block and ``smem_bytes`` of dynamic shared memory:
+    ``registers`` and ``local_bytes`` (local memory) a thread
+    (``cudaFuncGetAttributes``) and ``blocks_per_sm``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), on ``device`` (the
+    current CUDA device by default)."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = model_entry(model, "mv_linesearch_occupancy")(
+            LINESEARCH_VARIANTS.index(variant), threads, smem_bytes, out)
+    check_launch(rc, "mv_linesearch_occupancy")
+    return dict(zip(("registers", "local_bytes", "blocks_per_sm"), out))
+
+
 def _checked_model(ocp, nx: int, nu: int, npar: int):
     """``kernel_model(ocp)``; raises ``ValueError`` unless it takes these
     sizes."""
@@ -628,7 +701,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     callable that does not lower raises ``NotImplementedError``, a failed
     build ``RuntimeError``.  CUDA tensors must be contiguous float32.
     The kernel's variant is ``linesearch_launch_plan``'s choice for the
-    shape; ``variant`` forces another for a comparison on the card (the
+    shape and the batch; ``variant`` forces another for a comparison on the card (the
     solvers never pass it).  ``launches`` counts every launch and
     ``launches_by_variant`` the launches of each variant.
     """
@@ -641,7 +714,7 @@ def linesearch_forward(x0, xs, us, ps, kffs, Ks, alphas: Sequence[float], *,
     nx, npar = x0.shape[-1], ps.shape[-1]
     A = len(alphas)
     model = _checked_model(ocp, nx, nu, npar)
-    plan = linesearch_launch_plan(N, A, npar, variant, nx=nx, nu=nu)
+    plan = linesearch_launch_plan(N, A, npar, variant, nx=nx, nu=nu, B=B)
     named = [("x0", x0, (B, nx)), ("xs", xs, (B, N + 1, nx)),
              ("us", us, (B, N, nu)), ("ps", ps, (B, N + 1, npar)),
              ("kffs", kffs, (B, N, nu)), ("Ks", Ks, (B, N, nu, nx))]

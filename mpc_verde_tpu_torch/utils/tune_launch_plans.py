@@ -1,6 +1,6 @@
 """Time the three kernels under other launch plans.
 
-    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE] [--only K1,K2,K3] [--terms]
+    python -m mpc_verde_tpu_torch.utils.tune_launch_plans [--out FILE] [--only K1,K2,K3] [--terms] [--widths]
 
 The launch plans (``riccati_launch_plan``, ``linesearch_launch_plan``,
 ``fused_launch_plan``) hold a few constants: the problems of a Riccati
@@ -16,6 +16,12 @@ on a measurement.  K1 is timed on the bench OCP's derivatives for (nx, nu) =
 (3, 2), at N = 10 / 40 / 160 / 600, with the cycles of its ``"warps"``
 variant's parts, and on random problems at the bench shape for the other
 instantiated sizes.
+With ``--widths`` it times instead K2's variants where the benchmark's cells
+run them: the line search at 1,024 to 131,072 problems (N = 40, A = 8) on
+the unicycle and on the traced planar quadrotor, the pre-roll over up to
+a call's 1,048,576 rows, the fleet's N = 10 at 524,288, each beside its
+registers and the blocks an SM holds (the CUDA runtime's count), and the
+ring's block size varied there.
 With ``--terms`` it times instead K2's and K3's variants on the OCPs that
 the interior-point and state-bound solvers derive (the barrier, npar 4; AL,
 npar 10; both, npar 11), whose params the line search stages with its
@@ -87,6 +93,95 @@ def _k1_random_args(dev, B, N, nx, nu, seed=8):
             t(np.ones((B,))))
 
 
+def _quadrotor_ocp(N, dev):
+    """The benchmark's planar quadrotor (``portbench/programs/quadrotor2d.py``
+    on its cell's configuration) at horizon ``N``, from callables: K2 runs
+    on the model traced from them, at N = 40 the cell's own program."""
+    import importlib.util
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[2] / "portbench"
+    spec = importlib.util.spec_from_file_location(
+        "quadrotor2d_program", bench / "programs" / "quadrotor2d.py")
+    program = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(program)
+    with open(bench / "configs" / "quadrotor2d_n40.json") as fh:
+        cfg = json.load(fh)
+    return program.build_ocp(dict(cfg, N=N), torch.device(dev))
+
+
+def _width_args(dev, model, B, N, A, seed=9):
+    """K2's inputs for ``model`` ("unicycle": the bench OCP's, npar 3;
+    "quadrotor": states in +-1, thrusts about hover, npar 6), zero gains
+    for the pre-roll (A = 1)."""
+    if model == "unicycle":
+        return _k2_args(dev, B, N, A, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    n = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    gain = 0.0 if A == 1 else 1.0
+    return (2 * r(B, 6) - 1, 2 * r(B, N + 1, 6) - 1, 4.76766 * r(B, N, 2),
+            torch.zeros((B, N + 1, 6), device=dev), gain * 0.3 * n(B, N, 2),
+            gain * 0.05 * n(B, N, 2, 6), tuple(0.4 ** i for i in range(A)))
+
+
+def _time_widths(dev, emit, device_time_ms):
+    """K2's variants at the benchmark cells' widths and below, on the
+    unicycle and on the traced quadrotor, each beside its registers and the
+    blocks an SM holds by the CUDA runtime; then the ring's block size
+    varied at the cells' widths."""
+    from ..interop import bench_ocp
+    from ..ops.cuda import rollout
+
+    ocps = {}
+    of = lambda model, N: ocps.setdefault((model, N), (
+        bench_ocp(N, dev, torch.float32) if model == "unicycle"
+        else _quadrotor_ocp(N, dev)))
+
+    def run(model, B, N, A, variant=None, reps=5, ring_threads=None):
+        ocp = of(model, N)
+        args = _width_args(dev, model, B, N, A)
+        nx, nu, npar = args[0].shape[-1], args[2].shape[-1], args[3].shape[-1]
+        saved = rollout._RING_THREADS
+        rollout._RING_THREADS = ring_threads or saved
+        try:
+            plan = rollout.linesearch_launch_plan(N, A, npar, variant, nx=nx,
+                                                  nu=nu, B=B)
+            ms = device_time_ms(lambda: rollout.linesearch_forward(
+                *args, ocp=ocp, variant=variant), reps)
+        finally:
+            rollout._RING_THREADS = saved
+        occ = rollout.linesearch_occupancy(rollout.kernel_model(ocp),
+                                           plan.variant, plan.threads,
+                                           plan.smem_bytes, dev)
+        return dict(kernel="K2", model=model, B=B, N=N, A=A, npar=npar,
+                    variant=plan.variant, ms=ms, plan=plan[:4],
+                    layout=plan.layout, **occ,
+                    planned=rollout.linesearch_launch_plan(
+                        N, A, npar, nx=nx, nu=nu, B=B).variant)
+
+    batches = (1024, 2048, 4096, 16384, 32768, 65536, 131072)
+    cases = [(m, 40, 8, batches) for m in ("quadrotor", "unicycle")]
+    cases += [(m, 40, 1, (1024, 16384, 131072, 1048576))
+              for m in ("quadrotor", "unicycle")]
+    cases += [("unicycle", 10, 12, (1024, 131072, 524288)),
+              ("unicycle", 10, 1, (1024, 524288))]
+    for model, N, A, bs in cases:
+        for B in bs:
+            for variant in rollout.LINESEARCH_VARIANTS:
+                emit(**run(model, B, N, A, variant))
+            torch.cuda.empty_cache()
+    for model, N, A, B in (("quadrotor", 40, 8, 131072),
+                           ("unicycle", 40, 8, 131072),
+                           ("quadrotor", 40, 1, 1048576),
+                           ("unicycle", 40, 1, 1048576),
+                           ("unicycle", 10, 1, 524288)):
+        for threads in (32, 64, 128, 256):
+            emit(ring_threads=threads, **run(model, B, N, A, "lanes_ring",
+                                             reps=3, ring_threads=threads))
+        torch.cuda.empty_cache()
+
+
 def _time_terms(dev, emit, device_time_ms):
     """K2's and K3's variants on the derived OCPs at npar 4, 10 and 11."""
     from ..interop import bench_ocp, derived_ocps, derived_params
@@ -103,14 +198,16 @@ def _time_terms(dev, emit, device_time_ms):
             npar = p.shape[-1]
             for variant in rollout.LINESEARCH_VARIANTS:
                 try:
-                    plan = rollout.linesearch_launch_plan(N, A, npar, variant)
+                    plan = rollout.linesearch_launch_plan(N, A, npar, variant,
+                                                          B=B)
                 except ValueError:
                     continue
                 ms = device_time_ms(lambda: rollout.linesearch_forward(
                     x0, xs, us, p, kff, K, alphas, ocp=ocp, variant=variant), 20)
                 emit(kernel="K2", case=name, npar=npar, B=B, N=N, A=A,
                      variant=variant, ms=ms, plan=plan[:4],
-                     planned=rollout.linesearch_launch_plan(N, A, npar)[0])
+                     planned=rollout.linesearch_launch_plan(N, A, npar,
+                                                            B=B)[0])
             if A == 1:
                 continue
             xs3, us3, _, reg, ddp = _k3_args(dev, bench_ocp(N, dev), B, N)
@@ -130,6 +227,8 @@ def main(argv=None) -> int:
                     help="kernels to time, e.g. K1 or K2,K3")
     ap.add_argument("--terms", action="store_true",
                     help="K2 and K3 on the barrier and AL OCPs only")
+    ap.add_argument("--widths", action="store_true",
+                    help="K2's variants at the benchmark cells' widths only")
     ns = ap.parse_args(argv)
     only = set(ns.only.split(","))
     if not torch.cuda.is_available():
@@ -155,7 +254,7 @@ def main(argv=None) -> int:
         args = _k2_args(dev, B, N, A)
         ms = device_time_ms(
             lambda: rollout.linesearch_forward(*args, ocp=ocp, **kw), reps)
-        plan = rollout.linesearch_launch_plan(N, A, 3, kw.get("variant"))
+        plan = rollout.linesearch_launch_plan(N, A, 3, kw.get("variant"), B=B)
         return {"kernel": "K2", "B": B, "N": N, "A": A, "ms": ms,
                 "plan": plan[:4]}
 
@@ -178,6 +277,9 @@ def main(argv=None) -> int:
 
     if ns.terms:
         _time_terms(dev, emit, device_time_ms)
+        return 0
+    if ns.widths:
+        _time_widths(dev, emit, device_time_ms)
         return 0
 
     if "K1" in only:

@@ -20,7 +20,8 @@ import torch
 
 import mpc_verde_tpu_torch as mt
 from chip_smoke import (_hold_optima, _k2_inputs, _k2_kernel_rule,
-                        _random_riccati, _rel_err, _term_cases, _term_inputs)
+                        _random_riccati, _rel_err, _same_bits, _term_cases,
+                        _term_inputs, quadrotor_cell_ocp)
 from mpc_verde_tpu_torch.interop import BENCH_DT, bench_ocp, unicycle_ocp
 from mpc_verde_tpu_torch.models import unicycle
 from mpc_verde_tpu_torch.ops import euler_step, rk4_step
@@ -40,6 +41,7 @@ from mpc_verde_tpu_torch.ops.cuda.rollout import (LINESEARCH_VARIANTS,
                                                   linesearch_forward_torch,
                                                   linesearch_launch_plan)
 from mpc_verde_tpu_torch.scenarios import build_fleet
+from mpc_verde_tpu_torch.utils.tune_launch_plans import _width_args
 
 pytestmark = pytest.mark.cuda
 
@@ -99,7 +101,8 @@ def _traced_programs():
             *(rate[name] for name in ("lane_al", "rate_barrier", "obstacle",
                                       "ops")),
             *(_bank_ocp(bank, "cpu") for bank in MATH_BANKS),
-            *cs.rate_form_ocps("cpu").values()]
+            *cs.rate_form_ocps("cpu").values(),
+            quadrotor_cell_ocp(40, "cpu")]
     return [trace_ocp(o) for o in ocps]
 
 
@@ -220,13 +223,14 @@ def test_linesearch_kernel_matches_twin(dev, variant):
     """B = 300 leaves the last block ragged (8 problems a block), B = 301
     also the last warp; "a5" has an alpha count that is no power of two;
     on "ties" (zero gains) every cost ties and alpha 0 must win; the
-    pre-roll (one alpha) takes the variant without slots; "fleet" is
+    pre-roll (one alpha) takes the ring, which has no slots; "fleet" is
     the shape the closed-loop fleet gives the kernel, on the fleet's own OCP
     with the solver's default alphas (B = 1024, N = 10, A = 12: groups of 16
     lanes, 4 of them idle, 4 problems a block); N = 3700
-    is past what shared memory holds, so the plan takes the one thread per
-    problem kernel (zero feedback there: 3700 steps of a clipped feedback
-    loop amplify float32 round-off past any tolerance)."""
+    is past what shared memory holds for a whole horizon, so the plan takes
+    the ring, whose shared memory does not grow with N (zero feedback there:
+    3700 steps of a clipped feedback loop amplify float32 round-off past any
+    tolerance)."""
     B, N, A = 300, 12, 8
     if variant == "ragged_B":
         B = 301
@@ -255,8 +259,8 @@ def test_linesearch_kernel_matches_twin(dev, variant):
     xs_k, us_k, c_k, b_k = linesearch_forward(*args, ocp=ocp)
     torch.cuda.synchronize()
     assert linesearch_forward.launches == before + 1
-    expected = {"long_N_thread": "thread",
-                "preroll": "lanes_reroll"}.get(variant, "lanes")
+    expected = {"long_N_thread": "lanes_ring",
+                "preroll": "lanes_ring"}.get(variant, "lanes")
     assert linesearch_launch_plan(N, len(alphas), 3).variant == expected
     assert _launched(linesearch_forward, by_variant) == {expected: 1}
     xs_t, us_t, c_t, b_t = linesearch_forward_torch(*args, ocp=ocp)
@@ -272,6 +276,95 @@ def test_linesearch_kernel_matches_twin(dev, variant):
         assert int(b_k.abs().max()) == 0
 
 
+# the ring's models and their (nx, nu, npar) as _ring_case builds them
+RING_SIZES = {"unicycle": (3, 2, 3), "barrier": (3, 2, 4),
+              "barrier_batched": (3, 2, 4), "al": (3, 2, 10),
+              "quadrature": (3, 2, 3), "quadrotor": (6, 2, 6)}
+RING_MODELS = tuple(RING_SIZES)
+
+
+def _lanes_fit(model, N, A):
+    """Whether a block of "lanes" holds one problem of ``model``."""
+    nx, nu, npar = RING_SIZES[model]
+    try:
+        linesearch_launch_plan(N, A, npar, "lanes", nx=nx, nu=nu)
+        return True
+    except ValueError:
+        return False
+
+
+# where "lanes" holds a problem: past that (N = 600 at 12 or 32 alphas) the
+# ring alone runs, held to the twin by test_linesearch_kernel_matches_twin
+RING_CASES = [case for case in (
+    [(m, 1000, N, A) for m in RING_MODELS for N in (10, 40, 600)
+     for A in (1, 3, 8, 12, 32)]
+    + [(m, 131071, N, A) for m in ("unicycle", "quadrotor")
+       for N in (10, 40, 600) for A in (1, 8)]
+    + [(m, 131071, 40, 8) for m in RING_MODELS[1:5]])
+    if _lanes_fit(case[0], case[2], case[3])]
+
+
+def _ring_case(dev, model, B, N, A):
+    """(OCP, K2's inputs) of ``model``: the bench unicycle on its
+    hand-written model, with the interior point's barrier (either rule, mu
+    0.01), the state box's AL penalty, or the diff-drive's RK4 quadrature
+    cost (4 substeps); or the benchmark's planar quadrotor on its traced
+    model.  Random nominal trajectories and gains, no feedback past N =
+    100 (a long clipped loop amplifies round-off past float32)."""
+    from chip_smoke import TERM_BOX
+    from mpc_verde_tpu_torch.interop import derived_ocps, derived_params
+    from mpc_verde_tpu_torch.scenarios.diffdrive import diffdrive_ocp
+
+    kind = "quadrotor" if model == "quadrotor" else "unicycle"
+    x0, xs, us, ps, kff, K, _ = _width_args(dev, kind, B, N, A)
+    if N > 100:
+        K = torch.zeros_like(K)
+    if model == "quadrotor":
+        return quadrotor_cell_ocp(N, dev), (x0, xs, us, ps, kff, K)
+    if model == "quadrature":
+        ocp = diffdrive_ocp(N, dev, integrator="rk4", cost="quadrature", M=4)
+    elif model == "unicycle":
+        ocp = bench_ocp(N, dev)
+    else:
+        ocp = derived_ocps(bench_ocp(N, dev, torch.float32, x_lb=TERM_BOX[0],
+                                     x_ub=TERM_BOX[1]))[model]
+        g = torch.Generator(device=dev).manual_seed(14)
+        lam = 2 * torch.rand((B, N + 1, 6), generator=g, device=dev)
+        ps = derived_params(model, ps, mu=1e-2, lam=lam,
+                            mu_al=torch.full((B,), 100.0, device=dev))
+    return ocp, (x0, xs, us, ps.contiguous(), kff, K)
+
+
+@pytest.mark.parametrize("model,B,N,A", RING_CASES)
+def test_ring_matches_lanes_bit_for_bit(dev, model, B, N, A):
+    """"lanes_ring" streams its rows through a ring and its winners roll
+    again; it runs the same stage function and shuffle as "lanes", so its
+    cost, alpha index, states and controls are those of "lanes" bit for
+    bit, on ragged batches, horizons up to what a whole-horizon block holds,
+    alpha counts that are no power of two and the pre-roll.  The barrier
+    prices candidates +inf (streaming) or NaN (batched) outside its box:
+    they lose alike (``test_linesearch_kernel_on_barrier_and_al_terms``
+    holds both variants to that rule).  With zero gains every cost ties and
+    alpha 0 wins."""
+    ocp, data = _ring_case(dev, model, B, N, A)
+    assert data[0].shape[-1:] + data[2].shape[-1:] + data[3].shape[-1:] == (
+        RING_SIZES[model])
+    alphas = tuple(0.4 ** i for i in range(A))
+    zero = (*data[:4], torch.zeros_like(data[4]), torch.zeros_like(data[5]))
+    for inputs in ((data, zero) if B == 1000 and A > 1 else (data,)):
+        by_variant = dict(linesearch_forward.launches_by_variant)
+        ring = linesearch_forward(*inputs, alphas, ocp=ocp,
+                                  variant="lanes_ring")
+        ref = linesearch_forward(*inputs, alphas, ocp=ocp, variant="lanes")
+        torch.cuda.synchronize()
+        assert _launched(linesearch_forward, by_variant) == {"lanes_ring": 1,
+                                                             "lanes": 1}
+        for name, a, b in zip(("xs", "us", "cost", "best"), ring, ref):
+            assert _same_bits(a, b), name
+        if inputs is zero:
+            assert int(ring[3].abs().max()) == 0
+
+
 @pytest.mark.parametrize("kernel", ["linesearch", "linesearch_reroll", "fused",
                                     "fused_gauss_newton", "riccati",
                                     "riccati_gauss_newton", "riccati_4x3",
@@ -282,7 +375,9 @@ def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
     stage, so a forced variant gives the planned one's results (to float32
     round-off, should the compiler contract them differently).  K1 at
     (5, 4) and (8, 4) is planned "thread", so there "warps" is the forced
-    one."""
+    one.  K2 has no "thread" variant: its line search (planned "lanes") is
+    held against the ring, and its pre-roll (planned the ring) against
+    "lanes"."""
     B, N = 301, 12
     if kernel.startswith("riccati"):
         nx, nu = {"riccati_4x3": (4, 3),
@@ -300,12 +395,18 @@ def test_forced_thread_variant_agrees_with_the_planned_one(dev, kernel):
             assert all(bool((o == r).all()) for o, r in zip(planned, forced))
     elif kernel.startswith("linesearch"):
         ocp = _ocp_variant("terminal", N, dev)
-        args = (*_k2_inputs(dev, B, N, seed=5), tuple(0.4 ** i for i in range(8)))
-        other = "lanes_reroll" if kernel == "linesearch_reroll" else "thread"
+        preroll = kernel == "linesearch_reroll"
+        x0, xs, us, ps, kff, K = _k2_inputs(dev, B, N, seed=5)
+        if preroll:
+            kff, K = torch.zeros_like(kff), torch.zeros_like(K)
+        args = (x0, xs, us, ps, kff, K,
+                (1.0,) if preroll else tuple(0.4 ** i for i in range(8)))
+        other = "lanes" if preroll else "lanes_ring"
         by_variant = dict(linesearch_forward.launches_by_variant)
         planned = linesearch_forward(*args, ocp=ocp)
         forced = linesearch_forward(*args, ocp=ocp, variant=other)
-        assert _launched(linesearch_forward, by_variant) == {"lanes": 1, other: 1}
+        assert _launched(linesearch_forward, by_variant) == {"lanes": 1,
+                                                             "lanes_ring": 1}
         assert float((planned[3] == forced[3]).float().mean()) >= 0.999
     else:
         ocp = _fused_ocp("terminal", N, dev)
@@ -1347,7 +1448,7 @@ def test_failed_k1_build_raises_with_its_log(dev, tmp_path, monkeypatch):
 
 # ---- K2 and K3 on the device model traced from an OCP's callables ----------
 
-@pytest.mark.parametrize("variant", [None, "thread", "lanes_reroll"])
+@pytest.mark.parametrize("variant", [None, "lanes_ring"])
 def test_traced_linesearch_matches_the_unicycle_model(dev, variant):
     """K2 on the bench OCP built from its callables (the model traced from
     them) against K2 on the hand-written unicycle model, on chip_smoke.py

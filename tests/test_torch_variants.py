@@ -140,6 +140,17 @@ def _linesearch_floats(N, A_pad):
     return nominal, A_pad * ((N + 1) * 3 + N * 2)
 
 
+def _ring_layout_holds(plan, nx=3, nu=2, npar=NPAR):
+    """The ring's layout: each stage xs, us, kff, K and ps, an odd problem
+    stride that holds a chunk's 8 stages, the ring's two slots, then the
+    winners' indices; the bytes are the total's."""
+    row, pstride, sstride, best, total = plan.layout
+    assert row == nx + 2 * nu + nu * nx + npar
+    assert pstride % 2 == 1 and 8 * row <= pstride <= 8 * row + 1
+    assert sstride == plan.problems * pstride and best == 2 * sstride
+    assert total == best + plan.problems and 4 * total == plan.smem_bytes
+
+
 @pytest.mark.parametrize("A", [1, 5, 8, 32])
 @pytest.mark.parametrize("N", [1, 10, 40, 600, 5000])
 def test_linesearch_launch_plan(N, A):
@@ -147,23 +158,33 @@ def test_linesearch_launch_plan(N, A):
     A_pad = {1: 1, 5: 8, 8: 8, 32: 32}[A]
     nominal, slots = _linesearch_floats(N, A_pad)
     assert plan.smem_bytes <= SMEM_MAX_BYTES and 1 <= plan.threads <= 1024
-    # "lanes" where there is a choice of alpha and at least a warp of lanes
-    # fits a block with its slots, else the first that fits one problem (a
-    # few floats of alignment and padding aside, which no case here sits
-    # within)
+    # one wave (no batch given): "lanes" where there is a choice of alpha
+    # and at least a warp of lanes fits a block with its slots (a few
+    # floats of alignment and padding aside, which no case here sits
+    # within), else the ring, whose bytes do not grow with N
     warp = max(1, 32 // A_pad)     # the problems of one warp of lanes
     if A > 1 and 4 * warp * (nominal + slots) < SMEM_MAX_BYTES - 64 * warp:
         expected = "lanes"
-    elif 4 * nominal < SMEM_MAX_BYTES - 64:
-        expected = "lanes_reroll"
     else:
-        expected = "thread"
+        expected = "lanes_ring"
     assert plan.variant == expected
-    if plan.variant == "thread":
-        assert (plan.problems, plan.threads, plan.smem_bytes) == (64, 64, 0)
-        return
     assert plan.threads == plan.problems * A_pad
-    kept = nominal + (slots if plan.variant == "lanes" else 0)
+    ring = linesearch_launch_plan(N, A, NPAR, "lanes_ring")
+    # 128 threads, or for one alpha as many problems as let two blocks fit
+    # an SM's 228 KB (1 KB of them reserved a block)
+    assert ring.variant == "lanes_ring"
+    assert ring.threads == (64 if A == 1 else 128) == ring.problems * A_pad
+    assert 2 * (ring.smem_bytes + 1024) <= 233_472
+    _ring_layout_holds(ring)
+    # the same bytes at every horizon and every batch
+    assert ring == linesearch_launch_plan(1, A, NPAR, "lanes_ring")
+    assert ring == linesearch_launch_plan(N, A, NPAR, "lanes_ring", B=10**6)
+    # a forced variant is the same plan, or another that fits, or an error
+    assert linesearch_launch_plan(N, A, NPAR, plan.variant) == plan
+    if plan.variant == "lanes_ring":
+        assert plan == ring
+        return
+    kept = nominal + slots
     assert plan.smem_bytes >= 4 * plan.problems * kept
     assert plan.smem_bytes <= 4 * plan.problems * (kept + A_pad + 1) + 5 * 16
     # the layout the kernel is given: five slabs that hold the block's
@@ -174,28 +195,67 @@ def test_linesearch_launch_plan(N, A):
     for start, size, end in zip(slabs, sizes, slabs[1:] + [cand]):
         assert start % 4 == 0 and start + size <= end
     assert 4 * total == plan.smem_bytes
-    if plan.variant == "lanes":
-        assert slot % 2 == 1 and slot >= (N + 1) * 3 + N * 2
-        assert cand + plan.threads * slot == best
-        assert best + plan.problems == total
-    else:
-        assert cand == best == total
-    # a forced variant is the same plan, or another that fits, or an error
-    assert linesearch_launch_plan(N, A, NPAR, plan.variant) == plan
-    assert linesearch_launch_plan(N, A, NPAR, "thread").variant == "thread"
+    assert slot % 2 == 1 and slot >= (N + 1) * 3 + N * 2
+    assert cand + plan.threads * slot == best
+    assert best + plan.problems == total
 
 
 def test_linesearch_launch_plan_at_the_bench_and_fleet_shapes():
     assert linesearch_launch_plan(40, 8, 3)[:4] == ("lanes", 8, 64, 72_672)
     assert linesearch_launch_plan(10, 12, 3)[:4] == ("lanes", 4, 64, 16_240)
     assert linesearch_launch_plan(10, 8, 3).variant == "lanes"
-    # the pre-rolls of the streaming queue and of the fleet: no slots
-    assert linesearch_launch_plan(40, 1, 3)[:3] == ("lanes_reroll", 64, 64)
-    assert linesearch_launch_plan(10, 1, 3)[:3] == ("lanes_reroll", 64, 64)
+    # the pre-rolls of the streaming queue and of the fleet: no slots, the
+    # ring's 64 problems a block at either horizon
+    assert linesearch_launch_plan(40, 1, 3)[:4] == ("lanes_ring", 64, 64,
+                                                    66_304)
+    assert linesearch_launch_plan(10, 1, 3)[:4] == ("lanes_ring", 64, 64,
+                                                    66_304)
     assert linesearch_launch_plan(40, 1, 3, "lanes").variant == "lanes"
-    # fewer lanes than a warp would fit with their slots: the winner re-rolls
-    assert linesearch_launch_plan(600, 8, 3)[:3] == ("lanes_reroll", 4, 32)
+    # fewer lanes than a warp would fit with their slots: the ring
+    assert linesearch_launch_plan(600, 8, 3)[:3] == ("lanes_ring", 16, 128)
     assert linesearch_launch_plan(600, 8, 3, "lanes")[:3] == ("lanes", 1, 8)
+
+
+# the traced planar quadrotor of the benchmark's cell: (6, 2), npar 6
+QUADROTOR = dict(nx=6, nu=2)
+
+
+@pytest.mark.parametrize("N,A,npar,kw,B,expected", [
+    # the quadrotor cell: 131,072 slots, the pre-roll over a call's rows
+    (40, 8, 6, QUADROTOR, 131072, "lanes_ring"),
+    (40, 1, 6, QUADROTOR, 131072, "lanes_ring"),
+    (40, 1, 6, QUADROTOR, 1048576, "lanes_ring"),
+    (40, 8, 6, QUADROTOR, 16384, "lanes_ring"),
+    (40, 8, 6, QUADROTOR, 4096, "lanes_ring"),
+    (40, 8, 6, QUADROTOR, 2048, "lanes"),
+    (40, 8, 6, QUADROTOR, 1024, "lanes"),
+    (40, 1, 6, QUADROTOR, 1024, "lanes_ring"),
+    # the unicycle's queue cells (npar 3, the barrier's 4) and the batch
+    (40, 8, 3, {}, 131072, "lanes_ring"),
+    (40, 8, 4, {}, 131072, "lanes_ring"),
+    (40, 8, 3, {}, 65536, "lanes_ring"),
+    (40, 8, 3, {}, 8192, "lanes_ring"),
+    (40, 1, 3, {}, 1048576, "lanes_ring"),
+    (40, 8, 3, {}, 4096, "lanes"),
+    (40, 8, 3, {}, 1024, "lanes"),
+    (40, 1, 3, {}, 1024, "lanes_ring"),
+    # the fleet: N = 10, 12 alphas, 524,288 robots
+    (10, 12, 3, {}, 524288, "lanes"),
+    (10, 1, 3, {}, 524288, "lanes_ring"),
+    (10, 12, 3, {}, 1024, "lanes")])
+def test_linesearch_launch_plan_takes_the_batch(N, A, npar, kw, B, expected):
+    """Where its grid runs in up to two waves "lanes" keeps the width the
+    solvers' tests run (1,024), and the fleet's 13 blocks (26 warps) an SM
+    keep it at any width; where the batch runs many waves of few warps an
+    SM the plan takes the ring, as measured on the card at the cells'
+    widths: the quadrotor's and the unicycle's queues.  One alpha takes
+    the ring.  A forced variant ignores the batch."""
+    plan = linesearch_launch_plan(N, A, npar, B=B, **kw)
+    assert plan.variant == expected
+    assert plan == linesearch_launch_plan(N, A, npar, expected, B=B, **kw)
+    assert plan == linesearch_launch_plan(N, A, npar, expected, **kw)
+    if expected == "lanes_ring":
+        _ring_layout_holds(plan, kw.get("nx", 3), kw.get("nu", 2), npar)
 
 
 def test_linesearch_launch_plan_refuses():
@@ -203,10 +263,16 @@ def test_linesearch_launch_plan_refuses():
         linesearch_launch_plan(40, rollout.MAX_ALPHAS + 1, 3)
     with pytest.raises(ValueError, match="unknown"):
         linesearch_launch_plan(40, 8, 3, "warp")
+    with pytest.raises(ValueError, match="unknown"):
+        linesearch_launch_plan(40, 8, 3, "thread")
     with pytest.raises(ValueError, match="shared memory"):
         linesearch_launch_plan(5000, 8, 3, "lanes")
-    with pytest.raises(ValueError, match="shared memory"):
-        linesearch_launch_plan(5000, 8, 3, "lanes_reroll")
+    # a stage row of 8,013 floats: one problem's ring of two 8-stage chunks
+    # takes 512,844 bytes, forced or planned
+    with pytest.raises(ValueError, match="'lanes_ring' needs 512844 bytes"):
+        linesearch_launch_plan(40, 8, 8000, "lanes_ring")
+    with pytest.raises(ValueError, match="'lanes_ring' needs 512844 bytes"):
+        linesearch_launch_plan(40, 8, 8000, B=131072)
 
 
 @pytest.mark.parametrize("use_ddp", [True, False])
@@ -314,7 +380,13 @@ LINEAR_SHAPES = [(5, 4, 4), (20, 4, 4), (5, 16, 4), (10, 25, 5), (50, 0, 5),
 def test_linesearch_launch_plan_at_the_linear_shapes(N, npar, nx, A):
     plan = linesearch_launch_plan(N, A, npar, nx=nx, nu=1)
     A_pad = 1 << (A - 1).bit_length()
-    assert plan.variant == ("lanes" if A > 1 else "lanes_reroll")
+    if A == 1:
+        assert plan.variant == "lanes_ring"
+        assert plan.problems == plan.threads <= 128
+        assert 2 * (plan.smem_bytes + 1024) <= 233_472
+        _ring_layout_holds(plan, nx, 1, npar)
+        return
+    assert plan.variant == "lanes"
     assert plan.problems == 64 // A_pad and plan.threads == 64
     *slabs, cand, best, slot, total = plan.layout
     sizes = [plan.problems * n for n in
@@ -322,9 +394,8 @@ def test_linesearch_launch_plan_at_the_linear_shapes(N, npar, nx, A):
     for start, size, end in zip(slabs, sizes, slabs[1:] + [cand]):
         assert start % 4 == 0 and start + size <= end
     assert 4 * total == plan.smem_bytes <= SMEM_MAX_BYTES
-    if plan.variant == "lanes":
-        assert slot % 2 == 1 and slot >= (N + 1) * nx + N
-        assert cand + plan.threads * slot == best
+    assert slot % 2 == 1 and slot >= (N + 1) * nx + N
+    assert cand + plan.threads * slot == best
     # the unicycle's sizes are the default
     assert (linesearch_launch_plan(N, A, npar)
             == linesearch_launch_plan(N, A, npar, nx=3, nu=2))
@@ -338,7 +409,7 @@ def test_linesearch_launch_plan_at_the_family_shapes():
     assert linesearch_launch_plan(50, 12, 1, nx=5, nu=1)[:4] == (
         "lanes", 4, 64, 88_592)
     assert linesearch_launch_plan(50, 1, 1, nx=5, nu=1)[:4] == (
-        "lanes_reroll", 64, 64, 167_936)
+        "lanes_ring", 128, 128, 108_032)
 
 
 @pytest.mark.parametrize("use_ddp", [True, False])
